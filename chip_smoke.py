@@ -23,7 +23,17 @@ error:
 6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30 on the card and on
    the CPU (plain versions), channel by channel;
 7. profile: device activities, device busy time and idle share per
-   iteration of the paths of phases 4 and 5, under ``torch.profiler``.
+   iteration of the paths of phases 4 and 5, under ``torch.profiler``;
+8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
+   ``attn_impl="pallas_swa"``, random weights from a seeded generator):
+   one prefill of 32768 tokens through the steps of
+   ``repro_torch.launch.steps``, counting ``swa_attention`` launches and
+   holding layer 0's kernel output against the plain version on three
+   heads, then four requests decoded one token at a time (16 prompt
+   tokens replayed into the KV cache, 16 greedy tokens) against
+   ``forward`` on the same tokens;
+9. serve_cpu: the starcoder2 smoke configuration (fp32, S=128) on the card
+   and on the CPU (plain versions), logits within atol=rtol 1e-4.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  It imports nothing of the
@@ -43,10 +53,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM3 bytes/s
-# and fp32 FLOP/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM3 bytes/s,
+# fp32 FLOP/s outside the tensor cores and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 # golden tolerances of tests/test_golden_trajectory.py
 RTOL, ATOL = 2e-4, 2e-5
@@ -63,11 +74,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS) -> tuple[float, str]:
     """Least time in ms for the work: the larger of its bytes over the
-    memory rate and its operations over the fp32 rate."""
+    memory rate and its operations over the peak rate of their type
+    (fp32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -208,7 +221,114 @@ def phase_kernels(torch, dev, seed: int) -> dict[str, dict]:
           f"err {abs_err:.3g} (tol exact); kernel_ms {ms:.4f} plain_ms "
           f"{plain:.4f} library_ms {lib:.4f} (torch.sparse.mm, CSR) bound_ms "
           f"{b_ms:.4f} ({b_by})")
+    del w, got, ref, csr
+    rows["swa_attention"] = _swa_row(torch, dev, gen)
     return rows
+
+
+def swa_pairs(s: int, window: int) -> int:
+    """In-window (query, key) pairs of causal sliding-window attention."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def swa_bound(b: int, s: int, h: int, g: int, dh: int, window: int,
+              elem_bytes: int) -> tuple[float, str]:
+    """q, k, v read once and out written once, against 4 dh flops per
+    in-window pair and head at the bf16 tensor-core peak."""
+    nbytes = b * s * (2 * h + 2 * g) * dh * elem_bytes
+    flops = 4 * dh * h * b * swa_pairs(s, window)
+    return bound(nbytes, flops, BF16_TC_FLOPS)
+
+
+# swa_attention against its plain version, per output dtype: (atol, rtol,
+# relative L2).  Both sides sum the same fp32 products of the same inputs
+# in another order and round once to the output dtype, so in bf16 they
+# differ by at most about one bf16 step (2^-8 of the value); the limits
+# sit a few such steps above that and well below the outputs' scale.
+SWA_TOL = {"fp32": (2e-5, 2e-5, None), "bf16": (5e-3, 1e-2, 1e-2)}
+
+
+def swa_close(torch, got, ref, name: str) -> tuple[bool, float, float, float]:
+    """Whether ``got`` lies within ``SWA_TOL[name]`` of ``ref``, with the
+    max abs error, the relative L2 error and the std of ``ref``."""
+    atol, rtol, rel_max = SWA_TOL[name]
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    ok = bool(torch.allclose(got, ref, atol=atol, rtol=rtol))
+    ok = ok and (rel_max is None or rel <= rel_max)
+    return ok, err, rel, float(ref.std())
+
+
+def swa_tol_text(name: str) -> str:
+    atol, rtol, rel_max = SWA_TOL[name]
+    rel = "" if rel_max is None else f", rel L2 {rel_max}"
+    return f"atol {atol} rtol {rtol}{rel}"
+
+
+def _swa_row(torch, dev, gen) -> dict:
+    """swa_attention at starcoder2-15b's heads (H=48, G=4, dh=128, window
+    4096): against its plain version at S=8192 in fp32 and bf16, timed at
+    S=8192 beside the plain version and one library call, and at S=32768,
+    the prefill's length.  The row's numbers are the bf16 ones, the dtype
+    of the serving path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa.ref import swa_ref
+
+    b, h, g, dh, win = 1, 48, 4, 128, 4096
+    row: dict = {"name": "swa_attention", "shape": [b, 8192, h, g, dh],
+                 "window": win}
+
+    def inputs(s, dtype):
+        return [torch.randn((b, s, n, dh), generator=gen, device=dev).to(dtype)
+                for n in (h, g, g)]
+
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k, v = inputs(8192, dtype)
+        got = swa_ops.swa_attention(q, k, v, window=win)
+        ref = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      window=win).transpose(1, 2)
+        ok, err, rel, scale = swa_close(torch, got, ref, name)
+        check(ok, f"swa_attention S=8192 {name}: outside {swa_tol_text(name)} "
+                  f"(max abs err {err:.3g}, rel L2 {rel:.3g})")
+        row[f"max_abs_err_{name}"] = err
+        row[f"rel_l2_{name}"] = rel
+        print(f"kernel swa_attention S=8192 {name}: max abs err {err:.3g}, rel "
+              f"L2 {rel:.3g}, output std {scale:.3g} (tol {swa_tol_text(name)})")
+        del got, ref
+    row["max_abs_err"] = row["max_abs_err_bf16"]
+    row["tolerance"] = f"fp32 {swa_tol_text('fp32')}; bf16 {swa_tol_text('bf16')}"
+
+    # timing on the loop's last (bf16) inputs: q, k, v in the model layout
+    # for the kernel, in the (B, H, S, dh) layout for the plain version and
+    # the library call
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row["ms"] = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
+                        reps=10, warmup=2)
+    row["plain_ms"] = time_ms(torch, lambda: swa_ref(qt, kt, vt, window=win),
+                              reps=5, warmup=1)
+    pos = torch.arange(8192, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=5, warmup=1)
+    row["bound_ms"], row["bound_by"] = swa_bound(b, 8192, h, g, dh, win, 2)
+    del q, k, v, qt, kt, vt, mask
+    q, k, v = inputs(32768, torch.bfloat16)
+    row["ms_s32768"] = time_ms(
+        torch, lambda: swa_ops.swa_attention(q, k, v, window=win), reps=5, warmup=1)
+    row["bound_ms_s32768"], _ = swa_bound(b, 32768, h, g, dh, win, 2)
+    del q, k, v
+    print(f"kernel swa_attention B={b} H={h} G={g} dh={dh} window={win} bf16: "
+          f"S=8192 kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+          f"library_ms {row['library_ms']:.4f} "
+          f"(F.scaled_dot_product_attention, bool mask, "
+          f"enable_gqa) bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+          f"S=32768 kernel_ms {row['ms_s32768']:.4f} bound_ms "
+          f"{row['bound_ms_s32768']:.4f}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -260,18 +380,21 @@ def _finite(res, label: str) -> None:
               f"{label}: channel {f} is not finite")
 
 
-def _reset_launches() -> None:
+def _launch_counts() -> tuple[dict[str, int], ...]:
     from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.trigger import ops as trigger_ops
-    for counts in (trigger_ops.LAUNCHES, mixing_ops.LAUNCHES):
+    return trigger_ops.LAUNCHES, mixing_ops.LAUNCHES, swa_ops.LAUNCHES
+
+
+def _reset_launches() -> None:
+    for counts in _launch_counts():
         for k in counts:
             counts[k] = 0
 
 
 def _launches() -> dict[str, int]:
-    from repro_torch.kernels.mixing import ops as mixing_ops
-    from repro_torch.kernels.trigger import ops as trigger_ops
-    return {**trigger_ops.LAUNCHES, **mixing_ops.LAUNCHES}
+    return {k: n for counts in _launch_counts() for k, n in counts.items()}
 
 
 def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
@@ -392,6 +515,202 @@ def phase_profile(torch, dev) -> None:
             print(f"profile {name}:   {ms:9.3f} ms in the T=8 run  {kname[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the architecture model's serving path
+# ---------------------------------------------------------------------------
+
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profile_line(torch, label: str, wall_ms: float, n: int, run) -> None:
+    """Device activities and busy time per call of ``run`` (which makes
+    ``n`` calls) under the profiler, the idle share against ``wall_ms``
+    per call measured without it, and the kernels that take the most."""
+    n_act, busy, per_name = _device_activity(torch, run)
+    if not n_act:
+        print(f"{label} profile: the profiler saw no device activity; busy "
+              f"share not measured")
+        return
+    swa = sum(ms for name, ms in per_name.items() if "swa_kernel" in name)
+    print(f"{label} profile: {n_act / n:.0f} device activities per call, device "
+          f"busy {busy / n:.2f} ms of {wall_ms:.2f} ms (idle share "
+          f"{1 - busy / n / wall_ms:.3f}); swa_attention {swa / n:.2f} ms")
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"{label} profile:   {ms / n:9.3f} ms per call  {name[:90]}")
+
+
+def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
+                prompt: int = 16, new: int = 16, cache_len: int = 4096,
+                heads=(0, 23, 47), seed: int = 0) -> int:
+    """starcoder2-15b (or ``cfg``) with ``attn_impl="pallas_swa"``: one
+    prefill of ``seq`` tokens (the prefill_32k length, batch cut from 32
+    to 1), then ``n_req`` requests decoded token by token.  Returns the
+    ``swa_attention`` launches of the prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa.ref import swa_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = dataclasses.replace(cfg or get_config("starcoder2-15b"),
+                              attn_impl="pallas_swa")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    _sync(torch, dev)
+    leaves: list = []
+    M.tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"serve {cfg.name}: {cfg.n_layers} layers, {n_params} parameters "
+          f"({n_bytes / 1e9:.2f} GB {cfg.dtype}) drawn on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    prefill = steps.make_prefill_step(cfg)
+    tokens = torch.as_tensor(token_dataset(seq, vocab=cfg.vocab, seed=seed),
+                             dtype=torch.int64, device=dev)[None]
+
+    # (a) prefill: count the kernel's launches, keep layer 0's kernel
+    # inputs and output for the check against the plain version
+    first: list = []
+    real = swa_ops.swa_attention
+
+    def capture(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        if not first:
+            first.append((q, k, v, out, kw["window"]))
+        return out
+
+    swa_ops.swa_attention = capture
+    try:
+        _reset_launches()
+        logits = prefill(params, {"tokens": tokens})
+        _sync(torch, dev)
+        launches = _launches()["swa_attention"]
+    finally:
+        swa_ops.swa_attention = real
+    check(launches == cfg.n_layers,
+          f"serve prefill: expected {cfg.n_layers} swa_attention launches, got "
+          f"{launches}")
+    check(tuple(logits.shape) == (1, seq, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"serve prefill: logits {tuple(logits.shape)} not finite or misshaped")
+    del logits
+    q, k, v, out, win = first.pop()
+    group = cfg.n_heads // cfg.n_kv_heads
+    tol = "bf16" if out.dtype == torch.bfloat16 else "fp32"
+    errs, rels, scales = [], [], []
+    for hh in heads:
+        gg = hh // group
+        ref = swa_ref(q[:, :, hh:hh + 1].transpose(1, 2),
+                      k[:, :, gg:gg + 1].transpose(1, 2),
+                      v[:, :, gg:gg + 1].transpose(1, 2), window=win).transpose(1, 2)
+        ok, err, rel, scale = swa_close(torch, out[:, :, hh:hh + 1], ref, tol)
+        errs.append(err)
+        rels.append(rel)
+        scales.append(scale)
+        check(ok, f"serve prefill: layer 0 head {hh} outside {swa_tol_text(tol)} "
+                  f"of the plain version (max abs err {err:.3g}, rel L2 {rel:.3g})")
+        del ref
+    del q, k, v, out
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    _sync(torch, dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    del logits
+    print(f"serve prefill B=1 S={seq}: {launches} swa_attention launches; logits "
+          f"finite; layer 0 heads {list(heads)} vs plain: max abs err "
+          f"{max(errs):.3g}, rel L2 {max(rels):.3g}, output std "
+          f"{min(scales):.3g}-{max(scales):.3g} (tol {swa_tol_text(tol)}); "
+          f"{prefill_ms:.1f} ms "
+          f"({seq / prefill_ms * 1e3:.0f} tokens/s, host clock to a sync, second "
+          f"run); peak memory {peak:.2f} GB")
+    if on_card:
+        _profile_line(torch, "serve prefill", prefill_ms, 1,
+                      lambda: prefill(params, {"tokens": tokens}))
+
+    # (b) decode: prompts replayed into the ring-buffer cache, then greedy
+    serve = steps.make_serve_step(cfg)
+    prompts = token_dataset(n_req * prompt, vocab=cfg.vocab, seed=seed + 1)
+    fed = torch.zeros((n_req, prompt + new), dtype=torch.int64, device=dev)
+    fed[:, :prompt] = torch.as_tensor(prompts.reshape(n_req, prompt))
+    cache = M.init_cache(cfg, n_req, cache_len, device=dev)
+    dec = []
+    t0 = time.perf_counter()
+    for t in range(prompt):
+        lg, cache = serve(params, cache, fed[:, t], t)
+        dec.append(lg)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for t in range(prompt, prompt + new):
+        fed[:, t] = dec[-1].argmax(-1)
+        lg, cache = serve(params, cache, fed[:, t], t)
+        dec.append(lg)
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    dec = torch.stack(dec, 1).float()
+    fwd = prefill(params, {"tokens": fed}).float()
+    rel = float(((dec - fwd).norm(dim=(1, 2)) / fwd.norm(dim=(1, 2))).max())
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(dec).all()) and rel <= 5e-2,
+          f"serve decode: decode logits vs forward relative L2 {rel:.3g} > 5e-2")
+    step_ms = (t2 - t1) * 1e3 / new
+    print(f"serve decode B={n_req} cache_len={cache_len}: {prompt} prompt tokens "
+          f"replayed in {(t1 - t0) * 1e3 / prompt:.2f} ms/step, {new} greedy steps "
+          f"at {step_ms:.2f} ms/step ({n_req * 1e3 / step_ms:.1f} tokens/s); "
+          f"logits at {prompt + new} positions vs forward: max relative L2 "
+          f"{rel:.3g} (tol 5e-2), argmax agreement {agree:.3f}")
+    if on_card:
+        _profile_line(torch, "serve decode", step_ms, 4, lambda: [
+            serve(params, cache, fed[:, -1], t)
+            for t in range(prompt + new, prompt + new + 4)])
+    del params, cache, dec, fwd
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> None:
+    """The starcoder2 smoke configuration (fp32, pallas_swa) on the card
+    (kernel) and on the CPU (plain version), one set of weights."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(smoke_config("starcoder2-15b"), attn_impl="pallas_swa")
+    cpu_params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    card_params = M.tree_map(lambda t: t.to(dev), cpu_params)
+    tokens = torch.as_tensor(token_dataset(2 * seq, vocab=cfg.vocab, seed=seed),
+                             dtype=torch.int64).reshape(2, seq)
+    prefill = steps.make_prefill_step(cfg)
+    _reset_launches()
+    card = prefill(card_params, {"tokens": tokens.to(dev)})
+    _sync(torch, dev)
+    launches = _launches()["swa_attention"]
+    check(launches == cfg.n_layers,
+          f"serve_cpu: expected {cfg.n_layers} swa_attention launches, got {launches}")
+    cpu = prefill(cpu_params, {"tokens": tokens})
+    err = float((card.cpu() - cpu).abs().max())
+    check(bool(torch.allclose(card.cpu(), cpu, atol=1e-4, rtol=1e-4)),
+          f"serve_cpu: card vs cpu logits outside atol=rtol 1e-4 (max abs err "
+          f"{err:.3g})")
+    print(f"serve card vs cpu {cfg.name} fp32 S={seq}: {launches} swa_attention "
+          f"launches on the card, logits max abs err {err:.3g} (tol atol=rtol 1e-4)")
+
+
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
                    "src/repro/kernels/trigger/kernel.py:39"),
@@ -399,6 +718,8 @@ KERNEL_SOURCES = {
             "src/repro/kernels/mixing/kernel.py:32"),
     "mix_sparse": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
                    "src/repro/kernels/mixing/kernel.py:74"),
+    "swa_attention": ("src/repro_torch/kernels/csrc/swa_attention.cu",
+                      "src/repro/kernels/swa/kernel.py:76"),
 }
 
 
@@ -433,6 +754,8 @@ def main() -> int:
                     "mix_sparse": phase_fleet(dev)[0]["mix_sparse"]}
         phase_cpu(dev)
         phase_profile(torch, dev)
+        launches["swa_attention"] = phase_serve(torch, dev)
+        phase_serve_cpu(torch, dev)
         torch.cuda.synchronize()
     except Exception as exc:  # report any phase's failure, then exit non-zero
         import traceback

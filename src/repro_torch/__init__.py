@@ -1,11 +1,14 @@
-"""repro_torch: the EF-HC decentralized-FL simulator in PyTorch and CUDA.
+"""repro_torch: the EF-HC decentralized-FL simulator and the architecture
+models' serving path in PyTorch and CUDA.
 
 A port of the JAX package ``repro`` for NVIDIA Hopper GPUs.  It keeps
 ``repro``'s layout and names (``repro_torch/core/efhc.py`` is the
-counterpart of ``repro/core/efhc.py``, and so on) and reproduces its
-random streams, so a run realizes the same graphs, triggers and
-trajectories from the same seed.  The TPU kernels of the simulation path
-are hand-written CUDA kernels here (``repro_torch/kernels``).
+counterpart of ``repro/core/efhc.py``, and so on).  The simulator
+reproduces ``repro``'s random streams, so a run realizes the same graphs,
+triggers and trajectories from the same seed.  ``models``, ``configs``
+and ``launch.steps`` serve starcoder2-15b (prefill and one-token decode).
+Every TPU kernel of ``repro`` is a hand-written CUDA kernel here
+(``repro_torch/kernels``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they never move to the CPU on their own.

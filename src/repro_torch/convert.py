@@ -6,6 +6,8 @@ arrays (``jax.device_get`` of the reference's pytree) and returns the
 port's ``dict[str, Tensor]``; ``params_to_numpy`` goes back.
 ``state_from_jax`` does the same for an ``EFHCState``-like object, so a
 test can start both implementations from one state.
+``arch_params_from_jax`` carries an architecture model's nested parameter
+tree (``repro_torch.models.model``) across, bf16 leaves included.
 """
 from __future__ import annotations
 
@@ -13,16 +15,36 @@ import numpy as np
 import torch
 
 from repro_torch.core import efhc
+from repro_torch.models.model import tree_map
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """numpy array -> tensor (a copy); an ``ml_dtypes`` bfloat16 array,
+    which ``torch.as_tensor`` rejects, crosses as its uint16 bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(np_tree: dict, device) -> dict[str, torch.Tensor]:
     """{name: (m, ...) array} -> {name: tensor on ``device``} (copies)."""
-    return {k: torch.as_tensor(np.array(v)).to(device)
-            for k, v in sorted(np_tree.items())}
+    return {k: tensor_from_numpy(v).to(device) for k, v in sorted(np_tree.items())}
 
 
 def params_to_numpy(tree: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in sorted(tree.items())}
+
+
+def arch_params_from_jax(np_tree, device, dtype=None):
+    """The reference's nested parameter tree (dicts and lists of numpy
+    arrays, ``jax.device_get`` of ``repro.models.model.init_params``) -> the
+    same tree of tensors on ``device``, cast to ``dtype`` if given."""
+    def leaf(a):
+        t = tensor_from_numpy(a).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    return tree_map(leaf, np_tree)
 
 
 def state_from_jax(state, device, *, opt_state=None) -> efhc.EFHCState:

@@ -1,8 +1,9 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel on
-the simulation path:
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of
+the JAX package:
 
   trigger/ - per-device ||w - w_hat||^2 row reduction   (paper Event 2)
   mixing/  - dense P @ W and the ELL gather-mix          (paper Event 3)
+  swa/     - sliding-window causal attention with GQA    (model prefill)
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (built on first
 use by ``build.py`` from ``csrc/``) and counts the launch in its module's

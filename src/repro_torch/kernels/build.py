@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu")
+SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu",
+                             "swa_attention.cu")
 NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -29,6 +30,8 @@ _SIGNATURES = {
     "repro_trigger_sq_f32": (_P, _P, _P, _I64, _I64, _P),
     "repro_mix_f32": (_P, _P, _P, _I64, _I64, _P),
     "repro_mix_sparse_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "repro_swa_attention_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
+    "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

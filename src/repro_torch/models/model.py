@@ -1,0 +1,230 @@
+"""Full model assembly for serving (port of ``repro/models/model.py``).
+
+Params tree, the reference's pytree as plain dicts of tensors:
+  {"embed": {...}, "stages": [stage0, stage1, ...], "final_norm": {...},
+   "head": {...}}
+
+Each stage corresponds to one (cycle, repeat) entry of cfg.layer_plan and is
+a dict {block_name_i: stacked_params} with leading axis ``repeat``; a stage
+runs as a Python loop over ``range(repeat)`` on views of the stacked leaves
+(the reference's ``lax.scan``).
+
+Batch dict: ``tokens`` (B, S) integer ids.  Training (``loss_fn``, the MTP
+head) is ROADMAP Queue 1 item 18; modality frontends are item 16.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.layers import (apply_head, apply_norm, embed_tokens,
+                                       init_embed, init_head, init_norm,
+                                       torch_dtype)
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and (named) tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return fn(tree, *rest)
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.mtp:
+        raise NotImplementedError("the MTP head is not ported to repro_torch "
+                                  "yet: ROADMAP Queue 1 item 12 (MLA attention)")
+    if cfg.frontend is not None:
+        raise NotImplementedError("modality frontends are not ported to "
+                                  "repro_torch yet: ROADMAP Queue 1 item 16")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
+                device="cuda") -> dict:
+    """Random parameters drawn from ``generator`` (on its own device) into
+    tensors on ``device``.  A stage's stacked leaves are filled one layer
+    slice at a time, so no draw is larger than one layer's biggest weight.
+    On the ``meta`` device nothing is drawn or allocated."""
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+    meta = torch.device(device).type == "meta"
+    if not meta:
+        device = resolve_device(device)
+        if generator is None:
+            raise ValueError("init_params draws from a torch.Generator; pass one")
+    params: dict[str, Any] = {
+        "embed": init_embed(cfg, generator, dtype, device),
+        "final_norm": init_norm(cfg, cfg.d_model, dtype, device),
+        "head": init_head(cfg, generator, dtype, device),
+        "stages": [],
+    }
+    for cycle, repeat in cfg.layer_plan:
+        stage = {}
+        for bi, bt in enumerate(cycle):
+            shapes = blocks.init_block(cfg, bt, None, dtype, "meta")
+            stacked = tree_map(lambda t: torch.empty((repeat, *t.shape), dtype=t.dtype,
+                                                     device=device), shapes)
+            for r in range(0 if meta else repeat):
+                layer = blocks.init_block(cfg, bt, generator, dtype, device)
+                tree_map(lambda dst, src: dst[r].copy_(src), stacked, layer)
+                del layer
+            stage[f"{bi}_{bt}"] = stacked
+        params["stages"].append(stage)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# backbone (sequence form)
+# ---------------------------------------------------------------------------
+
+def _stage_seq(cfg: ArchConfig, cycle, repeat, stage_params, x, positions,
+               prefix_len):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(repeat):
+        for bi, bt in enumerate(cycle):
+            layer = tree_map(lambda t: t[r], stage_params[f"{bi}_{bt}"])
+            x, a = blocks.block_seq(cfg, bt, layer, x, positions, prefix_len=prefix_len)
+            aux = aux + a
+    return x, aux
+
+
+def backbone_seq(cfg: ArchConfig, params, x, positions, prefix_len=None):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (cycle, repeat), stage_params in zip(cfg.layer_plan, params["stages"]):
+        x, aux = _stage_seq(cfg, cycle, repeat, stage_params, x, positions,
+                            prefix_len)
+        aux_total = aux_total + aux
+    return apply_norm(cfg, params["final_norm"], x), aux_total
+
+
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """Returns (x (B,S,D), positions (S,), prefix_len or None); tokens only."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params["embed"], tokens)
+    return x, torch.arange(x.shape[1], device=x.device), None
+
+
+def forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
+    x, positions, prefix_len = _embed_inputs(cfg, params, batch)
+    h, aux = backbone_seq(cfg, params, x, positions, prefix_len)
+    logits = apply_head(cfg, params["head"], params["embed"], h)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
+    """Empty KV caches, one stacked (repeat, ...) tree per stage."""
+    device = resolve_device(device)
+    dtype = _dtype(cfg)
+    caches = []
+    for (cycle, repeat) in cfg.layer_plan:
+        stage = {}
+        for bi, bt in enumerate(cycle):
+            one = blocks.init_block_cache(cfg, bt, batch, cache_len, dtype, device)
+            stage[f"{bi}_{bt}"] = tree_map(
+                lambda c: c[None].repeat(repeat, *([1] * c.dim())), one)
+        caches.append(stage)
+    return caches
+
+
+def decode_step(cfg: ArchConfig, params, caches, token_t: torch.Tensor, t: int):
+    """One-token decode.  token_t (B,) ids; t the absolute position.
+    Returns (logits (B,V), caches); the caches are updated in place and
+    returned."""
+    x = embed_tokens(params["embed"], token_t[:, None])
+    for (cycle, repeat), stage_params, stage_cache in zip(
+            cfg.layer_plan, params["stages"], caches):
+        for r in range(repeat):
+            for bi, bt in enumerate(cycle):
+                name = f"{bi}_{bt}"
+                layer_p = tree_map(lambda a: a[r], stage_params[name])
+                layer_c = tree_map(lambda a: a[r], stage_cache[name])
+                x, _ = blocks.block_decode(cfg, bt, layer_p, x, layer_c, t)
+    h = apply_norm(cfg, params["final_norm"], x)
+    logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
+    return logits, caches
+
+
+def prefill(cfg: ArchConfig, params, batch):
+    """Prompt-processing forward (the `prefill_32k` shape): full-sequence
+    logits.  A decode cache is built by replaying ``decode_step`` over the
+    prompt."""
+    logits, _ = forward(cfg, params, batch)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter count
+# ---------------------------------------------------------------------------
+
+def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
+    d, h, g, dh, ff, v = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab
+    total = v * d  # embed
+    if not cfg.tie_embeddings:
+        total += d * v
+    if cfg.frontend is not None:
+        total += cfg.frontend.dim * d
+
+    def block_params(bt: str) -> int:
+        n = 0
+        if bt in ("mlstm", "slstm"):
+            di = cfg.ssm_expand * d
+            if bt == "mlstm":
+                n += 2 * d * di + 3 * di * di + di * 2 * h + di * d + di
+            else:
+                dhh = d // h
+                n += d * 4 * d + 4 * h * dhh * dhh + 4 * d + d
+                n += 2 * d * ((4 * d) // 3) + ((4 * d) // 3) * d
+            return n + d  # norm
+        if bt in ("mla", "mla_moe"):
+            m = cfg.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            n += d * m.q_lora_rank + m.q_lora_rank * h * qk
+            n += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            n += m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+            n += h * m.v_head_dim * d
+        elif bt in ("attn", "attn_g", "moe", "hybrid", "hybrid_g"):
+            n += d * h * dh + 2 * d * g * dh + h * dh * d
+        if bt in ("hybrid", "hybrid_g", "mamba"):
+            di = cfg.ssm_expand * d
+            dt_rank = max(d // 16, 1)
+            n += 2 * d * di + cfg.ssm_conv * di + di * 2 * cfg.ssm_state
+            n += di * dt_rank + dt_rank * di + di * cfg.ssm_state + 2 * di + di * d
+        if bt in ("moe", "mla_moe"):
+            m = cfg.moe
+            gated = 3 if cfg.act in ("swiglu", "geglu") else 2
+            per_expert = gated * d * m.d_expert
+            experts = m.top_k if active_only else m.n_experts
+            n += d * m.n_experts + experts * per_expert + m.n_shared * per_expert
+            n += 2 * d  # two norms
+        elif bt in ("attn", "attn_g", "mla", "hybrid", "hybrid_g") and ff > 0:
+            gated = 3 if cfg.act in ("swiglu", "geglu") else 2
+            n += gated * d * ff + 2 * d
+        else:
+            n += d
+        return n
+
+    for cycle, repeat in cfg.layer_plan:
+        total += repeat * sum(block_params(bt) for bt in cycle)
+    if cfg.mtp:
+        total += 2 * d * d + block_params("attn")
+    return int(total)

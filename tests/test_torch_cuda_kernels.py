@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.mixing import ops as tmix  # noqa: E402
 from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref  # noqa: E402
+from repro_torch.kernels.swa import ops as tswa  # noqa: E402
+from repro_torch.kernels.swa.ref import swa_ref  # noqa: E402
 from repro_torch.kernels.trigger import ops as ttrig  # noqa: E402
 from repro_torch.kernels.trigger.ref import trigger_sq_ref  # noqa: E402
 
@@ -73,9 +75,49 @@ def test_mix_sparse_kernel_bit_equal_to_plain(cuda, m, n):
 
 
 @pytest.mark.gpu
+# (atol, rtol, relative L2): both sides sum the same fp32 products in another
+# order and round once, so bf16 outputs differ by about one bf16 step
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 2e-5, None)),
+                                       (torch.bfloat16, (5e-3, 1e-2, 1e-2))])
+@pytest.mark.parametrize("shape", [
+    # (B, S, H, G, dh, window): the shapes of tests/test_kernels.py, then
+    # ragged S and window, a window past S, and starcoder2's heads
+    (1, 256, 4, 2, 64, 64), (2, 128, 2, 2, 32, 128), (1, 512, 4, 1, 64, 128),
+    (1, 128, 8, 4, 128, 32), (1, 200, 4, 2, 128, 48), (2, 100, 2, 1, 32, 500),
+    (1, 1024, 48, 4, 128, 256),
+])
+def test_swa_kernel_matches_plain(cuda, shape, dtype, tol):
+    b, s, h, g, dh, win = shape
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=cuda).to(dtype)
+               for n in (h, g, g))
+    before = tswa.LAUNCHES["swa_attention"]
+    got = tswa.swa_attention(q, k, v, window=win)
+    assert tswa.LAUNCHES["swa_attention"] == before + 1
+    want = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   window=win).transpose(1, 2)
+    assert got.dtype == dtype
+    atol, rtol, rel_max = tol
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if rel_max is not None:
+        norm = torch.linalg.vector_norm
+        assert norm(got - want) <= rel_max * norm(want)
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w = torch.zeros((4, 10), device=cuda)
     with pytest.raises(TypeError):
         ttrig.trigger_sq(w.double(), w.double())
     with pytest.raises(ValueError):
         tmix.mix(torch.eye(4, device=cuda), torch.zeros((10, 4), device=cuda).t())
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    with pytest.raises(TypeError):
+        tswa.swa_attention(q.half(), q.half(), q.half(), window=16)
+    with pytest.raises(ValueError):  # dh 48 has no kernel
+        tswa.swa_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                           q[..., :48].contiguous(), window=16)
+    with pytest.raises(ValueError):  # not contiguous
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        tswa.swa_attention(qt, qt, qt, window=16)

@@ -40,7 +40,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.api, "
-            "repro_torch.convert, repro_torch.kernels.build; "
+            "repro_torch.convert, repro_torch.kernels.build, "
+            "repro_torch.configs, repro_torch.launch.steps; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro loaded'")

@@ -1,0 +1,86 @@
+"""The port's sliding-window attention against the JAX package's.
+
+On the CPU ``repro_torch.kernels.swa.ops.swa_attention`` runs its plain
+version (``ref.py``); it is held against the Pallas kernel in interpret
+mode and against the reference's dense oracle ``swa_ref`` over the shapes
+of ``tests/test_kernels.py``, at fp32 atol=rtol 2e-5 and bf16 3e-2 (the
+reference's own tolerances).  ``test_torch_cuda_kernels.py`` holds the
+CUDA kernel against the plain version on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.swa.ops import swa_attention as j_swa  # noqa: E402
+from repro.kernels.swa.ref import swa_ref as j_swa_ref  # noqa: E402
+from repro_torch.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels.swa import ops as tswa  # noqa: E402
+from repro_torch.kernels.swa.ref import swa_ref as t_swa_ref  # noqa: E402
+
+SHAPES = [
+    # (B, S, H, G, dh, window, bq, bk), as tests/test_kernels.py
+    (1, 256, 4, 2, 64, 64, 64, 32),
+    (2, 128, 2, 2, 32, 128, 32, 32),
+    (1, 512, 4, 1, 64, 128, 128, 64),
+    (1, 128, 8, 4, 128, 32, 32, 32),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _qkv(shape, jdt):
+    b, s, h, g, dh = shape[:5]
+    rng = np.random.default_rng(list(shape))
+    return [jnp.asarray(rng.normal(size=(b, s, n, dh)).astype(np.float32)).astype(jdt)
+            for n in (h, g, g)]
+
+
+def _np32(x) -> np.ndarray:
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_swa_matches_pallas_and_oracle(shape, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    win, bq, bk = shape[5:]
+    q, k, v = _qkv(shape, jdt)
+    pallas = j_swa(q, k, v, window=win, block_q=bq, block_k=bk, interpret=True)
+    oracle = j_swa_ref(q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+                       v.transpose(0, 2, 1, 3), window=win).transpose(0, 2, 1, 3)
+    tq, tk, tv = (tensor_from_numpy(x) for x in (q, k, v))
+    got = tswa.swa_attention(tq, tk, tv, window=win)
+    assert got.dtype == tdt and tuple(got.shape) == tuple(q.shape)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np32(got), _np32(want), atol=tol, rtol=tol)
+    # the plain version alone, in the (B, H, S, dh) layout of ref.py
+    direct = t_swa_ref(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+                       window=win).transpose(1, 2)
+    assert torch.equal(direct, got)
+
+
+def test_plain_swa_never_attends_outside_window():
+    b, s, h, g, dh, win = 1, 128, 2, 2, 32, 32
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, s, n, dh)).astype(np.float32))
+               for n in (h, g, g))
+    v2 = v.clone()
+    v2[:, 0] += 100.0  # perturb token 0's value
+    y1 = tswa.swa_attention(q, k, v, window=win)
+    y2 = tswa.swa_attention(q, k, v2, window=win)
+    np.testing.assert_allclose(y1[:, win:].numpy(), y2[:, win:].numpy(), atol=1e-5)
+    assert (y1[:, 0] - y2[:, 0]).abs().max() > 1.0
+
+
+def test_plain_swa_counts_no_launch_and_rejects_bad_shapes():
+    q = torch.zeros((1, 8, 4, 32))
+    kv = torch.zeros((1, 8, 3, 32))
+    before = tswa.LAUNCHES["swa_attention"]
+    with pytest.raises(ValueError):
+        tswa.swa_attention(q, kv, kv, window=4)  # H % G != 0
+    with pytest.raises(ValueError):
+        tswa.swa_attention(q, q, q, window=4, causal=False)
+    tswa.swa_attention(q, q, q, window=4)
+    assert tswa.LAUNCHES["swa_attention"] == before
