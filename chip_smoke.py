@@ -10,7 +10,10 @@ error:
 1. card: the GPU's name and power limit from ``nvidia-smi``;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, with its time, the plain version's, one PyTorch library
-   call's and the least time the card could take (``bound_ms``);
+   call's and the least time the card could take (``bound_ms``); the two
+   SWA kernels (SIMT for fp32, tensor cores for bf16) at S=8192, the
+   tensor-core one also at S=32768 with the per-phase cycle profile of a
+   build with ``-DSWA_TC_PROFILE``;
 3. golden: the m=8 golden configuration of
    ``tests/test_golden_trajectory.py`` on the card under
    ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
@@ -27,13 +30,14 @@ error:
 8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
    ``attn_impl="pallas_swa"``, random weights from a seeded generator):
    one prefill of 32768 tokens through the steps of
-   ``repro_torch.launch.steps``, counting ``swa_attention`` launches and
-   holding layer 0's kernel output against the plain version on three
-   heads, then four requests decoded one token at a time (16 prompt
-   tokens replayed into the KV cache, 16 greedy tokens) against
-   ``forward`` on the same tokens;
+   ``repro_torch.launch.steps``, counting the SWA launches (all on the
+   tensor-core kernel) and holding layer 0's kernel output against the
+   plain version on three heads, then four requests decoded one token at
+   a time (16 prompt tokens replayed into the KV cache, 16 greedy tokens)
+   against ``forward`` on the same tokens;
 9. serve_cpu: the starcoder2 smoke configuration (fp32, S=128) on the card
-   and on the CPU (plain versions), logits within atol=rtol 1e-4.
+   (the SIMT SWA kernel) and on the CPU (plain versions), logits within
+   atol=rtol 1e-4.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  It imports nothing of the
@@ -101,18 +105,25 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return float(statistics.median(times))
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature now, to read beside
+    the timing that just ended (a card under sustained load clocks down)."""
+    return card_line("clocks.sm,power.draw,temperature.gpu")
 
 
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, dev, seed: int) -> dict[str, dict]:
+def phase_kernels(torch, dev, seed: int, profile_lib: Path
+                  ) -> dict[str, dict]:
     import torch.nn.functional as F
 
     from repro_torch.core import mixing, topology, triggers
@@ -222,7 +233,7 @@ def phase_kernels(torch, dev, seed: int) -> dict[str, dict]:
           f"{plain:.4f} library_ms {lib:.4f} (torch.sparse.mm, CSR) bound_ms "
           f"{b_ms:.4f} ({b_by})")
     del w, got, ref, csr
-    rows["swa_attention"] = _swa_row(torch, dev, gen)
+    rows.update(_swa_rows(torch, dev, gen, profile_lib))
     return rows
 
 
@@ -233,19 +244,23 @@ def swa_pairs(s: int, window: int) -> int:
 
 
 def swa_bound(b: int, s: int, h: int, g: int, dh: int, window: int,
-              elem_bytes: int) -> tuple[float, str]:
+              elem_bytes: int, flops_per_s: float = BF16_TC_FLOPS
+              ) -> tuple[float, str]:
     """q, k, v read once and out written once, against 4 dh flops per
-    in-window pair and head at the bf16 tensor-core peak."""
+    in-window pair and head at ``flops_per_s`` (the bf16 tensor-core peak
+    by default)."""
     nbytes = b * s * (2 * h + 2 * g) * dh * elem_bytes
     flops = 4 * dh * h * b * swa_pairs(s, window)
-    return bound(nbytes, flops, BF16_TC_FLOPS)
+    return bound(nbytes, flops, flops_per_s)
 
 
 # swa_attention against its plain version, per output dtype: (atol, rtol,
-# relative L2).  Both sides sum the same fp32 products of the same inputs
-# in another order and round once to the output dtype, so in bf16 they
-# differ by at most about one bf16 step (2^-8 of the value); the limits
-# sit a few such steps above that and well below the outputs' scale.
+# relative L2).  fp32 (the SIMT kernel): both sides sum the same fp32
+# products in another order.  bf16 (the tensor-core kernel): the products
+# are exact, P enters P V rounded to bf16 (relative 2^-9) and both sides
+# round the output once, so they differ by about one bf16 step (2^-8 of the
+# value); the limits sit a few such steps above that and well below the
+# outputs' scale.
 SWA_TOL = {"fp32": (2e-5, 2e-5, None), "bf16": (5e-3, 1e-2, 1e-2)}
 
 
@@ -267,68 +282,161 @@ def swa_tol_text(name: str) -> str:
     return f"atol {atol} rtol {rtol}{rel}"
 
 
-def _swa_row(torch, dev, gen) -> dict:
-    """swa_attention at starcoder2-15b's heads (H=48, G=4, dh=128, window
-    4096): against its plain version at S=8192 in fp32 and bf16, timed at
-    S=8192 beside the plain version and one library call, and at S=32768,
-    the prefill's length.  The row's numbers are the bf16 ones, the dtype
-    of the serving path."""
+def swa_route(torch, dtype) -> str:
+    """The launch counter of the SWA kernel that serves ``dtype``."""
+    return "swa_attention_tc" if dtype == torch.bfloat16 else "swa_attention"
+
+
+def _swa_rows(torch, dev, gen, profile_lib: Path) -> dict[str, dict]:
+    """The two SWA kernels at starcoder2-15b's heads (B=1, H=48, G=4,
+    dh=128, window 4096), each against its plain version at S=8192 in the
+    dtype it serves and timed beside the plain version and one library call
+    (``F.scaled_dot_product_attention`` with a boolean mask and GQA): the
+    SIMT kernel in fp32 (fp32 bound), the tensor-core kernel in bf16 (bf16
+    tensor-core bound) at S=8192 and at S=32768, the prefill's length, with
+    the SIMT kernel's bf16 entry point (the earlier design of the bf16 path)
+    timed in the same run and the tensor-core kernel's phase profile."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa.ref import swa_ref
 
     b, h, g, dh, win = 1, 48, 4, 128, 4096
-    row: dict = {"name": "swa_attention", "shape": [b, 8192, h, g, dh],
-                 "window": win}
 
     def inputs(s, dtype):
         return [torch.randn((b, s, n, dh), generator=gen, device=dev).to(dtype)
                 for n in (h, g, g)]
 
+    def library_call(qt, kt, vt, s):
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+    rows = {}
     for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        route = swa_route(torch, dtype)
         q, k, v = inputs(8192, dtype)
+        before = dict(swa_ops.LAUNCHES)
         got = swa_ops.swa_attention(q, k, v, window=win)
+        check(swa_ops.LAUNCHES[route] == before[route] + 1,
+              f"swa_attention {name}: the call did not launch {route}")
         ref = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                       window=win).transpose(1, 2)
         ok, err, rel, scale = swa_close(torch, got, ref, name)
-        check(ok, f"swa_attention S=8192 {name}: outside {swa_tol_text(name)} "
+        check(ok, f"{route} S=8192 {name}: outside {swa_tol_text(name)} "
                   f"(max abs err {err:.3g}, rel L2 {rel:.3g})")
-        row[f"max_abs_err_{name}"] = err
-        row[f"rel_l2_{name}"] = rel
-        print(f"kernel swa_attention S=8192 {name}: max abs err {err:.3g}, rel "
-              f"L2 {rel:.3g}, output std {scale:.3g} (tol {swa_tol_text(name)})")
         del got, ref
-    row["max_abs_err"] = row["max_abs_err_bf16"]
-    row["tolerance"] = f"fp32 {swa_tol_text('fp32')}; bf16 {swa_tol_text('bf16')}"
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
+                     reps=10, warmup=2)
+        plain = time_ms(torch, lambda: swa_ref(qt, kt, vt, window=win),
+                        reps=5, warmup=1)
+        lib = time_ms(torch, library_call(qt, kt, vt, 8192), reps=5, warmup=1)
+        b_ms, b_by = swa_bound(b, 8192, h, g, dh, win, q.element_size(),
+                               BF16_TC_FLOPS if name == "bf16" else FP32_FLOPS)
+        rows[route] = {
+            "name": route, "shape": [b, 8192, h, g, dh], "window": win,
+            "dtype": name, "max_abs_err": err, "rel_l2": rel,
+            "tolerance": swa_tol_text(name), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "bound_share": b_ms / ms}
+        print(f"kernel {route} S=8192 {name}: max abs err {err:.3g}, rel L2 "
+              f"{rel:.3g}, output std {scale:.3g} (tol {swa_tol_text(name)}); "
+              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+              f"(F.scaled_dot_product_attention, bool mask, enable_gqa) "
+              f"bound_ms {b_ms:.4f} ({b_by}, {name} peak), share of the "
+              f"bound {b_ms / ms:.3f}")
+        del qt, kt, vt
+    row = rows["swa_attention_tc"]
 
-    # timing on the loop's last (bf16) inputs: q, k, v in the model layout
-    # for the kernel, in the (B, H, S, dh) layout for the plain version and
-    # the library call
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    row["ms"] = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
-                        reps=10, warmup=2)
-    row["plain_ms"] = time_ms(torch, lambda: swa_ref(qt, kt, vt, window=win),
-                              reps=5, warmup=1)
-    pos = torch.arange(8192, device=dev)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
-    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=5, warmup=1)
-    row["bound_ms"], row["bound_by"] = swa_bound(b, 8192, h, g, dh, win, 2)
-    del q, k, v, qt, kt, vt, mask
+    # the earlier design of the bf16 path, on the same (last) inputs: the
+    # SIMT kernel's bf16 entry point, called directly (no launch counted)
+    out = torch.empty_like(q)
+    simt = build.library().repro_swa_attention_bf16
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    row["simt_bf16_ms"] = time_ms(torch, lambda: build.check(simt(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, 8192, h, g,
+        dh, win, stream), "swa_attention bf16"), reps=5, warmup=1)
+    del q, k, v, out
+
     q, k, v = inputs(32768, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     row["ms_s32768"] = time_ms(
-        torch, lambda: swa_ops.swa_attention(q, k, v, window=win), reps=5, warmup=1)
+        torch, lambda: swa_ops.swa_attention(q, k, v, window=win), reps=10, warmup=2)
+    row["library_ms_s32768"] = time_ms(torch, library_call(qt, kt, vt, 32768),
+                                       reps=3, warmup=1)
+    del qt, kt, vt
     row["bound_ms_s32768"], _ = swa_bound(b, 32768, h, g, dh, win, 2)
+    row["bound_share_s32768"] = row["bound_ms_s32768"] / row["ms_s32768"]
+    print(f"kernel swa_attention_tc B={b} H={h} G={g} dh={dh} window={win} bf16: "
+          f"S=32768 kernel_ms {row['ms_s32768']:.4f} library_ms "
+          f"{row['library_ms_s32768']:.4f} bound_ms {row['bound_ms_s32768']:.4f} "
+          f"(operations), share of the bound {row['bound_share_s32768']:.3f}; "
+          f"S=8192 kernel_ms {row['ms']:.4f}, share {row['bound_share']:.3f}, "
+          f"the SIMT kernel's bf16 entry {row['simt_bf16_ms']:.4f} ms; card "
+          f"right after (SM clock, power, temperature): {card_state()}")
+    _swa_tc_profile(torch, dev, profile_lib, q, k, v, win, row)
     del q, k, v
-    print(f"kernel swa_attention B={b} H={h} G={g} dh={dh} window={win} bf16: "
-          f"S=8192 kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-          f"library_ms {row['library_ms']:.4f} "
-          f"(F.scaled_dot_product_attention, bool mask, "
-          f"enable_gqa) bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
-          f"S=32768 kernel_ms {row['ms_s32768']:.4f} bound_ms "
-          f"{row['bound_ms_s32768']:.4f}")
-    return row
+    return rows
+
+
+def start_profile_build() -> tuple[subprocess.Popen, Path]:
+    """Starts nvcc on ``swa_attention_tc.cu`` with ``-DSWA_TC_PROFILE`` (a
+    library of its own, built beside the kernels' library)."""
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = build.BUILD_DIR / "swa_tc_profile.so"
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-DSWA_TC_PROFILE", "-shared",
+           str(build.CSRC / "swa_attention_tc.cu"), "-o", str(lib)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+SWA_TC_PHASES = ("wait_q", "wait_k", "s_gemm", "softmax", "wait_v", "pv_gemm",
+                 "epilogue")
+
+
+def _swa_tc_profile(torch, dev, path: Path, q, k, v, win: int, row: dict) -> None:
+    """Runs the profile build of the tensor-core kernel on the S=32768
+    inputs and prints the share of its consumer warpgroups' clock cycles
+    spent in each phase of the tile loop, with the cycles per KV tile."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    fn = lib.repro_swa_attention_tc_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    counters = (ctypes.c_ulonglong * (len(SWA_TC_PHASES) + 2))()
+    lib.repro_swa_tc_profile.argtypes = [ctypes.c_void_p]
+    lib.repro_swa_tc_profile.restype = ctypes.c_int
+    b, s, h, dh = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+                 k.shape[2], dh, win, stream)
+        check(err == 0, f"swa_attention_tc profile build: launch error {err}")
+
+    ms = time_ms(torch, launch, reps=5, warmup=1)
+    check(lib.repro_swa_tc_profile(counters) == 0, "profile counters unreadable")
+    launch()
+    torch.cuda.synchronize()
+    check(lib.repro_swa_tc_profile(counters) == 0, "profile counters unreadable")
+    cycles = list(counters[:len(SWA_TC_PHASES)])
+    tiles, wgs = counters[len(SWA_TC_PHASES)], counters[len(SWA_TC_PHASES) + 1]
+    total = sum(cycles)
+    share = {p: c / total for p, c in zip(SWA_TC_PHASES, cycles)}
+    per_tile = {p: c / tiles for p, c in zip(SWA_TC_PHASES, cycles)}
+    print(f"swa_attention_tc profile S=32768 (build with -DSWA_TC_PROFILE, "
+          f"{ms:.4f} ms per call against {row['ms_s32768']:.4f} without): "
+          f"{tiles / wgs:.2f} KV tiles per consumer warpgroup; share of its "
+          f"cycles (cycles per tile): " + ", ".join(
+              f"{p} {share[p]:.3f} ({per_tile[p]:.0f})" for p in SWA_TC_PHASES))
+    del out
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +641,8 @@ def _profile_line(torch, label: str, wall_ms: float, n: int, run) -> None:
         print(f"{label} profile: the profiler saw no device activity; busy "
               f"share not measured")
         return
-    swa = sum(ms for name, ms in per_name.items() if "swa_kernel" in name)
+    swa = sum(ms for name, ms in per_name.items()
+              if "swa_kernel" in name or "swa_tc_kernel" in name)
     print(f"{label} profile: {n_act / n:.0f} device activities per call, device "
           f"busy {busy / n:.2f} ms of {wall_ms:.2f} ms (idle share "
           f"{1 - busy / n / wall_ms:.3f}); swa_attention {swa / n:.2f} ms")
@@ -547,7 +656,8 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     """starcoder2-15b (or ``cfg``) with ``attn_impl="pallas_swa"``: one
     prefill of ``seq`` tokens (the prefill_32k length, batch cut from 32
     to 1), then ``n_req`` requests decoded token by token.  Returns the
-    ``swa_attention`` launches of the prefill."""
+    prefill's launches of the SWA kernel that serves the model's dtype (the
+    tensor-core kernel in bf16), which must be all of its SWA launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -591,12 +701,16 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
         _reset_launches()
         logits = prefill(params, {"tokens": tokens})
         _sync(torch, dev)
-        launches = _launches()["swa_attention"]
+        counts = _launches()
     finally:
         swa_ops.swa_attention = real
-    check(launches == cfg.n_layers,
-          f"serve prefill: expected {cfg.n_layers} swa_attention launches, got "
-          f"{launches}")
+    check(bool(first), "serve prefill: the SWA wrapper was never called")
+    route = swa_route(torch, first[0][0].dtype)  # the kernel that serves q's dtype
+    launches = counts[route]
+    other = sum(counts[k] for k in swa_ops.LAUNCHES if k != route)
+    check(launches == cfg.n_layers and other == 0,
+          f"serve prefill: expected {cfg.n_layers} launches, all on {route}, "
+          f"got {counts}")
     check(tuple(logits.shape) == (1, seq, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           f"serve prefill: logits {tuple(logits.shape)} not finite or misshaped")
@@ -626,15 +740,17 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     logits = prefill(params, {"tokens": tokens})
     _sync(torch, dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    state = card_state() if on_card else "not measured"
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
     del logits
-    print(f"serve prefill B=1 S={seq}: {launches} swa_attention launches; logits "
+    print(f"serve prefill B=1 S={seq}: {launches} {route} launches; logits "
           f"finite; layer 0 heads {list(heads)} vs plain: max abs err "
           f"{max(errs):.3g}, rel L2 {max(rels):.3g}, output std "
           f"{min(scales):.3g}-{max(scales):.3g} (tol {swa_tol_text(tol)}); "
           f"{prefill_ms:.1f} ms "
           f"({seq / prefill_ms * 1e3:.0f} tokens/s, host clock to a sync, second "
-          f"run); peak memory {peak:.2f} GB")
+          f"run); peak memory {peak:.2f} GB; card right after (SM clock, power, "
+          f"temperature): {state}")
     if on_card:
         _profile_line(torch, "serve prefill", prefill_ms, 1,
                       lambda: prefill(params, {"tokens": tokens}))
@@ -680,9 +796,10 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     return launches
 
 
-def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> None:
+def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> int:
     """The starcoder2 smoke configuration (fp32, pallas_swa) on the card
-    (kernel) and on the CPU (plain version), one set of weights."""
+    (the SIMT kernel) and on the CPU (plain version), one set of weights.
+    Returns the SIMT kernel's launches on the card."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -699,9 +816,11 @@ def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> None:
     _reset_launches()
     card = prefill(card_params, {"tokens": tokens.to(dev)})
     _sync(torch, dev)
-    launches = _launches()["swa_attention"]
-    check(launches == cfg.n_layers,
-          f"serve_cpu: expected {cfg.n_layers} swa_attention launches, got {launches}")
+    counts = _launches()
+    launches = counts["swa_attention"]  # fp32: the SIMT kernel
+    check(launches == cfg.n_layers and counts["swa_attention_tc"] == 0,
+          f"serve_cpu: expected {cfg.n_layers} swa_attention launches and no "
+          f"swa_attention_tc launch, got {counts}")
     cpu = prefill(cpu_params, {"tokens": tokens})
     err = float((card.cpu() - cpu).abs().max())
     check(bool(torch.allclose(card.cpu(), cpu, atol=1e-4, rtol=1e-4)),
@@ -709,6 +828,7 @@ def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> None:
           f"{err:.3g})")
     print(f"serve card vs cpu {cfg.name} fp32 S={seq}: {launches} swa_attention "
           f"launches on the card, logits max abs err {err:.3g} (tol atol=rtol 1e-4)")
+    return launches
 
 
 KERNEL_SOURCES = {
@@ -720,6 +840,8 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/mixing/kernel.py:74"),
     "swa_attention": ("src/repro_torch/kernels/csrc/swa_attention.cu",
                       "src/repro/kernels/swa/kernel.py:76"),
+    "swa_attention_tc": ("src/repro_torch/kernels/csrc/swa_attention_tc.cu",
+                         "src/repro/kernels/swa/kernel.py:76"),
 }
 
 
@@ -744,18 +866,24 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)}")
         from repro_torch.kernels import build
         t0 = time.perf_counter()
-        build.library()
+        profile_build, profile_lib = start_profile_build()  # beside the kernels'
+        try:
+            build.library()
+        finally:
+            out, _ = profile_build.communicate()
+        check(profile_build.returncode == 0,
+              f"nvcc failed on the profile build of swa_attention_tc.cu:\n{out}")
         print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
-        rows = phase_kernels(torch, dev, seed=0)
+        rows = phase_kernels(torch, dev, seed=0, profile_lib=profile_lib)
         phase_golden(dev)
         paper, _ = phase_paper(dev)
         launches = {"trigger_sq": paper["trigger_sq"], "mix": paper["mix"],
                     "mix_sparse": phase_fleet(dev)[0]["mix_sparse"]}
         phase_cpu(dev)
         phase_profile(torch, dev)
-        launches["swa_attention"] = phase_serve(torch, dev)
-        phase_serve_cpu(torch, dev)
+        launches["swa_attention_tc"] = phase_serve(torch, dev)
+        launches["swa_attention"] = phase_serve_cpu(torch, dev)
         torch.cuda.synchronize()
     except Exception as exc:  # report any phase's failure, then exit non-zero
         import traceback
@@ -770,7 +898,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+                                   "bound_ms", "bound_by", "library_ms")},
+            **{k: row[k] for k in ("ms_s32768", "library_ms_s32768",
+                                   "bound_ms_s32768") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ link into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch_kernels/`` at the repository root, named by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
 checkout reuses its build.  Nothing is compiled at import time: the CPU
-tests import every module on machines with no CUDA toolkit.
+tests import every module on machines with no CUDA toolkit.  The library
+links the CUDA runtime alone: ``swa_attention_tc.cu`` takes the CUDA
+driver's ``cuTensorMapEncodeTiled`` at run time through
+``cudaGetDriverEntryPoint(ByVersion)``, so there is no ``-lcuda``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu",
-                             "swa_attention.cu")
+                             "swa_attention.cu", "swa_attention_tc.cu")
 NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -32,6 +35,7 @@ _SIGNATURES = {
     "repro_mix_sparse_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "repro_swa_attention_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
+    "repro_swa_attention_tc_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

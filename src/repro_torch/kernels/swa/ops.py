@@ -1,10 +1,13 @@
-"""Wrapper of the sliding-window attention kernel (``csrc/swa_attention.cu``)
-in the model's (B, S, H, dh) layout.
+"""Wrapper of the sliding-window attention kernels in the model's
+(B, S, H, dh) layout.
 
-A CUDA tensor launches the kernel (fp32 or bf16, contiguous, dh in {32,
-64, 128}) or raises; a CPU tensor runs the plain version in ``ref.py``.
-The kernel reads the (B, S, ., dh) rows with their strides, so the card
-path needs none of the transposes the plain version takes."""
+Routes by dtype alone.  A bf16 CUDA tensor launches the tensor-core kernel
+(``csrc/swa_attention_tc.cu``: wgmma + TMA, 16-byte aligned, B * S < 2^31);
+an fp32 CUDA tensor launches the SIMT kernel (``csrc/swa_attention.cu``);
+either takes contiguous inputs with dh in {32, 64, 128} and raises on what
+it cannot take.  A CPU tensor runs the plain version in ``ref.py``.  The
+kernels read the (B, S, ., dh) rows in place, so the card path needs none
+of the transposes the plain version takes."""
 from __future__ import annotations
 
 import torch
@@ -12,11 +15,14 @@ import torch
 from repro_torch.kernels import build, check_cuda_input, on_cpu, stream_handle
 from repro_torch.kernels.swa.ref import swa_ref
 
-# launches of the CUDA kernel, counted where it is launched and nowhere else
-LAUNCHES = {"swa_attention": 0}
+# launches of each CUDA kernel, counted where it is launched and nowhere
+# else: "swa_attention" the SIMT kernel (fp32), "swa_attention_tc" the
+# tensor-core kernel (bf16)
+LAUNCHES = {"swa_attention": 0, "swa_attention_tc": 0}
 
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_YZ = 65535
+_TMA_ALIGN = 16  # bytes: a tensor map's base address
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,22 +45,32 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, dh = q.shape
     g = k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the SWA kernel takes float32 or bfloat16; got {q.dtype}")
+        raise TypeError(f"the SWA kernels take float32 or bfloat16; got {q.dtype}")
     check_cuda_input("q", q, q.dtype, (b, s, h, dh))
     check_cuda_input("k", k, q.dtype, (b, s, g, dh))
     check_cuda_input("v", v, q.dtype, (b, s, g, dh))
     if dh not in _HEAD_DIMS:
-        raise ValueError(f"the SWA kernel takes dh in {_HEAD_DIMS}; got {dh}")
+        raise ValueError(f"the SWA kernels take dh in {_HEAD_DIMS}; got {dh}")
     if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ or s >= 2 ** 31:
-        raise ValueError(f"the SWA kernel takes H, B <= {_MAX_GRID_YZ} and "
+        raise ValueError(f"the SWA kernels take H, B <= {_MAX_GRID_YZ} and "
                          f"S < 2^31; got H={h}, B={b}, S={s}")
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        if b * s >= 2 ** 31:
+            raise ValueError(f"the tensor-core SWA kernel takes B * S < 2^31; "
+                             f"got {b * s}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % _TMA_ALIGN:
+                raise ValueError(f"the tensor-core SWA kernel takes {name} at "
+                                 f"a {_TMA_ALIGN}-byte aligned address")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn = (build.library().repro_swa_attention_f32 if q.dtype == torch.float32
-          else build.library().repro_swa_attention_bf16)
+    lib = build.library()
+    fn = lib.repro_swa_attention_tc_bf16 if tc else lib.repro_swa_attention_f32
+    name = "swa_attention_tc" if tc else "swa_attention"
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, g, dh, int(window), stream_handle(q.device))
-    build.check(err, "swa_attention")
-    LAUNCHES["swa_attention"] += 1
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return out

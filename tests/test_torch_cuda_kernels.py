@@ -75,8 +75,10 @@ def test_mix_sparse_kernel_bit_equal_to_plain(cuda, m, n):
 
 
 @pytest.mark.gpu
-# (atol, rtol, relative L2): both sides sum the same fp32 products in another
-# order and round once, so bf16 outputs differ by about one bf16 step
+# (atol, rtol, relative L2): fp32 (SIMT kernel) sums the same fp32 products
+# in another order; bf16 (tensor-core kernel) also rounds P to bf16 before
+# P V, and both sides round the output once to bf16, so they differ by
+# about one bf16 step
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 2e-5, None)),
                                        (torch.bfloat16, (5e-3, 1e-2, 1e-2))])
 @pytest.mark.parametrize("shape", [
@@ -85,15 +87,25 @@ def test_mix_sparse_kernel_bit_equal_to_plain(cuda, m, n):
     (1, 256, 4, 2, 64, 64), (2, 128, 2, 2, 32, 128), (1, 512, 4, 1, 64, 128),
     (1, 128, 8, 4, 128, 32), (1, 200, 4, 2, 128, 48), (2, 100, 2, 1, 32, 500),
     (1, 1024, 48, 4, 128, 256),
+    # the tensor-core kernel's tile edges: S not a multiple of 128, windows
+    # below a tile and at starcoder2's 4096 over S=8192, G=H, G=1, B=2 (a
+    # K/V tile past S reads the next batch's rows), dh 32 and 64
+    (1, 1000, 8, 2, 128, 256), (1, 4100, 4, 2, 128, 4096),
+    (1, 8192, 8, 2, 128, 100), (1, 8192, 8, 2, 128, 4096),
+    (2, 640, 4, 4, 64, 200), (2, 777, 6, 1, 32, 300), (2, 1000, 4, 1, 64, 4096),
+    (1, 300, 4, 2, 32, 64),
 ])
 def test_swa_kernel_matches_plain(cuda, shape, dtype, tol):
     b, s, h, g, dh, win = shape
     gen = torch.Generator(device=cuda).manual_seed(s + h)
     q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=cuda).to(dtype)
                for n in (h, g, g))
-    before = tswa.LAUNCHES["swa_attention"]
+    route = "swa_attention_tc" if dtype == torch.bfloat16 else "swa_attention"
+    other = "swa_attention" if dtype == torch.bfloat16 else "swa_attention_tc"
+    before = dict(tswa.LAUNCHES)
     got = tswa.swa_attention(q, k, v, window=win)
-    assert tswa.LAUNCHES["swa_attention"] == before + 1
+    assert tswa.LAUNCHES[route] == before[route] + 1
+    assert tswa.LAUNCHES[other] == before[other]
     want = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    window=win).transpose(1, 2)
     assert got.dtype == dtype
@@ -121,3 +133,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # not contiguous
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
         tswa.swa_attention(qt, qt, qt, window=16)
+    with pytest.raises(ValueError):  # bf16 not 16-byte aligned: no tensor map
+        flat = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+        qu = flat[1:].view(q.shape)
+        tswa.swa_attention(qu, qu, qu, window=16)

@@ -4,8 +4,10 @@ On the CPU ``repro_torch.kernels.swa.ops.swa_attention`` runs its plain
 version (``ref.py``); it is held against the Pallas kernel in interpret
 mode and against the reference's dense oracle ``swa_ref`` over the shapes
 of ``tests/test_kernels.py``, at fp32 atol=rtol 2e-5 and bf16 3e-2 (the
-reference's own tolerances).  ``test_torch_cuda_kernels.py`` holds the
-CUDA kernel against the plain version on the card.
+reference's own tolerances).  The tensor-core kernel's rounding (P to
+bf16 before P V) is emulated by ``ref.swa_ref_bf16_p`` and held to the
+card's bf16 limit here, before any card run.  ``test_torch_cuda_kernels.py``
+holds the CUDA kernels against the plain version on the card.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro.kernels.swa.ref import swa_ref as j_swa_ref  # noqa: E402
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels.swa import ops as tswa  # noqa: E402
 from repro_torch.kernels.swa.ref import swa_ref as t_swa_ref  # noqa: E402
+from repro_torch.kernels.swa.ref import swa_ref_bf16_p  # noqa: E402
 
 SHAPES = [
     # (B, S, H, G, dh, window, bq, bk), as tests/test_kernels.py
@@ -61,6 +64,30 @@ def test_plain_swa_matches_pallas_and_oracle(shape, dtype):
     assert torch.equal(direct, got)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_p_rounding_fits_the_card_limit(shape):
+    """The tensor-core kernel's one numerical change, P rounded to bf16 before
+    P V with l summed from the fp32 P, emulated densely on bf16 inputs, lies
+    within the limit the card holds the kernel to (atol 5e-3, rtol 1e-2,
+    relative L2 1e-2) of the Pallas kernel in interpret mode and of the JAX
+    oracle."""
+    win, bq, bk = shape[5:]
+    q, k, v = _qkv(shape, jnp.bfloat16)
+    pallas = j_swa(q, k, v, window=win, block_q=bq, block_k=bk, interpret=True)
+    oracle = j_swa_ref(q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+                       v.transpose(0, 2, 1, 3), window=win).transpose(0, 2, 1, 3)
+    tq, tk, tv = (tensor_from_numpy(x).transpose(1, 2) for x in (q, k, v))
+    got = swa_ref_bf16_p(tq, tk, tv, window=win).transpose(1, 2)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(q.shape)
+    got = _np32(got)
+    for want in (_np32(pallas), _np32(oracle)):
+        np.testing.assert_allclose(got, want, atol=5e-3, rtol=1e-2)
+        assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
+    # the rounding is visible: P in bf16 is not the fp32 plain version
+    plain = _np32(t_swa_ref(tq, tk, tv, window=win))
+    assert not np.array_equal(got, plain.transpose(0, 2, 1, 3))
+
+
 def test_plain_swa_never_attends_outside_window():
     b, s, h, g, dh, win = 1, 128, 2, 2, 32, 32
     rng = np.random.default_rng(0)
@@ -77,10 +104,14 @@ def test_plain_swa_never_attends_outside_window():
 def test_plain_swa_counts_no_launch_and_rejects_bad_shapes():
     q = torch.zeros((1, 8, 4, 32))
     kv = torch.zeros((1, 8, 3, 32))
-    before = tswa.LAUNCHES["swa_attention"]
+    before = dict(tswa.LAUNCHES)
+    assert set(before) == {"swa_attention", "swa_attention_tc"}
     with pytest.raises(ValueError):
         tswa.swa_attention(q, kv, kv, window=4)  # H % G != 0
     with pytest.raises(ValueError):
         tswa.swa_attention(q, q, q, window=4, causal=False)
     tswa.swa_attention(q, q, q, window=4)
-    assert tswa.LAUNCHES["swa_attention"] == before
+    # bf16 on the CPU runs the plain version too: neither kernel launches
+    qb = q.bfloat16()
+    assert tswa.swa_attention(qb, qb, qb, window=4).dtype == torch.bfloat16
+    assert tswa.LAUNCHES == before
