@@ -13,20 +13,31 @@ error:
    call's and the least time the card could take (``bound_ms``); the two
    SWA kernels (SIMT for fp32, tensor cores for bf16) at S=8192, the
    tensor-core one also at S=32768 with the per-phase cycle profile of a
-   build with ``-DSWA_TC_PROFILE``;
+   build with ``-DSWA_TC_PROFILE``; the gather-mix kernel with the
+   row-group plan of its fabric (build time, groups, union rows), and its
+   direct kernel (rows no slab holds) on a dense fabric and over every row
+   of the fleet's; the dense mix's tensor-core opcodes and registers
+   (``cuobjdump``, TF32 ones required) and its error and bias against
+   fp64, each within a stated limit;
 3. golden: the m=8 golden configuration of
    ``tests/test_golden_trajectory.py`` on the card under
    ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
    ``tests/golden/efhc_m8_trajectory.json``;
 4. paper: ``api.simulate`` at m=1024, mlp, D=50890, ``mix_impl="pallas"``
-   for 20 iterations, counting ``trigger_sq`` and ``mix`` launches;
+   for 20 iterations, counting ``trigger_sq`` and ``mix`` launches, then
+   with the plain ``mix_impl="dense"``: v, comm_count and deg must agree
+   (a flip is reported with its decision margins);
 5. fleet: ``simulator.run`` at m=4096, svm, D=7850 on the rgg
    ``fleet_radius`` fabric with edge dropout, ``mix_impl="sparse_pallas"``
-   for 20 iterations, counting ``mix_sparse`` launches;
+   for 20 iterations, counting ``mix_sparse`` launches, then with the
+   plain ``mix_impl="sparse"``: v, comm_count and deg must agree; then the
+   same at m=1024 on the rgg r=0.4 fabric (10 iterations), whose rows
+   mostly go to ``mix_sparse_direct``;
 6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30 on the card and on
    the CPU (plain versions), channel by channel;
-7. profile: device activities, device busy time and idle share per
-   iteration of the paths of phases 4 and 5, under ``torch.profiler``;
+7. profile: device activities, device busy time, idle share and each of
+   the repo's kernels' device time per iteration of the paper and fleet
+   paths, under ``torch.profiler``;
 8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
    ``attn_impl="pallas_swa"``, random weights from a seeded generator):
    one prefill of 32768 tokens through the steps of
@@ -58,13 +69,19 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM3 bytes/s,
-# fp32 FLOP/s outside the tensor cores and dense bf16 tensor-core FLOP/s
+# fp32 FLOP/s outside the tensor cores and dense bf16 and TF32 tensor-core
+# FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 494.7e12
 
 # golden tolerances of tests/test_golden_trajectory.py
 RTOL, ATOL = 2e-4, 2e-5
+# the split-TF32 mix against fp64 (phase 2): largest error within this
+# multiple of cuBLAS's fp32 one, mean relative bias within fp32's ulp
+MIX_FP64_ERR_VS_LIB = 2.0
+MIX_FP64_BIAS = 2.0 ** -23
 INT_FIELDS = ("v", "comm_count", "deg")
 FLOAT_FIELDS = ("loss", "tx_time", "util", "consensus_err")
 
@@ -110,6 +127,39 @@ def card_line(query: str = "name,power.limit") -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def kernel_resources(lib: Path) -> dict[str, dict]:
+    """Per kernel function of the built library (mangled names shortened to
+    the function's name and template argument): registers from
+    ``cuobjdump -res-usage`` and the tensor-core instructions in its SASS
+    (``cuobjdump -sass``), by opcode."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = str(Path(build.nvcc()).parent / "cuobjdump")
+
+    def run(*args):
+        return subprocess.run([tool, *args, str(lib)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+
+    def short(mangled):
+        m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", mangled)
+        if m is None:
+            return mangled
+        args = re.findall(r"Li(\d+)E", m.group(2) or "")
+        return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+
+    facts: dict[str, dict] = {}
+    for name, regs in re.findall(r"Function (\S+):\s*REG:(\d+)", run("-res-usage")):
+        facts.setdefault(short(name), {})["registers"] = int(regs)
+    for block in run("-sass").split("Function : ")[1:]:
+        name = short(block.split()[0])
+        ops = re.findall(r"\b((?:HGMMA|HMMA)\.[A-Z0-9x.]+)", block)
+        facts.setdefault(name, {})["tensor_ops"] = dict(
+            sorted((op, ops.count(op)) for op in set(ops)))
+    return facts
 
 
 def card_state() -> str:
@@ -164,7 +214,8 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
         del w, h
 
     # mix: P is a real Metropolis matrix of the m=1024 rgg fabric the paper
-    # path runs on; tolerance: fp32 products summed in another order
+    # path runs on; tolerance: fp32 products summed in another order (the
+    # kernel's split TF32 drops terms ~2^-22 of each product, far below it)
     m, n = 1024, 50890
     g = topology.make_process(m, "rgg", time_varying="edge_dropout",
                               drop=0.3, seed=0)
@@ -178,26 +229,68 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
     abs_err = float((got - ref).abs().max())
     mix_atol = 1e-5
     check(abs_err <= mix_atol, f"mix: max abs err {abs_err:.3g} > {mix_atol}")
+    # both against fp64: the largest error and the mean error signed along
+    # the exact value, relative to its mean size (a truncating sum shrinks)
+    exact = p.double() @ w.double()
+    fp64_err = {k: (float((v.double() - exact).abs().max()),
+                    float(((v.double() - exact) * exact.sign()).mean() / exact.abs().mean()))
+                for k, v in (("kernel", got), ("library", ref))}
+    del exact
+    # the split's limits against fp64: its largest error within twice
+    # cuBLAS's fp32 one, and its bias within one fp32 ulp (2^-23) of the
+    # values' mean size.  (cuBLAS's own bias, ~1e-11, is at this measure's
+    # noise floor, so no multiple of it is a yardstick.)
+    check(fp64_err["kernel"][0] <= MIX_FP64_ERR_VS_LIB * fp64_err["library"][0],
+          f"mix: max abs err against fp64 {fp64_err['kernel'][0]:.3g} > "
+          f"{MIX_FP64_ERR_VS_LIB} x torch.matmul's {fp64_err['library'][0]:.3g}")
+    check(abs(fp64_err["kernel"][1]) <= MIX_FP64_BIAS,
+          f"mix: mean relative bias against fp64 {fp64_err['kernel'][1]:.3g} "
+          f"outside +-{MIX_FP64_BIAS:.3g}")
     ms = time_ms(torch, lambda: mixing_ops.mix(p, w))
     plain = time_ms(torch, lambda: mix_ref(p, w))
     lib = time_ms(torch, lambda: torch.matmul(p, w))
-    b_ms, b_by = bound((m * m + 2 * m * n) * 4, 2 * m * m * n)
+    # split TF32: three tensor-core products per fp32 one, at the TF32 peak;
+    # beside it the bound of fp32 arithmetic off the tensor cores
+    b_ms, b_by = bound((m * m + 2 * m * n) * 4, 3 * 2 * m * m * n, TF32_TC_FLOPS)
+    b_fp32, _ = bound((m * m + 2 * m * n) * 4, 2 * m * m * n)
+    # the kernel's SASS must hold the TF32 tensor-core instructions
+    from repro_torch.kernels import build
+    res = kernel_resources(build.build())
+    mix_res = {k: v for k, v in res.items() if k.startswith("mix_kernel")}
+    tc = sorted({op for v in mix_res.values() for op in v.get("tensor_ops", {})
+                 if "TF32" in op})
+    check(bool(mix_res) and all(any("TF32" in op for op in v.get("tensor_ops", {}))
+                                for v in mix_res.values()),
+          f"mix: no TF32 tensor-core instruction in the kernel's SASS ({mix_res})")
     rows["mix"] = {"name": "mix", "shape": [m, n], "max_abs_err": abs_err,
                    "tolerance": f"atol {mix_atol}", "ms": ms,
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": lib}
+                   "library_ms": lib, "sass_tensor_ops": tc}
+    print("kernel resources (cuobjdump -res-usage / -sass): " + "; ".join(
+        f"{k} {v.get('registers')} registers, tensor ops {v.get('tensor_ops') or 'none'}"
+        for k, v in sorted(res.items()) if k.startswith("mix")))
     print(f"kernel mix m={m} D={n}: max abs err {abs_err:.3g} (tol atol "
           f"{mix_atol}); kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-          f"{lib:.4f} (torch.matmul, TF32 off) bound_ms {b_ms:.4f} ({b_by})")
+          f"{lib:.4f} (torch.matmul, TF32 off) bound_ms {b_ms:.4f} ({b_by}: 3 x "
+          f"2 m^2 D at the TF32 tensor-core peak {TF32_TC_FLOPS:.4g} FLOP/s; "
+          f"fp32 off the tensor cores {b_fp32:.4f}); {2 * m * m * n / ms / 1e9:.1f}"
+          f" fp32-product TFLOP/s; against fp64: kernel max abs err "
+          f"{fp64_err['kernel'][0]:.3g}, mean relative bias {fp64_err['kernel'][1]:.3g}"
+          f" (limits {MIX_FP64_ERR_VS_LIB} x torch.matmul's, +-{MIX_FP64_BIAS:.3g}); "
+          f"torch.matmul {fp64_err['library'][0]:.3g}, {fp64_err['library'][1]:.3g}")
     del w, p, adj, got, ref
 
-    # mix_sparse: the real neighbor list of the large-fleet fabric; the
-    # kernel rounds every product and sum as the plain version does, so the
-    # two must agree bit for bit
+    # mix_sparse: the real neighbor list of the large-fleet fabric and its
+    # row-group plan, built as a run builds it; the kernel rounds every
+    # product and sum as the plain version does, so the two must agree bit
+    # for bit
     m, n = 4096, 7850
     g = topology.make_process(m, "rgg", radius=topology.fleet_radius(m),
                               time_varying="edge_dropout", drop=0.3, seed=0)
     nl = topology.StagedNeighbors.from_host(g.neighbors(), dev)
+    plan = mixing_ops.prepare_plan(nl.idx)  # as simulator.run builds it
+    check(plan.n_direct == 0, f"mix_sparse: {plan.n_direct} rows of the fleet "
+                              f"fabric do not fit a slab")
     adj_ell = g.adjacency_ell(0, nl)
     v = torch.rand(m, generator=gen, device=dev) < 0.5
     comm_ell = torch.logical_and(torch.logical_or(v[:, None], v[nl.idx]), adj_ell)
@@ -208,14 +301,8 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
     torch.cuda.synchronize()
     abs_err = float((got - ref).abs().max())
     check(abs_err == 0.0, f"mix_sparse: max abs err {abs_err:.3g}, expected 0")
-    # the same P as one CSR matrix for the library call
-    rows_i = torch.arange(m, device=dev)[:, None].expand_as(nl.idx)
+    csr = _csr(torch, nl.idx, p_diag, p_off)  # the same P for the library call
     nz = p_off != 0
-    r = torch.cat([rows_i[nz], torch.arange(m, device=dev)])
-    c = torch.cat([nl.idx[nz], torch.arange(m, device=dev)])
-    vals = torch.cat([p_off[nz], p_diag])
-    csr = torch.sparse_coo_tensor(torch.stack([r, c]), vals, (m, m)
-                                  ).coalesce().to_sparse_csr()
     ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w))
     plain = time_ms(torch, lambda: mix_sparse_ref(nl.idx, p_diag, p_off, w))
     lib = time_ms(torch, lambda: torch.sparse.mm(csr, w))
@@ -227,14 +314,119 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
         "name": "mix_sparse", "shape": [m, n], "d_max": d_max,
         "nnz_off": nnz, "max_abs_err": abs_err, "tolerance": "exact",
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib}
+        "library_ms": lib, "plan_build_ms": plan.build_ms}
     print(f"kernel mix_sparse m={m} D={n} d_max={d_max} nnz_off={nnz}: max abs "
           f"err {abs_err:.3g} (tol exact); kernel_ms {ms:.4f} plain_ms "
           f"{plain:.4f} library_ms {lib:.4f} (torch.sparse.mm, CSR) bound_ms "
-          f"{b_ms:.4f} ({b_by})")
-    del w, got, ref, csr
+          f"{b_ms:.4f} ({b_by}); plan: built in {plan.build_ms:.1f} ms (host, "
+          f"once per run), {plan.n_groups} groups, "
+          f"{plan.mean_union:.1f} union rows per group, largest union "
+          f"{plan.max_union} rows / group {plan.max_rows} rows, "
+          f"{plan.smem_bytes} B of shared memory a block; nonzero share of "
+          f"slots {nnz / (m * d_max):.4f}")
+    # the direct kernel (a gather from device memory) over every row of
+    # this fabric, called directly (no launch counted), beside the staged one
+    every = torch.arange(m, dtype=torch.int32, device=dev)
+    direct_all = _direct_launcher(nl.idx, p_diag, p_off, w, every)
+    check(torch.equal(direct_all(), ref), "mix_sparse_direct over every row of "
+          "the fleet fabric differs from the plain version")
+    print(f"kernel mix_sparse_direct over all {m} rows of the fleet fabric: "
+          f"{time_ms(torch, direct_all):.4f} ms, bit-equal; the staged kernel "
+          f"{ms:.4f} ms")
+    del w, got, ref, csr, direct_all
+    rows["mix_sparse_direct"] = _direct_row(torch, dev, gen)
     rows.update(_swa_rows(torch, dev, gen, profile_lib))
     return rows
+
+
+def _direct_launcher(idx, p_diag, p_off, w, direct):
+    """A call of the direct kernel over the rows ``direct`` (int32), into
+    one output that the other rows leave unwritten."""
+    import torch
+
+    from repro_torch.kernels import build, stream_handle
+
+    out = torch.empty_like(w)
+    n = w.shape[1]
+
+    def run():
+        build.check(build.library().repro_mix_sparse_direct_f32(
+            idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
+            out.data_ptr(), direct.data_ptr(), direct.numel(), idx.shape[1], n,
+            stream_handle(w.device)), "mix_sparse_direct")
+        return out
+    return run
+
+
+def _direct_row(torch, dev, gen, m: int = 1024, n: int = 7850) -> dict:
+    """The direct kernel at the shapes of the dense-fabric path (phase 5):
+    rgg r=0.4 at m=1024, whose rows mostly read more rows than a slab
+    holds.  The wrapper (both kernels) must give the plain version's bits;
+    the direct kernel's rows are timed alone against the plain slot loop
+    and a CSR ``torch.sparse.mm`` over the same rows."""
+    from repro_torch.core import consensus, mixing, topology
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    g = topology.make_process(m, "rgg", radius=0.4, time_varying="edge_dropout",
+                              drop=0.3, seed=0)
+    nl = topology.StagedNeighbors.from_host(g.neighbors(), dev)
+    plan = mixing_ops.prepare_plan(nl.idx)
+    check(plan.n_direct > 0, "dense fabric: every row fits a slab")
+    adj_ell = g.adjacency_ell(0, nl)
+    v = torch.rand(m, generator=gen, device=dev) < 0.5
+    comm_ell = torch.logical_and(torch.logical_or(v[:, None], v[nl.idx]), adj_ell)
+    p_diag, p_off = mixing.build_p_ell(nl.idx, adj_ell, comm_ell)
+    w = torch.randn((m, n), generator=gen, device=dev)
+    ref = mix_sparse_ref(nl.idx, p_diag, p_off, w)
+    got = mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w)
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    check(abs_err == 0.0, f"mix_sparse on the dense fabric: max abs err {abs_err:.3g}, "
+                          f"expected 0")
+    wrapper_ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w))
+    rows_d = plan.direct.long()
+    idx_d, pd_d, po_d = nl.idx[rows_d], p_diag[rows_d], p_off[rows_d]
+    run = _direct_launcher(nl.idx, p_diag, p_off, w, plan.direct)
+    check(torch.equal(run()[rows_d], ref[rows_d]), "mix_sparse_direct differs "
+                                                  "from the plain version")
+    ms = time_ms(torch, run)
+    plain = time_ms(torch, lambda: consensus._sparse_mix_flat(
+        idx_d, po_d, w, pd_d.reshape(-1, 1) * w[rows_d]))
+    csr = _csr(torch, nl.idx, p_diag, p_off, rows_d)
+    lib = time_ms(torch, lambda: torch.sparse.mm(csr, w))
+    nz = po_d != 0
+    full_csr = _csr(torch, nl.idx, p_diag, p_off)
+    full_csr_ms = time_ms(torch, lambda: torch.sparse.mm(full_csr, w))
+    nnz, k = int(nz.sum()), rows_d.numel()
+    read = int(torch.unique(torch.cat([idx_d.reshape(-1), rows_d])).numel())
+    b_ms, b_by = bound((read + k) * n * 4 + k * nl.d_max * (8 + 4) + k * 4,
+                       2 * nnz * n + k * n)
+    print(f"kernel mix_sparse_direct m={m} D={n} rgg r=0.4 d_max={nl.d_max}: "
+          f"{k} of {m} rows direct, {plan.n_groups} staged groups; wrapper (both "
+          f"kernels) max abs err {abs_err:.3g} (tol exact), {wrapper_ms:.4f} ms "
+          f"against torch.sparse.mm of the whole P (CSR) {full_csr_ms:.4f} ms; "
+          f"direct kernel alone on its rows: kernel_ms {ms:.4f} "
+          f"plain_ms {plain:.4f} library_ms {lib:.4f} (torch.sparse.mm, CSR, "
+          f"those rows) bound_ms {b_ms:.4f} ({b_by}); nonzero share of their "
+          f"slots {nnz / (k * nl.d_max):.4f}")
+    return {"name": "mix_sparse_direct", "shape": [m, n], "d_max": nl.d_max,
+            "max_abs_err": abs_err, "tolerance": "exact", "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
+
+
+def _csr(torch, idx, p_diag, p_off, rows=None):
+    """Rows ``rows`` (all by default) of the ELL P as one CSR matrix."""
+    m = idx.shape[0]
+    rows = torch.arange(m, device=idx.device) if rows is None else rows
+    idx, p_diag, p_off = idx[rows], p_diag[rows], p_off[rows]
+    nz = p_off != 0
+    r = torch.arange(rows.numel(), device=idx.device)
+    return torch.sparse_coo_tensor(
+        torch.stack([torch.cat([r[:, None].expand_as(idx)[nz], r]),
+                     torch.cat([idx[nz], rows])]),
+        torch.cat([p_off[nz], p_diag]), (rows.numel(), m)).coalesce().to_sparse_csr()
 
 
 def swa_pairs(s: int, window: int) -> int:
@@ -444,7 +636,11 @@ def _swa_tc_profile(torch, dev, path: Path, q, k, v, win: int, row: dict) -> Non
 # ---------------------------------------------------------------------------
 
 def _compare(res, want: dict, label: str, fields_int=INT_FIELDS,
-             fields_float=FLOAT_FIELDS) -> None:
+             fields_float=FLOAT_FIELDS) -> str:
+    """Integer channels equal, float channels within RTOL / ATOL; returns
+    each float channel's worst deviation as a share of its allowance
+    (|got - ref| / (ATOL + RTOL |ref|); 1 is the limit)."""
+    used = {}
     for f in fields_int:
         got = np.asarray(getattr(res, f), np.int64)
         ref = np.asarray(want[f], np.int64)
@@ -454,7 +650,12 @@ def _compare(res, want: dict, label: str, fields_int=INT_FIELDS,
         got = np.asarray(getattr(res, f), np.float64)
         ref = np.asarray(want[f], np.float64)
         ok = got.shape == ref.shape and np.allclose(got, ref, rtol=RTOL, atol=ATOL)
-        check(ok, f"{label}: float channel {f} outside rtol {RTOL} / atol {ATOL}")
+        if got.shape == ref.shape:
+            used[f] = float(np.max(np.abs(got - ref) / (ATOL + RTOL * np.abs(ref)),
+                                   initial=0.0))
+        check(ok, f"{label}: float channel {f} outside rtol {RTOL} / atol {ATOL} "
+                  f"(worst share of the allowance {used.get(f, float('nan')):.3g})")
+    return ", ".join(f"{f} {u:.3g}" for f, u in used.items())
 
 
 def phase_golden(dev) -> None:
@@ -477,9 +678,10 @@ def phase_golden(dev) -> None:
                   None, eval_every=5, device=dev)
         check(np.allclose(res.bandwidths, want["bandwidths"], rtol=1e-5),
               f"golden {impl}: bandwidth draw differs")
-        _compare(res, want, f"golden {impl}")
+        used = _compare(res, want, f"golden {impl}")
         print(f"golden m=8 {impl}: v/comm_count/deg exact, loss/tx_time/util/"
-              f"consensus_err within rtol {RTOL} / atol {ATOL}")
+              f"consensus_err within rtol {RTOL} / atol {ATOL}; worst share of "
+              f"the allowance: {used}")
 
 
 def _finite(res, label: str) -> None:
@@ -505,8 +707,58 @@ def _launches() -> dict[str, int]:
     return {k: n for counts in _launch_counts() for k, n in counts.items()}
 
 
+class TriggerLog:
+    """While active, keeps the inputs of every broadcast decision the EF-HC
+    step takes (references only: no device work is added), so that each
+    decision's margin dev / threshold - 1 can be read after the run."""
+
+    def __enter__(self):
+        from repro_torch.core import triggers
+        self._mod, self._real, self.calls = triggers, triggers.broadcast_events, []
+
+        def logged(cfg, **kw):
+            self.calls.append((cfg, kw["dev"], kw["bandwidths"], kw["gamma_k"]))
+            return self._real(cfg, **kw)
+
+        triggers.broadcast_events = logged
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.broadcast_events = self._real
+
+    def margins(self) -> np.ndarray:
+        """(T, m) dev / threshold - 1, in float64, of each decision."""
+        import torch
+        return torch.stack([d.double() / self._mod.thresholds(c, b, g).double() - 1
+                            for c, d, b, g in self.calls]).cpu().numpy()
+
+
+def _twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
+          impl: str) -> None:
+    """The kernel run's integer channels against the run of the plain
+    ``impl`` on the card: equal, or the first flips with their margins."""
+    differ = [f for f in INT_FIELDS
+              if not np.array_equal(getattr(res, f), getattr(plain, f))]
+    mk = log.margins()
+    if not differ:
+        print(f"{label} kernel vs plain ({impl}) on the card: v, comm_count, deg "
+              f"equal over {mk.shape[0]} iterations x {mk.shape[1]} devices; "
+              f"closest decision |dev / threshold - 1| {np.abs(mk).min():.3g}")
+        return
+    mp = plain_log.margins()
+    flips = [(int(k), int(i), float(mk[k, i]), float(mp[k, i]))
+             for k, i in np.argwhere(np.asarray(res.v) != np.asarray(plain.v))[:5]]
+    check(False, f"{label}: the kernel and plain ({impl}) runs differ in {differ}; "
+                 f"first v flips (iteration, device, margin kernel run, margin "
+                 f"plain run): {flips}")
+
+
 def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
-                T: int = 20) -> dict[str, int]:
+                T: int = 20, twin: bool = False) -> dict[str, int]:
+    """The paper cell; with ``twin``, then again with the plain dense mix
+    (``mix_impl="dense"``), its integer channels required equal."""
+    import dataclasses
+
     from repro_torch import api
 
     spec = api.ScenarioSpec(m=m, model="mlp", dim=dim, n_train=n_train,
@@ -514,7 +766,8 @@ def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
                             trace="summary")
     t0 = time.perf_counter()
     _reset_launches()
-    res = api.simulate(spec, device=dev)
+    with TriggerLog() as log:
+        res = api.simulate(spec, device=dev)
     launches = _launches()
     wall = time.perf_counter() - t0
     check(launches["trigger_sq"] == T and launches["mix"] == T,
@@ -528,11 +781,22 @@ def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
           f"{res.timing['ms_per_step']:.3f} ms/step after it; wall {wall:.2f} s "
           f"with staging; final acc {res.acc[-1]:.4f}; trigger rate "
           f"{res.v.mean():.4f}")
+    if twin:
+        with TriggerLog() as plain_log:
+            plain = api.simulate(dataclasses.replace(spec, mix_impl="dense"),
+                                 device=dev)
+        _twin("paper", res, log, plain, plain_log, "dense")
     return launches, res
 
 
-def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20
-                ) -> dict[str, int]:
+def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20,
+                twin: bool = False, radius: float | None = None) -> dict[str, int]:
+    """The fleet cell (rgg at ``fleet_radius(m)``), or with ``radius`` a
+    dense fabric whose rows mostly go to the direct kernel; with ``twin``,
+    then again with the plain slot loop (``mix_impl="sparse"``, the
+    kernels' arithmetic), its integer channels required equal."""
+    import dataclasses
+
     from repro_torch.core.topology import fleet_radius, make_process
     from repro_torch.data.loader import FederatedBatches
     from repro_torch.data.partition import by_labels
@@ -542,25 +806,34 @@ def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20
     x, y = image_dataset(max(4000, 4 * m), seed=0, dim=dim)
     xt, yt = image_dataset(800, seed=1, dim=dim)
     parts = by_labels(y, m, 3)
-    graph = make_process(m, "rgg", radius=fleet_radius(m),
+    graph = make_process(m, "rgg", radius=radius or fleet_radius(m),
                          time_varying="edge_dropout", drop=0.3, seed=0)
+    label = "fleet" if radius is None else f"dense fabric (rgg r={radius})"
     sim = SimConfig(m=m, iters=T, dim=dim, r=50.0, trace="summary",
                     mix_impl="sparse_pallas")
     eval_fn = make_eval_fn(sim, xt, yt)
     t0 = time.perf_counter()
     _reset_launches()
-    res = run(sim, graph, FederatedBatches(x, y, parts, sim.batch, seed=2),
-              eval_fn, eval_every=20, device=dev)
+    with TriggerLog() as log:
+        res = run(sim, graph, FederatedBatches(x, y, parts, sim.batch, seed=2),
+                  eval_fn, eval_every=20, device=dev)
     launches = _launches()
     wall = time.perf_counter() - t0
-    check(launches["mix_sparse"] == T,
-          f"fleet path: expected {T} mix_sparse launches, got {launches}")
-    _finite(res, "fleet path")
-    print(f"fleet path m={m} svm D={res.model_dim} sparse_pallas T={T}: "
+    key = "mix_sparse" if radius is None else "mix_sparse_direct"
+    check(launches[key] == T, f"{label} path: expected {T} {key} launches, got "
+                              f"{launches}")
+    _finite(res, f"{label} path")
+    print(f"{label} path m={m} svm D={res.model_dim} sparse_pallas T={T}: "
           f"launches {launches}; first step {res.timing['first_step_ms']:.2f} "
           f"ms, {res.timing['ms_per_step']:.3f} ms/step after it; wall "
           f"{wall:.2f} s with staging; final acc {res.acc[-1]:.4f}; mean "
           f"degree {res.deg.mean():.2f}")
+    if twin:
+        with TriggerLog() as plain_log:
+            plain = run(dataclasses.replace(sim, mix_impl="sparse"), graph,
+                        FederatedBatches(x, y, parts, sim.batch, seed=2), eval_fn,
+                        eval_every=20, device=dev)
+        _twin(label, res, log, plain, plain_log, "sparse")
     return launches, res
 
 
@@ -572,11 +845,12 @@ def phase_cpu(dev, m: int = 64, dim: int = 784) -> None:
     gpu = api.simulate(spec, device=dev)
     cpu = api.simulate(spec, device="cpu")
     want = {f: getattr(cpu, f) for f in (*INT_FIELDS, *FLOAT_FIELDS, "acc")}
-    _compare(gpu, want, "card vs cpu", fields_float=(*FLOAT_FIELDS, "acc"))
+    used = _compare(gpu, want, "card vs cpu", fields_float=(*FLOAT_FIELDS, "acc"))
     check(np.array_equal(gpu.comm, cpu.comm) and np.array_equal(gpu.adj, cpu.adj),
           "card vs cpu: link matrices differ")
     print(f"card vs cpu m={m} svm pallas T=30: integer channels and link "
-          f"matrices equal, float channels within rtol {RTOL} / atol {ATOL}")
+          f"matrices equal, float channels within rtol {RTOL} / atol {ATOL}; "
+          f"worst share of the allowance: {used}")
 
 
 def _device_activity(torch, run) -> tuple[int, float, dict[str, float]]:
@@ -597,14 +871,17 @@ def _device_activity(torch, run) -> tuple[int, float, dict[str, float]]:
 
 
 def phase_profile(torch, dev) -> None:
-    """Per-iteration device activities, device busy time and idle share of
-    the two driven paths: each runs at T=4 and T=8 under the profiler, and
-    the difference over 4 iterations cancels staging and init."""
+    """Per-iteration device activities, device busy time, idle share and
+    the device time of each of the repo's kernels, of the paper and fleet
+    paths: each runs at T=4 and T=8 under the profiler, and the
+    difference over 4 iterations cancels staging and init."""
+    import re
+
     cells = {"paper": lambda T: phase_paper(dev, T=T)[1],
              "fleet": lambda T: phase_fleet(dev, T=T)[1]}
     for name, cell in cells.items():
         cell(4)  # warm
-        n4, busy4, _ = _device_activity(torch, lambda: cell(4))
+        n4, busy4, per4 = _device_activity(torch, lambda: cell(4))
         out = {}
         n8, busy8, per_name = _device_activity(
             torch, lambda: out.setdefault("res", cell(8)))
@@ -621,6 +898,14 @@ def phase_profile(torch, dev) -> None:
               f"(idle share {1 - busy / step_ms:.3f})")
         for kname, ms in top:
             print(f"profile {name}:   {ms:9.3f} ms in the T=8 run  {kname[:90]}")
+        own: dict[str, float] = {}
+        for per, sign in ((per_name, 1), (per4, -1)):
+            for kname, ms in per.items():
+                hit = re.search(r"::(\w+_kernel)\b", kname)
+                if hit and hit.group(1) in REPO_KERNELS:
+                    own[hit.group(1)] = own.get(hit.group(1), 0.0) + sign * ms / 4
+        print(f"profile {name}: the repo's kernels, device ms/iteration: " + (
+            ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())) or "none seen"))
 
 
 # ---------------------------------------------------------------------------
@@ -831,6 +1116,10 @@ def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> int:
     return launches
 
 
+# kernel functions of csrc/ (the names the profiler shows)
+REPO_KERNELS = ("trigger_sq_kernel", "mix_kernel", "mix_sparse_kernel",
+                "mix_sparse_direct_kernel", "swa_kernel", "swa_tc_kernel")
+
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
                    "src/repro/kernels/trigger/kernel.py:39"),
@@ -838,6 +1127,8 @@ KERNEL_SOURCES = {
             "src/repro/kernels/mixing/kernel.py:32"),
     "mix_sparse": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
                    "src/repro/kernels/mixing/kernel.py:74"),
+    "mix_sparse_direct": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
+                          "src/repro/kernels/mixing/kernel.py:74"),
     "swa_attention": ("src/repro_torch/kernels/csrc/swa_attention.cu",
                       "src/repro/kernels/swa/kernel.py:76"),
     "swa_attention_tc": ("src/repro_torch/kernels/csrc/swa_attention_tc.cu",
@@ -877,9 +1168,11 @@ def main() -> int:
 
         rows = phase_kernels(torch, dev, seed=0, profile_lib=profile_lib)
         phase_golden(dev)
-        paper, _ = phase_paper(dev)
+        paper, _ = phase_paper(dev, twin=True)
         launches = {"trigger_sq": paper["trigger_sq"], "mix": paper["mix"],
-                    "mix_sparse": phase_fleet(dev)[0]["mix_sparse"]}
+                    "mix_sparse": phase_fleet(dev, twin=True)[0]["mix_sparse"]}
+        launches["mix_sparse_direct"] = phase_fleet(
+            dev, m=1024, T=10, twin=True, radius=0.4)[0]["mix_sparse_direct"]
         phase_cpu(dev)
         phase_profile(torch, dev)
         launches["swa_attention_tc"] = phase_serve(torch, dev)
@@ -900,7 +1193,8 @@ def main() -> int:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             **{k: row[k] for k in ("ms_s32768", "library_ms_s32768",
-                                   "bound_ms_s32768") if k in row}})
+                                   "plan_build_ms", "sass_tensor_ops")
+               if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ from repro_torch.core.topology import GraphProcess
 from repro_torch.data.loader import FederatedBatches
 from repro_torch.fl import modelspec as modelspec_mod
 from repro_torch.fl import trace as trace_mod
+from repro_torch.kernels.mixing import ops as mixing_ops
 from repro_torch.optim.optimizers import OPT_NAMES, init_opt
 from repro_torch.optim.schedules import paper_diminishing
 
@@ -357,6 +358,8 @@ def run(
     model_dim = spec.flat_dim
     nl = (topology.StagedNeighbors.from_host(graph.neighbors(), dev)
           if sparse else None)
+    if cfg.mix_impl == "sparse_pallas":  # the gather-mix kernel's plan, before the loop
+        mixing_ops.prepare_plan(nl.idx)
 
     idx = torch.as_tensor(batches.stage(T), dtype=torch.int64).to(dev)
     x_all = torch.as_tensor(np.asarray(batches.x, np.float32)).to(dev)

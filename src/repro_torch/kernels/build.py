@@ -32,7 +32,8 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {
     "repro_trigger_sq_f32": (_P, _P, _P, _I64, _I64, _P),
     "repro_mix_f32": (_P, _P, _P, _I64, _I64, _P),
-    "repro_mix_sparse_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "repro_mix_sparse_f32": (*(_P,) * 11, *(_I64,) * 5, _P),
+    "repro_mix_sparse_direct_f32": (*(_P,) * 6, *(_I64,) * 3, _P),
     "repro_swa_attention_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tc_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import mixing as tmixing  # noqa: E402
+from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.kernels.mixing import ops as tmix  # noqa: E402
 from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref  # noqa: E402
 from repro_torch.kernels.swa import ops as tswa  # noqa: E402
@@ -53,13 +55,37 @@ def test_trigger_sq_kernel_matches_plain(cuda, m, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(1, 7), (33, 130), (130, 1000), (1024, 50890)])
+# the split-TF32 kernel: 16-, 8- and 4-byte copies (m and D multiples of 4,
+# of 2, odd), m and D off the 128 x 128 tile, and the paper path's shape
+@pytest.mark.parametrize("m,n", [(1, 7), (33, 130), (130, 1000), (1024, 50890),
+                                 (256, 4096), (1000, 2050), (130, 1001),
+                                 (77, 333)])
 def test_mix_kernel_matches_plain(cuda, m, n):
     g = torch.Generator(device=cuda).manual_seed(m + n)
     p = torch.softmax(torch.randn((m, m), generator=g, device=cuda), -1)
     w = torch.randn((m, n), generator=g, device=cuda)
-    torch.testing.assert_close(tmix.mix(p, w), mix_ref(p, w), rtol=1e-5,
-                               atol=1e-5)
+    before = tmix.LAUNCHES["mix"]
+    got = tmix.mix(p, w)
+    assert tmix.LAUNCHES["mix"] == before + 1
+    torch.testing.assert_close(got, mix_ref(p, w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mix_kernel_nonfinite_where_plain_is(cuda):
+    """inf and NaN in W or P, two infinities in one product included: inf
+    and NaN come out where and as the fp32 product has them (the epilogue
+    recomputes every output the split leaves NaN), and a finite value that
+    TF32 rounding would carry past FLT_MAX leaves its column finite."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = torch.softmax(torch.randn((200, 200), generator=g, device=cuda), -1)
+    p[7, 3] = 0.0
+    w = torch.randn((200, 999), generator=g, device=cuda)
+    w[3, 10], w[4, 11], w[50, 500:503] = float("inf"), float("-inf"), float("nan")
+    p[90, 12], p[91, 13], p[95, 3] = float("-inf"), float("nan"), float("inf")
+    w[60, 40] = float(np.nextafter(np.float32(3.4028235e38), np.float32(0)))
+    got, want = tmix.mix(p, w), mix_ref(p, w)
+    assert not torch.isfinite(want).all() and torch.isfinite(want[:90, 40]).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
 @pytest.mark.gpu
@@ -70,8 +96,87 @@ def test_mix_sparse_kernel_bit_equal_to_plain(cuda, m, n):
     p_diag = torch.as_tensor(p_diag, device=cuda)
     p_off = torch.as_tensor(p_off, device=cuda)
     w = torch.randn((m, n), device=cuda)
+    want = mix_sparse_ref(idx, p_diag, p_off, w)
+    assert torch.equal(tmix.mix_sparse(idx, p_diag, p_off, w), want)  # builds the plan
+    assert torch.equal(tmix.mix_sparse(idx, p_diag, p_off, w), want)  # reuses it
+
+
+def _fabric_p(cuda, m, radius, silent=()):
+    """The ELL P of an rgg fabric with edge dropout, half the devices
+    broadcasting except ``silent`` and their neighbours (every slot that
+    reads a silent row then carries zero weight)."""
+    g = ttopo.make_process(m, "rgg", radius=radius, time_varying="edge_dropout",
+                           drop=0.3, seed=0)
+    nl = ttopo.StagedNeighbors.from_host(g.neighbors(), cuda)
+    v = np.random.default_rng(m).uniform(size=m) < 0.5
+    for j in silent:
+        v[j] = False
+        v[nl.idx[j].cpu().numpy()] = False
+    v = torch.as_tensor(v, device=cuda)
+    adj_ell = g.adjacency_ell(0, nl)
+    comm_ell = adj_ell & (v[:, None] | v[nl.idx])
+    p_diag, p_off = tmixing.build_p_ell(nl.idx, adj_ell, comm_ell)
+    return nl, p_diag, p_off
+
+
+@pytest.mark.gpu
+# the fleet cell's fabric at its width and at an odd one (4-byte copies),
+# and the paper radius at m=1024, whose rows mostly exceed shared memory
+# (the direct kernel's) beside a few staged ones
+@pytest.mark.parametrize("m,radius,n", [(4096, None, 7850), (4096, None, 7851),
+                                        (1024, 0.4, 1000)])
+def test_mix_sparse_kernel_bit_equal_on_rgg_fabric(cuda, m, radius, n):
+    nl, p_diag, p_off = _fabric_p(cuda, m, radius or ttopo.fleet_radius(m))
+    plan = tmix.prepare_plan(nl.idx)
+    if radius is None:
+        assert plan.n_direct == 0
+    else:
+        assert 0 < plan.n_direct < m and plan.n_groups > 0
+    w = torch.randn((m, n), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda)
+    before = dict(tmix.LAUNCHES)
+    got = tmix.mix_sparse(nl.idx, p_diag, p_off, w)
+    assert tmix.LAUNCHES["mix_sparse"] == before["mix_sparse"] + 1
+    assert tmix.LAUNCHES["mix_sparse_direct"] == (
+        before["mix_sparse_direct"] + (radius is not None))
+    assert torch.equal(got, mix_sparse_ref(nl.idx, p_diag, p_off, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,radius", [(4096, None), (1024, 0.4)])
+def test_mix_sparse_kernel_nan_for_nan(cuda, m, radius):
+    """inf and NaN in rows that the others reach only through zero-weight
+    slots: the kernel may skip zero weights only on a finite slab, so
+    0 * inf gives NaN exactly where the plain version's does."""
+    silent = (17, m // 2 + 5)
+    nl, p_diag, p_off = _fabric_p(cuda, m, radius or ttopo.fleet_radius(m), silent)
+    for j in silent:
+        assert not ((nl.idx == j) & (p_off != 0)).any()
+    w = torch.randn((m, 1000), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    w[silent[0], 5] = float("inf")
+    w[silent[1], 140:142] = float("nan")
+    want = mix_sparse_ref(nl.idx, p_diag, p_off, w)
+    assert not torch.isfinite(want).all()
+    torch.testing.assert_close(tmix.mix_sparse(nl.idx, p_diag, p_off, w),
+                               want, atol=0, rtol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_mix_sparse_plan_follows_the_table(cuda):
+    """The wrapper's plan is rebuilt for another table and after an
+    in-place change of the same one."""
+    idx, p_diag, p_off = (torch.as_tensor(a, device=cuda) for a in
+                          _ell(np.random.default_rng(0), 40, 4))
+    w = torch.randn((40, 9), device=cuda)
+    first = tmix.prepare_plan(idx)
+    assert tmix.prepare_plan(idx) is first
+    other = idx.clone()
+    assert tmix.prepare_plan(other) is not first
+    idx[0, 0] = 39  # a self-indexed pad now reads row 39
     assert torch.equal(tmix.mix_sparse(idx, p_diag, p_off, w),
                        mix_sparse_ref(idx, p_diag, p_off, w))
+    assert tmix.prepare_plan(idx).version == idx._version
 
 
 @pytest.mark.gpu
