@@ -13,10 +13,13 @@ error:
    call's and the least time the card could take (``bound_ms``); the two
    SWA kernels (SIMT for fp32, tensor cores for bf16) at S=8192, the
    tensor-core one also at S=32768 with the per-phase cycle profile of a
-   build with ``-DSWA_TC_PROFILE``; the gather-mix kernel with the
-   row-group plan of its fabric (build time, groups, union rows), and its
-   direct kernel (rows no slab holds) on a dense fabric and over every row
-   of the fleet's; the dense mix's tensor-core opcodes and registers
+   build with ``-DSWA_TC_PROFILE``; the gather-mix's three routes with
+   the row-group plan of their fabric (build time, groups, union rows):
+   the 128-column kernel on the fleet fabric, the wide kernel on the dense
+   rgg r=0.4 fabric at m=1024 and on rgg r=0.2 at m=4096, and the wide
+   and direct kernels on rgg r=0.4 at m=4096, each route alone on its
+   rows; on each dense fabric the plan's chunk width beside the other;
+   the dense mix's tensor-core opcodes and registers
    (``cuobjdump``, TF32 ones required) and its error and bias against
    fp64, each within a stated limit;
 3. golden: the m=8 golden configuration of
@@ -31,13 +34,14 @@ error:
    ``fleet_radius`` fabric with edge dropout, ``mix_impl="sparse_pallas"``
    for 20 iterations, counting ``mix_sparse`` launches, then with the
    plain ``mix_impl="sparse"``: v, comm_count and deg must agree; then the
-   same at m=1024 on the rgg r=0.4 fabric (10 iterations), whose rows
-   mostly go to ``mix_sparse_direct``;
+   same at m=1024 on the rgg r=0.4 fabric (10 iterations, every row on
+   ``mix_sparse_wide``) and at m=4096 on rgg r=0.4 (3 iterations, on
+   ``mix_sparse_wide`` and ``mix_sparse_direct``);
 6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30 on the card and on
    the CPU (plain versions), channel by channel;
 7. profile: device activities, device busy time, idle share and each of
-   the repo's kernels' device time per iteration of the paper and fleet
-   paths, under ``torch.profiler``;
+   the repo's kernels' device time per iteration of the paper, fleet and
+   dense-fabric paths, under ``torch.profiler``;
 8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
    ``attn_impl="pallas_swa"``, random weights from a seeded generator):
    one prefill of 32768 tokens through the steps of
@@ -308,8 +312,7 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
     lib = time_ms(torch, lambda: torch.sparse.mm(csr, w))
     nnz = int(nz.sum())
     d_max = nl.d_max
-    b_ms, b_by = bound(2 * m * n * 4 + m * d_max * (8 + 4) + m * 4,
-                       2 * nnz * n + m * n)
+    b_ms, b_by = _sparse_bound(nnz, m, m, d_max, n)
     rows["mix_sparse"] = {
         "name": "mix_sparse", "shape": [m, n], "d_max": d_max,
         "nnz_off": nnz, "max_abs_err": abs_err, "tolerance": "exact",
@@ -324,96 +327,245 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
           f"{plan.max_union} rows / group {plan.max_rows} rows, "
           f"{plan.smem_bytes} B of shared memory a block; nonzero share of "
           f"slots {nnz / (m * d_max):.4f}")
-    # the direct kernel (a gather from device memory) over every row of
-    # this fabric, called directly (no launch counted), beside the staged one
-    every = torch.arange(m, dtype=torch.int32, device=dev)
-    direct_all = _direct_launcher(nl.idx, p_diag, p_off, w, every)
-    check(torch.equal(direct_all(), ref), "mix_sparse_direct over every row of "
-          "the fleet fabric differs from the plain version")
-    print(f"kernel mix_sparse_direct over all {m} rows of the fleet fabric: "
-          f"{time_ms(torch, direct_all):.4f} ms, bit-equal; the staged kernel "
-          f"{ms:.4f} ms")
-    del w, got, ref, csr, direct_all
-    rows["mix_sparse_direct"] = _direct_row(torch, dev, gen)
+    del w, got, ref, csr
+    rows["mix_sparse_wide"] = _wide_row(torch, dev, gen)
+    _width_row(torch, dev, gen)
+    rows["mix_sparse_direct"], wide_4096 = _direct_row(torch, dev, gen)
+    rows["mix_sparse_wide"].update(wide_4096)
     rows.update(_swa_rows(torch, dev, gen, profile_lib))
     return rows
 
 
-def _direct_launcher(idx, p_diag, p_off, w, direct):
-    """A call of the direct kernel over the rows ``direct`` (int32), into
-    one output that the other rows leave unwritten."""
-    import torch
+def _ell_p(torch, dev, gen, m: int, radius: float):
+    """The rgg fabric at ``radius`` with edge dropout, its neighbor list on
+    the card and the ELL P of half the devices broadcasting."""
+    from repro_torch.core import mixing, topology
 
-    from repro_torch.kernels import build, stream_handle
-
-    out = torch.empty_like(w)
-    n = w.shape[1]
-
-    def run():
-        build.check(build.library().repro_mix_sparse_direct_f32(
-            idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
-            out.data_ptr(), direct.data_ptr(), direct.numel(), idx.shape[1], n,
-            stream_handle(w.device)), "mix_sparse_direct")
-        return out
-    return run
-
-
-def _direct_row(torch, dev, gen, m: int = 1024, n: int = 7850) -> dict:
-    """The direct kernel at the shapes of the dense-fabric path (phase 5):
-    rgg r=0.4 at m=1024, whose rows mostly read more rows than a slab
-    holds.  The wrapper (both kernels) must give the plain version's bits;
-    the direct kernel's rows are timed alone against the plain slot loop
-    and a CSR ``torch.sparse.mm`` over the same rows."""
-    from repro_torch.core import consensus, mixing, topology
-    from repro_torch.kernels.mixing import ops as mixing_ops
-    from repro_torch.kernels.mixing.ref import mix_sparse_ref
-
-    g = topology.make_process(m, "rgg", radius=0.4, time_varying="edge_dropout",
+    g = topology.make_process(m, "rgg", radius=radius, time_varying="edge_dropout",
                               drop=0.3, seed=0)
     nl = topology.StagedNeighbors.from_host(g.neighbors(), dev)
-    plan = mixing_ops.prepare_plan(nl.idx)
-    check(plan.n_direct > 0, "dense fabric: every row fits a slab")
     adj_ell = g.adjacency_ell(0, nl)
     v = torch.rand(m, generator=gen, device=dev) < 0.5
     comm_ell = torch.logical_and(torch.logical_or(v[:, None], v[nl.idx]), adj_ell)
     p_diag, p_off = mixing.build_p_ell(nl.idx, adj_ell, comm_ell)
+    return nl, p_diag, p_off
+
+
+def _sparse_bound(nnz: int, rows: int, reads: int, d_max: int, n: int
+                  ) -> tuple[float, str]:
+    """The gather-mix over ``rows`` output rows: the ``reads`` rows of W
+    they read once, the outputs written once and their slot lists (fp32
+    weight, int64 index) against 2 flops per weighted (slot, column) and
+    one product per (row, column) for the diagonal."""
+    return bound((reads + rows) * n * 4 + rows * d_max * (8 + 4) + rows * 4,
+                 2 * nnz * n + rows * n)
+
+
+def _wide_row(torch, dev, gen, m: int = 1024, n: int = 7850) -> dict:
+    """The wide tier at the shapes of the dense-fabric path (phase 5): rgg
+    r=0.4 at m=1024 (d_max 516), every row staged.  The wrapper (the slot
+    compaction and ``mix_sparse_wide_kernel``) must give the plain
+    version's bits and launch only the wide route; it is timed against
+    the plain slot loop and CSR ``torch.sparse.mm`` of the whole P, and at
+    both chunk widths (``_widths``)."""
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    nl, p_diag, p_off = _ell_p(torch, dev, gen, m, 0.4)
+    plan = mixing_ops.prepare_plan(nl.idx)
+    check(plan.wide and plan.n_direct == 0,
+          f"dense fabric: expected every row in wide groups, got chunk {plan.chunk}, "
+          f"{plan.n_direct} direct rows")
     w = torch.randn((m, n), generator=gen, device=dev)
     ref = mix_sparse_ref(nl.idx, p_diag, p_off, w)
-    got = mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w)
-    torch.cuda.synchronize()
-    abs_err = float((got - ref).abs().max())
-    check(abs_err == 0.0, f"mix_sparse on the dense fabric: max abs err {abs_err:.3g}, "
-                          f"expected 0")
-    wrapper_ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w))
-    rows_d = plan.direct.long()
-    idx_d, pd_d, po_d = nl.idx[rows_d], p_diag[rows_d], p_off[rows_d]
-    run = _direct_launcher(nl.idx, p_diag, p_off, w, plan.direct)
-    check(torch.equal(run()[rows_d], ref[rows_d]), "mix_sparse_direct differs "
-                                                  "from the plain version")
-    ms = time_ms(torch, run)
-    plain = time_ms(torch, lambda: consensus._sparse_mix_flat(
-        idx_d, po_d, w, pd_d.reshape(-1, 1) * w[rows_d]))
-    csr = _csr(torch, nl.idx, p_diag, p_off, rows_d)
+    abs_err = _wrapper_check(torch, nl, p_diag, p_off, w, ref, ("mix_sparse_wide",),
+                             "dense fabric")
+    ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w))
+    plain = time_ms(torch, lambda: mix_sparse_ref(nl.idx, p_diag, p_off, w))
+    csr = _csr(torch, nl.idx, p_diag, p_off)
     lib = time_ms(torch, lambda: torch.sparse.mm(csr, w))
-    nz = po_d != 0
-    full_csr = _csr(torch, nl.idx, p_diag, p_off)
-    full_csr_ms = time_ms(torch, lambda: torch.sparse.mm(full_csr, w))
-    nnz, k = int(nz.sum()), rows_d.numel()
-    read = int(torch.unique(torch.cat([idx_d.reshape(-1), rows_d])).numel())
-    b_ms, b_by = bound((read + k) * n * 4 + k * nl.d_max * (8 + 4) + k * 4,
-                       2 * nnz * n + k * n)
-    print(f"kernel mix_sparse_direct m={m} D={n} rgg r=0.4 d_max={nl.d_max}: "
-          f"{k} of {m} rows direct, {plan.n_groups} staged groups; wrapper (both "
-          f"kernels) max abs err {abs_err:.3g} (tol exact), {wrapper_ms:.4f} ms "
-          f"against torch.sparse.mm of the whole P (CSR) {full_csr_ms:.4f} ms; "
-          f"direct kernel alone on its rows: kernel_ms {ms:.4f} "
-          f"plain_ms {plain:.4f} library_ms {lib:.4f} (torch.sparse.mm, CSR, "
-          f"those rows) bound_ms {b_ms:.4f} ({b_by}); nonzero share of their "
-          f"slots {nnz / (k * nl.d_max):.4f}")
-    return {"name": "mix_sparse_direct", "shape": [m, n], "d_max": nl.d_max,
+    widths = _widths(torch, nl, p_diag, p_off, w, plan, ref)
+    nnz = int((p_off != 0).sum())
+    b_ms, b_by = _sparse_bound(nnz, m, m, nl.d_max, n)
+    print(f"kernel mix_sparse_wide m={m} D={n} rgg r=0.4 d_max={nl.d_max} nnz_off={nnz}: "
+          f"max abs err {abs_err:.3g} (tol exact); wrapper (slot compaction + wide "
+          f"kernel) kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+          f"(torch.sparse.mm, CSR, the whole P) bound_ms {b_ms:.4f} ({b_by}); plan: "
+          f"built in {plan.build_ms:.1f} ms (host, once per run, both widths cut), "
+          f"{plan.chunk} columns, {plan.mean_union:.1f} union rows per group, largest "
+          f"union {plan.max_union} rows / group {plan.max_rows} rows, "
+          f"{plan.smem_bytes} B of slab a block; {_widths_text(widths, plan.chunk)}; "
+          f"nonzero share of slots {nnz / (m * nl.d_max):.4f}")
+    return {"name": "mix_sparse_wide", "shape": [m, n], "d_max": nl.d_max,
             "max_abs_err": abs_err, "tolerance": "exact", "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib}
+            "library_ms": lib, "plan_build_ms": plan.build_ms,
+            **{f"ms_{c}_columns": t for c, (_, t) in widths.items()}}
+
+
+def _wrapper_check(torch, nl, p_diag, p_off, w, ref, routes, label) -> float:
+    """One wrapper call: it must launch each gather-mix route of
+    ``routes`` once and no other, and give the plain version's bits."""
+    from repro_torch.kernels.mixing import ops as mixing_ops
+
+    before = dict(mixing_ops.LAUNCHES)
+    got = mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w)
+    torch.cuda.synchronize()
+    moved = {k: mixing_ops.LAUNCHES[k] - before[k] for k in before}
+    check(moved == {k: int(k in routes) for k in before},
+          f"{label}: the wrapper launched {moved}, expected one of each of {routes}")
+    abs_err = float((got - ref).abs().max())
+    check(abs_err == 0.0, f"mix_sparse on {label}: max abs err {abs_err:.3g}, expected 0")
+    return abs_err
+
+
+def _launcher(torch, plan, p_diag, p_off, w, routes=("wide", "direct")):
+    """A call of a wide plan's routes of ``routes`` that it gives rows to
+    (the slot compaction and wide kernel, then the finiteness pass and
+    direct kernel), as the wrapper launches them, into one output,
+    counting no launch."""
+    from repro_torch.kernels import build, stream_handle
+
+    m, n = w.shape
+    idx = plan.nbr_idx
+    d_max = idx.shape[1]
+    n_rows, stride = plan.rows.numel(), d_max + d_max % 2
+    kept = torch.empty((n_rows, stride, 2), dtype=torch.int32, device=w.device)
+    n_kept = torch.empty(n_rows, dtype=torch.int32, device=w.device)
+    finite = torch.empty(m, dtype=torch.uint8, device=w.device)
+    out = torch.empty_like(w)
+    lib, stream = build.library(), stream_handle(w.device)
+
+    def run():
+        if "wide" in routes and plan.n_groups:
+            build.check(lib.repro_mix_sparse_wide_f32(
+                p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(), out.data_ptr(),
+                plan.rows.data_ptr(), plan.row_ptr.data_ptr(), plan.union.data_ptr(),
+                plan.union_ptr.data_ptr(), plan.slot_pos.data_ptr(),
+                plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(),
+                plan.n_groups, n_rows, d_max, stride, n, plan.max_union, plan.chunk,
+                stream), "mix_sparse_wide")
+        if "direct" in routes and plan.n_direct:
+            build.check(lib.repro_mix_sparse_direct_f32(
+                idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
+                out.data_ptr(), plan.direct.data_ptr(), finite.data_ptr(), plan.n_direct,
+                m, d_max, n, stream), "mix_sparse_direct")
+        return out
+    return run
+
+
+def _widths(torch, nl, p_diag, p_off, w, plan, ref) -> dict[int, tuple]:
+    """Chunk width -> (plan, ms) of both routes (wide groups, then direct
+    rows) at each wide width: the wrapper's plan and the other width's cut
+    (``plan.group_rows``), each launched as the wrapper launches it and
+    required to give the plain version's bits."""
+    from repro_torch.kernels.mixing import plan as mixing_plan
+
+    out = {}
+    for chunk in mixing_plan.WIDE_CHUNKS:
+        cut = plan if chunk == plan.chunk else mixing_plan.plan_of(
+            nl.idx, chunk, mixing_plan.group_rows(
+                nl.idx.cpu().numpy(), mixing_plan.WIDE_ROWS_MAX,
+                mixing_plan.wide_union_cap(chunk)))
+        run = _launcher(torch, cut, p_diag, p_off, w)
+        check(torch.equal(run(), ref),
+              f"the gather-mix at {chunk} columns differs from the plain version")
+        out[chunk] = (cut, time_ms(torch, run, reps=10))
+    return out
+
+
+def _widths_text(widths: dict[int, tuple], chosen: int) -> str:
+    return "; ".join(
+        f"at {c} columns{' (the plan)' if c == chosen else ''}: {p.n_groups} groups, "
+        f"{p.staged_per_row:.2f} staged rows per output row, {p.n_direct} direct "
+        f"rows, both routes {t:.4f} ms" for c, (p, t) in widths.items())
+
+
+def _width_row(torch, dev, gen, m: int = 4096, radius: float = 0.2,
+               n: int = 7850) -> None:
+    """The wide tier at 32 columns: rgg r=0.2 at m=4096 (d_max 579), every
+    row staged.  The wrapper must give the plain version's bits; it is
+    timed against CSR ``torch.sparse.mm`` of the whole P and at both
+    chunk widths."""
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    nl, p_diag, p_off = _ell_p(torch, dev, gen, m, radius)
+    plan = mixing_ops.prepare_plan(nl.idx)
+    check(plan.wide and plan.n_direct == 0,
+          f"rgg r={radius} m={m}: expected every row in wide groups")
+    w = torch.randn((m, n), generator=gen, device=dev)
+    ref = mix_sparse_ref(nl.idx, p_diag, p_off, w)
+    abs_err = _wrapper_check(torch, nl, p_diag, p_off, w, ref, ("mix_sparse_wide",),
+                             f"rgg r={radius} m={m}")
+    ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w), reps=10)
+    csr = _csr(torch, nl.idx, p_diag, p_off)
+    lib = time_ms(torch, lambda: torch.sparse.mm(csr, w), reps=10)
+    widths = _widths(torch, nl, p_diag, p_off, w, plan, ref)
+    print(f"kernel mix_sparse_wide m={m} D={n} rgg r={radius} d_max={nl.d_max}: max "
+          f"abs err {abs_err:.3g} (tol exact); wrapper {ms:.4f} ms against "
+          f"torch.sparse.mm of the whole P (CSR) {lib:.4f} ms; plan built in "
+          f"{plan.build_ms:.1f} ms; {_widths_text(widths, plan.chunk)}")
+
+
+def _direct_row(torch, dev, gen, m: int = 4096, n: int = 7850) -> tuple[dict, dict]:
+    """Both routes of a wide plan with direct rows: rgg r=0.4 at m=4096
+    (d_max 2090).  The wrapper (wide and direct routes) must give the
+    plain version's bits; it is timed against CSR ``torch.sparse.mm`` of
+    the whole P and at both chunk widths, and each route alone on its own
+    rows against the plain slot loop and a CSR ``torch.sparse.mm`` over
+    the same rows.  Returns the direct kernel's row and the wide kernel's
+    figures here."""
+    from repro_torch.core import consensus
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    nl, p_diag, p_off = _ell_p(torch, dev, gen, m, 0.4)
+    plan = mixing_ops.prepare_plan(nl.idx)
+    check(plan.n_direct > 0 and plan.n_groups > 0,
+          f"m=4096 r=0.4: expected wide groups and direct rows, got {plan.n_groups} "
+          f"groups, {plan.n_direct} direct rows")
+    w = torch.randn((m, n), generator=gen, device=dev)
+    ref = mix_sparse_ref(nl.idx, p_diag, p_off, w)
+    abs_err = _wrapper_check(torch, nl, p_diag, p_off, w, ref,
+                             ("mix_sparse_wide", "mix_sparse_direct"), "m=4096 r=0.4")
+    wrapper_ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w),
+                         reps=10)
+    full_csr = _csr(torch, nl.idx, p_diag, p_off)
+    full_csr_ms = time_ms(torch, lambda: torch.sparse.mm(full_csr, w), reps=10)
+    del full_csr
+    widths = _widths(torch, nl, p_diag, p_off, w, plan, ref)
+    print(f"gather-mix m={m} D={n} rgg r=0.4 d_max={nl.d_max}: wrapper (both routes) "
+          f"max abs err {abs_err:.3g} (tol exact), {wrapper_ms:.4f} ms against "
+          f"torch.sparse.mm of the whole P (CSR) {full_csr_ms:.4f} ms; plan built in "
+          f"{plan.build_ms:.1f} ms; {_widths_text(widths, plan.chunk)}")
+    figures = {}
+    for route, rows_r in (("wide", plan.rows.long()), ("direct", plan.direct.long())):
+        run = _launcher(torch, plan, p_diag, p_off, w, routes=(route,))
+        check(torch.equal(run()[rows_r], ref[rows_r]),
+              f"mix_sparse_{route} differs from the plain version on its rows")
+        ms = time_ms(torch, run, reps=10)
+        idx_r, pd_r, po_r = nl.idx[rows_r], p_diag[rows_r], p_off[rows_r]
+        plain = time_ms(torch, lambda: consensus._sparse_mix_flat(
+            idx_r, po_r, w, pd_r.reshape(-1, 1) * w[rows_r]), reps=3, warmup=1)
+        csr = _csr(torch, nl.idx, p_diag, p_off, rows_r)
+        lib = time_ms(torch, lambda: torch.sparse.mm(csr, w), reps=10)
+        del csr
+        nnz, k = int((po_r != 0).sum()), rows_r.numel()
+        read = int(torch.unique(torch.cat([idx_r.reshape(-1), rows_r])).numel())
+        b_ms, b_by = _sparse_bound(nnz, k, read, nl.d_max, n)
+        text = ("slot compaction + wide kernel" if route == "wide"
+                else "finiteness pass + direct kernel")
+        print(f"kernel mix_sparse_{route} m={m} D={n} rgg r=0.4 d_max={nl.d_max}: "
+              f"the route alone on its {k} of {m} rows ({text}, {plan.chunk}-column "
+              f"plan): kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+              f"(torch.sparse.mm, CSR, those rows) bound_ms {b_ms:.4f} ({b_by}); "
+              f"nonzero share of their slots {nnz / (k * nl.d_max):.4f}")
+        figures[route] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib}
+    return ({"name": "mix_sparse_direct", "shape": [m, n], "d_max": nl.d_max,
+             "max_abs_err": abs_err, "tolerance": "exact", **figures["direct"]},
+            {f"{k}_m4096_r04": v for k, v in figures["wide"].items()})
 
 
 def _csr(torch, idx, p_diag, p_off, rows=None):
@@ -789,12 +941,18 @@ def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
     return launches, res
 
 
+GATHER_ROUTES = ("mix_sparse", "mix_sparse_wide", "mix_sparse_direct")
+
+
 def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20,
-                twin: bool = False, radius: float | None = None) -> dict[str, int]:
-    """The fleet cell (rgg at ``fleet_radius(m)``), or with ``radius`` a
-    dense fabric whose rows mostly go to the direct kernel; with ``twin``,
-    then again with the plain slot loop (``mix_impl="sparse"``, the
-    kernels' arithmetic), its integer channels required equal."""
+                twin: bool = False, radius: float | None = None,
+                routes: tuple[str, ...] = ("mix_sparse",)) -> dict[str, int]:
+    """The fleet cell (rgg at ``fleet_radius(m)``: the 128-column tier), or
+    with ``radius`` a dense fabric (the wide tier, and at m=4096 r=0.4 the
+    direct kernel for the rows no wide slab holds): each of ``routes``
+    launched once an iteration and no other gather-mix kernel; with
+    ``twin``, then again with the plain slot loop (``mix_impl="sparse"``,
+    the kernels' arithmetic), its integer channels required equal."""
     import dataclasses
 
     from repro_torch.core.topology import fleet_radius, make_process
@@ -819,9 +977,9 @@ def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20,
                   eval_fn, eval_every=20, device=dev)
     launches = _launches()
     wall = time.perf_counter() - t0
-    key = "mix_sparse" if radius is None else "mix_sparse_direct"
-    check(launches[key] == T, f"{label} path: expected {T} {key} launches, got "
-                              f"{launches}")
+    want = {k: T if k in routes else 0 for k in GATHER_ROUTES}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{label} path: expected launches {want}, got {launches}")
     _finite(res, f"{label} path")
     print(f"{label} path m={m} svm D={res.model_dim} sparse_pallas T={T}: "
           f"launches {launches}; first step {res.timing['first_step_ms']:.2f} "
@@ -870,15 +1028,19 @@ def _device_activity(torch, run) -> tuple[int, float, dict[str, float]]:
     return len(dev_events), sum(per_name.values()), per_name
 
 
-def phase_profile(torch, dev) -> None:
+def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     """Per-iteration device activities, device busy time, idle share and
-    the device time of each of the repo's kernels, of the paper and fleet
-    paths: each runs at T=4 and T=8 under the profiler, and the
-    difference over 4 iterations cancels staging and init."""
+    the device time of each of the repo's kernels, of the paper, fleet and
+    dense-fabric paths: each runs at T=4 and T=8 under the profiler, and
+    the difference over 4 iterations cancels staging and init.  The idle
+    share is 1 - busy / ``step_ms[cell]``, the ms per iteration of the
+    cell's run without the profiler."""
     import re
 
     cells = {"paper": lambda T: phase_paper(dev, T=T)[1],
-             "fleet": lambda T: phase_fleet(dev, T=T)[1]}
+             "fleet": lambda T: phase_fleet(dev, T=T)[1],
+             "dense fabric": lambda T: phase_fleet(
+                 dev, m=1024, T=T, radius=0.4, routes=("mix_sparse_wide",))[1]}
     for name, cell in cells.items():
         cell(4)  # warm
         n4, busy4, per4 = _device_activity(torch, lambda: cell(4))
@@ -889,13 +1051,13 @@ def phase_profile(torch, dev) -> None:
             print(f"profile {name}: the profiler saw no device activity; "
                   f"busy share not measured")
             continue
-        step_ms = out["res"].timing["ms_per_step"]
         launches = (n8 - n4) / 4
         busy = (busy8 - busy4) / 4
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"profile {name}: {launches:.1f} device activities/iteration, "
-              f"device busy {busy:.3f} ms/iteration of {step_ms:.3f} ms "
-              f"(idle share {1 - busy / step_ms:.3f})")
+              f"device busy {busy:.3f} ms/iteration of {step_ms[name]:.3f} ms "
+              f"without the profiler (idle share {1 - busy / step_ms[name]:.3f}); "
+              f"{out['res'].timing['ms_per_step']:.3f} ms/iteration under it")
         for kname, ms in top:
             print(f"profile {name}:   {ms:9.3f} ms in the T=8 run  {kname[:90]}")
         own: dict[str, float] = {}
@@ -1118,7 +1280,9 @@ def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> int:
 
 # kernel functions of csrc/ (the names the profiler shows)
 REPO_KERNELS = ("trigger_sq_kernel", "mix_kernel", "mix_sparse_kernel",
-                "mix_sparse_direct_kernel", "swa_kernel", "swa_tc_kernel")
+                "compact_slots_kernel", "mix_sparse_wide_kernel",
+                "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
+                "swa_tc_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -1127,6 +1291,8 @@ KERNEL_SOURCES = {
             "src/repro/kernels/mixing/kernel.py:32"),
     "mix_sparse": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
                    "src/repro/kernels/mixing/kernel.py:74"),
+    "mix_sparse_wide": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
+                        "src/repro/kernels/mixing/kernel.py:74"),
     "mix_sparse_direct": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
                           "src/repro/kernels/mixing/kernel.py:74"),
     "swa_attention": ("src/repro_torch/kernels/csrc/swa_attention.cu",
@@ -1168,13 +1334,20 @@ def main() -> int:
 
         rows = phase_kernels(torch, dev, seed=0, profile_lib=profile_lib)
         phase_golden(dev)
-        paper, _ = phase_paper(dev, twin=True)
+        paper, paper_res = phase_paper(dev, twin=True)
+        fleet, fleet_res = phase_fleet(dev, twin=True)
+        dense, dense_res = phase_fleet(dev, m=1024, T=10, twin=True, radius=0.4,
+                                       routes=("mix_sparse_wide",))
         launches = {"trigger_sq": paper["trigger_sq"], "mix": paper["mix"],
-                    "mix_sparse": phase_fleet(dev, twin=True)[0]["mix_sparse"]}
+                    "mix_sparse": fleet["mix_sparse"],
+                    "mix_sparse_wide": dense["mix_sparse_wide"]}
         launches["mix_sparse_direct"] = phase_fleet(
-            dev, m=1024, T=10, twin=True, radius=0.4)[0]["mix_sparse_direct"]
+            dev, m=4096, T=3, twin=True, radius=0.4,
+            routes=("mix_sparse_wide", "mix_sparse_direct"))[0]["mix_sparse_direct"]
         phase_cpu(dev)
-        phase_profile(torch, dev)
+        phase_profile(torch, dev, {
+            name: res.timing["ms_per_step"] for name, res in (
+                ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res))})
         launches["swa_attention_tc"] = phase_serve(torch, dev)
         launches["swa_attention"] = phase_serve_cpu(torch, dev)
         torch.cuda.synchronize()
@@ -1193,7 +1366,10 @@ def main() -> int:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             **{k: row[k] for k in ("ms_s32768", "library_ms_s32768",
-                                   "plan_build_ms", "sass_tensor_ops")
+                                   "plan_build_ms", "ms_32_columns",
+                                   "ms_64_columns", "ms_m4096_r04",
+                                   "plain_ms_m4096_r04", "bound_ms_m4096_r04",
+                                   "library_ms_m4096_r04", "sass_tensor_ops")
                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref
 
 # launches of the CUDA kernels, counted where they are launched and
 # nowhere else
-LAUNCHES = {"mix": 0, "mix_sparse": 0, "mix_sparse_direct": 0}
+LAUNCHES = {"mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0}
 
 _MAX_GRID_Y = 65535
 
@@ -69,13 +69,21 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
     w (m, D) -> p_diag * w + sum_s p_off[:, s] * w[nbr_idx[:, s]].
 
     On the card the rows follow ``prepare_plan(nbr_idx)`` (built on the
-    first call for a table, a host sync): a row that the plan could group
-    is mixed by ``mix_sparse_kernel`` from its group's rows staged in
-    shared memory; a row that reads more distinct rows than one block's
-    slab holds (``plan.limits(d_max)[1]``) is mixed by
-    ``mix_sparse_direct_kernel`` from device memory.  Each kernel launches
-    when the plan gives it rows and counts under its own key.  Both give
-    the plain version's bits; the CPU path runs that directly."""
+    first call for a table, a host sync), three routes:
+
+    - a table of d_max <= 109 (``not plan.wide``) has its rows grouped for
+      ``mix_sparse_kernel``, 128 columns of the group's rows staged in
+      shared memory beside the compacted slot lists;
+    - a denser table has them grouped for ``mix_sparse_wide_kernel``, 64
+      (or 32) columns of up to 800 (1600) rows staged, each row's
+      nonzero slots compacted once a call into device memory;
+    - a row that reads more distinct rows than that slab holds is mixed
+      by ``mix_sparse_direct_kernel`` from device memory, after a pass
+      that flags W's finite rows.
+
+    Each route launches when the plan gives it rows and counts under its
+    own key.  All give the plain version's bits; the CPU path runs that
+    directly."""
     if w.dim() != 2 or nbr_idx.dim() != 2 or nbr_idx.shape[0] != w.shape[0] \
             or p_off.shape != nbr_idx.shape or p_diag.numel() != w.shape[0]:
         raise ValueError(
@@ -97,7 +105,20 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
         return out
     plan = prepare_plan(nbr_idx)
     lib, stream = build.library(), stream_handle(w.device)
-    if plan.n_groups:
+    if plan.n_groups and plan.wide:
+        # scratch: each staged row's nonzero slots, compacted once a call
+        n_rows, stride = plan.rows.numel(), d_max + d_max % 2
+        kept = torch.empty((n_rows, stride, 2), dtype=torch.int32, device=w.device)
+        n_kept = torch.empty(n_rows, dtype=torch.int32, device=w.device)
+        err = lib.repro_mix_sparse_wide_f32(
+            p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(), out.data_ptr(),
+            plan.rows.data_ptr(), plan.row_ptr.data_ptr(), plan.union.data_ptr(),
+            plan.union_ptr.data_ptr(), plan.slot_pos.data_ptr(),
+            plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(),
+            plan.n_groups, n_rows, d_max, stride, n, plan.max_union, plan.chunk, stream)
+        build.check(err, "mix_sparse_wide")
+        LAUNCHES["mix_sparse_wide"] += 1
+    elif plan.n_groups:
         err = lib.repro_mix_sparse_f32(
             nbr_idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
             out.data_ptr(), plan.rows.data_ptr(), plan.row_ptr.data_ptr(),
@@ -107,9 +128,11 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
         build.check(err, "mix_sparse")
         LAUNCHES["mix_sparse"] += 1
     if plan.n_direct:
+        finite = torch.empty(m, dtype=torch.uint8, device=w.device)
         err = lib.repro_mix_sparse_direct_f32(
             nbr_idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
-            out.data_ptr(), plan.direct.data_ptr(), plan.n_direct, d_max, n, stream)
+            out.data_ptr(), plan.direct.data_ptr(), finite.data_ptr(), plan.n_direct,
+            m, d_max, n, stream)
         build.check(err, "mix_sparse_direct")
         LAUNCHES["mix_sparse_direct"] += 1
     return out

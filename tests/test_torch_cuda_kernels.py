@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import mixing as tmixing  # noqa: E402
 from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.kernels.mixing import ops as tmix  # noqa: E402
+from repro_torch.kernels.mixing import plan as tplan  # noqa: E402
 from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref  # noqa: E402
 from repro_torch.kernels.swa import ops as tswa  # noqa: E402
 from repro_torch.kernels.swa.ref import swa_ref  # noqa: E402
@@ -120,34 +121,39 @@ def _fabric_p(cuda, m, radius, silent=()):
 
 
 @pytest.mark.gpu
-# the fleet cell's fabric at its width and at an odd one (4-byte copies),
-# and the paper radius at m=1024, whose rows mostly exceed shared memory
-# (the direct kernel's) beside a few staged ones
+# the fleet cell's fabric at its width and at an odd one (4-byte copies):
+# the 128-column tier; the paper radius at m=1024: the wide tier (64
+# columns), every row staged, at D 1000, 7850 and an odd 7851; rgg r=0.2
+# at m=4096: the wide tier at 32 columns, every row staged; and at r=0.4,
+# m=4096 (d_max 2090): the wide tier (64 columns) beside the direct
+# kernel's rows, which read more rows than a wide slab holds
 @pytest.mark.parametrize("m,radius,n", [(4096, None, 7850), (4096, None, 7851),
-                                        (1024, 0.4, 1000)])
+                                        (1024, 0.4, 1000), (1024, 0.4, 7850),
+                                        (1024, 0.4, 7851), (4096, 0.2, 7851),
+                                        (4096, 0.4, 7850)])
 def test_mix_sparse_kernel_bit_equal_on_rgg_fabric(cuda, m, radius, n):
     nl, p_diag, p_off = _fabric_p(cuda, m, radius or ttopo.fleet_radius(m))
     plan = tmix.prepare_plan(nl.idx)
-    if radius is None:
-        assert plan.n_direct == 0
-    else:
-        assert 0 < plan.n_direct < m and plan.n_groups > 0
+    assert plan.chunk == {None: tplan.CHUNK, 0.2: 32, 0.4: 64}[radius]
+    assert (plan.n_direct > 0) == (radius == 0.4 and m == 4096)
     w = torch.randn((m, n), generator=torch.Generator(device=cuda).manual_seed(n),
                     device=cuda)
     before = dict(tmix.LAUNCHES)
     got = tmix.mix_sparse(nl.idx, p_diag, p_off, w)
-    assert tmix.LAUNCHES["mix_sparse"] == before["mix_sparse"] + 1
-    assert tmix.LAUNCHES["mix_sparse_direct"] == (
-        before["mix_sparse_direct"] + (radius is not None))
+    staged = "mix_sparse_wide" if plan.wide else "mix_sparse"
+    assert {k: tmix.LAUNCHES[k] - before[k] for k in before} == {
+        "mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+        staged: 1, **({"mix_sparse_direct": 1} if plan.n_direct else {})}
     assert torch.equal(got, mix_sparse_ref(nl.idx, p_diag, p_off, w))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,radius", [(4096, None), (1024, 0.4)])
+@pytest.mark.parametrize("m,radius", [(4096, None), (1024, 0.4), (4096, 0.4)])
 def test_mix_sparse_kernel_nan_for_nan(cuda, m, radius):
     """inf and NaN in rows that the others reach only through zero-weight
-    slots: the kernel may skip zero weights only on a finite slab, so
-    0 * inf gives NaN exactly where the plain version's does."""
+    slots: the staged kernels may skip zero weights only on a finite slab
+    and the direct kernel only into a finite row, so 0 * inf gives NaN
+    exactly where the plain version's does."""
     silent = (17, m // 2 + 5)
     nl, p_diag, p_off = _fabric_p(cuda, m, radius or ttopo.fleet_radius(m), silent)
     for j in silent:
