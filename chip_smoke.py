@@ -11,17 +11,20 @@ error:
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, with its time, the plain version's, one PyTorch library
    call's and the least time the card could take (``bound_ms``); the two
-   SWA kernels (SIMT for fp32, tensor cores for bf16) at S=8192, the
-   tensor-core one also at S=32768 with the per-phase cycle profile of a
-   build with ``-DSWA_TC_PROFILE``; the gather-mix's three routes with
+   SWA kernels (split TF32 on the tensor cores for fp32, with the SIMT
+   kernel, the fp32 path's earlier design, and a build whose split rounds
+   lo to nearest timed beside it, all three held against fp64; bf16 on the
+   tensor cores) at S=8192 and S=32768, each with the per-phase cycle
+   profile of a build with its profile macro (``VARIANT_BUILDS``); the
+   gather-mix's three routes with
    the row-group plan of their fabric (build time, groups, union rows):
    the 128-column kernel on the fleet fabric, the wide kernel on the dense
    rgg r=0.4 fabric at m=1024 and on rgg r=0.2 at m=4096, and the wide
    and direct kernels on rgg r=0.4 at m=4096, each route alone on its
    rows; on each dense fabric the plan's chunk width beside the other;
-   the dense mix's tensor-core opcodes and registers
-   (``cuobjdump``, TF32 ones required) and its error and bias against
-   fp64, each within a stated limit;
+   the dense mix's and the fp32 SWA kernel's tensor-core opcodes and
+   registers (``cuobjdump``, TF32 ones required) and their error and bias
+   against fp64, each within a stated limit;
 3. golden: the m=8 golden configuration of
    ``tests/test_golden_trajectory.py`` on the card under
    ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
@@ -50,9 +53,18 @@ error:
    plain version on three heads, then four requests decoded one token at
    a time (16 prompt tokens replayed into the KV cache, 16 greedy tokens)
    against ``forward`` on the same tokens;
-9. serve_cpu: the starcoder2 smoke configuration (fp32, S=128) on the card
-   (the SIMT SWA kernel) and on the CPU (plain versions), logits within
-   atol=rtol 1e-4.
+9. serve_fp32: starcoder2-15b at full width in fp32, its depth cut from 40
+   to 2 layers: one prefill of 8192 tokens, both SWA launches on the
+   split-TF32 kernel, layer 0's kernel output against the plain version
+   on three heads, the logits against the same prefill with
+   ``attn_impl="chunked"`` within atol=rtol 1e-4, then decode as in 8;
+10. serve_cpu: the starcoder2 smoke configuration (fp32, S=128) on the
+   card (the split-TF32 SWA kernel) and on the CPU (plain versions),
+   logits within atol=rtol 1e-4.
+
+The SIMT SWA kernel has no wrapper route, so no counter: its launches are
+counted from the profiler's device activities in the prefills of 8-10,
+beside each prefill's counted launches of the kernel that serves it.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  It imports nothing of the
@@ -86,6 +98,13 @@ RTOL, ATOL = 2e-4, 2e-5
 # multiple of cuBLAS's fp32 one, mean relative bias within fp32's ulp
 MIX_FP64_ERR_VS_LIB = 2.0
 MIX_FP64_BIAS = 2.0 ** -23
+# the split-TF32 SWA kernel against fp64 (phase 2) on a few heads (the
+# first, the first of the second KV group, the last): largest error within
+# this multiple of the SIMT kernel's fp32 one, mean relative bias within
+# fp32's ulp
+SWA_FP64_ERR_VS_SIMT = 2.0
+SWA_FP64_BIAS = 2.0 ** -23
+SWA_FP64_HEADS = (0, 12, 47)
 INT_FIELDS = ("v", "comm_count", "deg")
 FLOAT_FIELDS = ("loss", "tx_time", "util", "consensus_err")
 
@@ -136,8 +155,8 @@ def card_line(query: str = "name,power.limit") -> str:
 def kernel_resources(lib: Path) -> dict[str, dict]:
     """Per kernel function of the built library (mangled names shortened to
     the function's name and template argument): registers from
-    ``cuobjdump -res-usage`` and the tensor-core instructions in its SASS
-    (``cuobjdump -sass``), by opcode."""
+    ``cuobjdump -res-usage`` (and its stack frame, where spills go) and the
+    tensor-core instructions in its SASS (``cuobjdump -sass``), by opcode."""
     import re
 
     from repro_torch.kernels import build
@@ -149,15 +168,24 @@ def kernel_resources(lib: Path) -> dict[str, dict]:
                               timeout=120, check=True).stdout
 
     def short(mangled):
-        m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", mangled)
-        if m is None:
-            return mangled
-        args = re.findall(r"Li(\d+)E", m.group(2) or "")
-        return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+        # an identifier is mangled as its length and its name: find the
+        # "<n>..._kernel" whose length prefix ends a run of digits
+        for m in re.finditer(r"\d+", mangled):
+            for i in range(len(m.group())):
+                end = m.end() + int(m.group()[i:])
+                name = mangled[m.end():end]
+                if name.endswith("_kernel") and re.fullmatch(r"[a-z_][a-z0-9_]*", name):
+                    tmpl = re.match(r"I(?:Li\d+E)+E", mangled[end:])
+                    args = re.findall(r"Li(\d+)E", tmpl.group() if tmpl else "")
+                    return f"{name}<{', '.join(args)}>" if args else name
+        return mangled
 
     facts: dict[str, dict] = {}
-    for name, regs in re.findall(r"Function (\S+):\s*REG:(\d+)", run("-res-usage")):
+    for name, regs, stack in re.findall(r"Function (\S+):\s*REG:(\d+)(?:\s+STACK:(\d+))?",
+                                        run("-res-usage")):
         facts.setdefault(short(name), {})["registers"] = int(regs)
+        if stack:
+            facts[short(name)]["stack"] = int(stack)
     for block in run("-sass").split("Function : ")[1:]:
         name = short(block.split()[0])
         ops = re.findall(r"\b((?:HGMMA|HMMA)\.[A-Z0-9x.]+)", block)
@@ -176,7 +204,7 @@ def card_state() -> str:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, dev, seed: int, profile_lib: Path
+def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
                   ) -> dict[str, dict]:
     import torch.nn.functional as F
 
@@ -271,8 +299,9 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib, "sass_tensor_ops": tc}
     print("kernel resources (cuobjdump -res-usage / -sass): " + "; ".join(
-        f"{k} {v.get('registers')} registers, tensor ops {v.get('tensor_ops') or 'none'}"
-        for k, v in sorted(res.items()) if k.startswith("mix")))
+        f"{k} {v.get('registers')} registers, stack {v.get('stack', 'not read')} B, "
+        f"tensor ops {v.get('tensor_ops') or 'none'}"
+        for k, v in sorted(res.items()) if k.startswith(("mix", "swa_tf32"))))
     print(f"kernel mix m={m} D={n}: max abs err {abs_err:.3g} (tol atol "
           f"{mix_atol}); kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
           f"{lib:.4f} (torch.matmul, TF32 off) bound_ms {b_ms:.4f} ({b_by}: 3 x "
@@ -332,7 +361,8 @@ def phase_kernels(torch, dev, seed: int, profile_lib: Path
     _width_row(torch, dev, gen)
     rows["mix_sparse_direct"], wide_4096 = _direct_row(torch, dev, gen)
     rows["mix_sparse_wide"].update(wide_4096)
-    rows.update(_swa_rows(torch, dev, gen, profile_lib))
+    rows.update(_swa_fp32_rows(torch, dev, gen, res, variant_libs))
+    rows.update(_swa_rows(torch, dev, gen, variant_libs["swa_attention_tc"]))
     return rows
 
 
@@ -588,19 +618,20 @@ def swa_pairs(s: int, window: int) -> int:
 
 
 def swa_bound(b: int, s: int, h: int, g: int, dh: int, window: int,
-              elem_bytes: int, flops_per_s: float = BF16_TC_FLOPS
-              ) -> tuple[float, str]:
+              elem_bytes: int, flops_per_s: float = BF16_TC_FLOPS,
+              products: int = 1) -> tuple[float, str]:
     """q, k, v read once and out written once, against 4 dh flops per
-    in-window pair and head at ``flops_per_s`` (the bf16 tensor-core peak
-    by default)."""
+    in-window pair and head, ``products`` times over (3 for split TF32), at
+    ``flops_per_s`` (the bf16 tensor-core peak by default)."""
     nbytes = b * s * (2 * h + 2 * g) * dh * elem_bytes
-    flops = 4 * dh * h * b * swa_pairs(s, window)
+    flops = products * 4 * dh * h * b * swa_pairs(s, window)
     return bound(nbytes, flops, flops_per_s)
 
 
 # swa_attention against its plain version, per output dtype: (atol, rtol,
-# relative L2).  fp32 (the SIMT kernel): both sides sum the same fp32
-# products in another order.  bf16 (the tensor-core kernel): the products
+# relative L2).  fp32 (the split-TF32 kernel; the SIMT one too): both sides
+# sum the fp32 products (three TF32 products each in the split) in another
+# order.  bf16 (the tensor-core kernel): the products
 # are exact, P enters P V rounded to bf16 (relative 2^-9) and both sides
 # round the output once, so they differ by about one bf16 step (2^-8 of the
 # value); the limits sit a few such steps above that and well below the
@@ -628,88 +659,290 @@ def swa_tol_text(name: str) -> str:
 
 def swa_route(torch, dtype) -> str:
     """The launch counter of the SWA kernel that serves ``dtype``."""
-    return "swa_attention_tc" if dtype == torch.bfloat16 else "swa_attention"
+    return "swa_attention_tc" if dtype == torch.bfloat16 else "swa_attention_tf32"
 
 
-def _swa_rows(torch, dev, gen, profile_lib: Path) -> dict[str, dict]:
-    """The two SWA kernels at starcoder2-15b's heads (B=1, H=48, G=4,
-    dh=128, window 4096), each against its plain version at S=8192 in the
-    dtype it serves and timed beside the plain version and one library call
-    (``F.scaled_dot_product_attention`` with a boolean mask and GQA): the
-    SIMT kernel in fp32 (fp32 bound), the tensor-core kernel in bf16 (bf16
-    tensor-core bound) at S=8192 and at S=32768, the prefill's length, with
-    the SIMT kernel's bf16 entry point (the earlier design of the bf16 path)
-    timed in the same run and the tensor-core kernel's phase profile."""
+SWA_SHAPE = (1, 48, 4, 128, 4096)  # starcoder2-15b: B, H, G, dh, window
+
+
+def _swa_inputs(torch, dev, gen, s: int, dtype):
+    b, h, g, dh, _ = SWA_SHAPE
+    return [torch.randn((b, s, n, dh), generator=gen, device=dev).to(dtype)
+            for n in (h, g, g)]
+
+
+def _swa_library_call(torch, dev, qt, kt, vt):
+    """``F.scaled_dot_product_attention`` over (B, H, S, dh) inputs with the
+    window as a boolean mask and GQA: the library call of the SWA rows."""
     import torch.nn.functional as F
 
+    s, win = qt.shape[2], SWA_SHAPE[4]
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _entry_call(torch, dev, q, k, v, fn, label: str):
+    """A call of an SWA kernel through its C entry point ``fn`` (no launch
+    counted), into one output."""
+    b, s, h, dh = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+                 k.shape[2], dh, SWA_SHAPE[4], stream)
+        check(err == 0, f"{label}: launch error {err}")
+        return out
+    return run
+
+
+def _simt_call(torch, dev, q, k, v, entry: str):
+    """A call of the SIMT SWA kernel through its C entry point ``entry`` (no
+    wrapper route reaches it)."""
     from repro_torch.kernels import build
+
+    return _entry_call(torch, dev, q, k, v, getattr(build.library(), entry),
+                       "swa_attention")
+
+
+def _variant_entry(path: Path, entry: str):
+    """The C entry point ``entry`` of the SWA kernel library at ``path`` (a
+    build of ``VARIANT_BUILDS``)."""
+    import ctypes
+
+    fn = getattr(ctypes.CDLL(str(path)), entry)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _swa_fp64(torch, q, k, v, hh: int):
+    """Head ``hh`` of the SWA output in fp64, dense and masked: (S, dh)."""
+    import math
+
+    _, h, g, dh, win = SWA_SHAPE
+    gg = hh // (h // g)
+    qh, kh, vh = q[0, :, hh].double(), k[0, :, gg].double(), v[0, :, gg].double()
+    pos = torch.arange(qh.shape[0], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    scores = (qh @ kh.T / math.sqrt(dh)).masked_fill_(~mask, -1e30)
+    return torch.softmax(scores, -1) @ vh
+
+
+def _swa_fp32_rows(torch, dev, gen, res: dict, variant_libs: dict[str, Path]
+                   ) -> dict[str, dict]:
+    """The fp32 path at starcoder2-15b's heads: the split-TF32 kernel
+    through the wrapper (the route of every fp32 CUDA tensor), the SIMT
+    kernel, its earlier design, through its entry point, and the split
+    kernel built with lo rounded to nearest (``-DSWA_TF32_RNA_LO``, mix.cu's
+    split), all against the plain version at S=8192 within
+    ``SWA_TOL["fp32"]`` and against fp64 on ``SWA_FP64_HEADS`` (the
+    split's largest error within ``SWA_FP64_ERR_VS_SIMT`` x the SIMT
+    kernel's, its mean relative bias within ``SWA_FP64_BIAS``), timed
+    beside the plain version and SDPA in fp32, then timed at S=32768 with
+    two heads held against the plain version (neither the plain version
+    nor SDPA in fp32 fits the card there: both build the scores), and its
+    phase profile taken there.  The split kernel's SASS must hold TF32
+    tensor-core instructions."""
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa.ref import swa_ref
 
-    b, h, g, dh, win = 1, 48, 4, 128, 4096
+    b, h, g, dh, win = SWA_SHAPE
+    # bounds: the split's three TF32 products per fp32 one at the TF32
+    # tensor-core peak; the SIMT kernel's fp32 arithmetic on the fp32 units
+    peaks = {"swa_attention_tf32": (TF32_TC_FLOPS, 3), "swa_attention": (FP32_FLOPS, 1)}
+    q, k, v = _swa_inputs(torch, dev, gen, 8192, torch.float32)
+    before = dict(swa_ops.LAUNCHES)
+    got = swa_ops.swa_attention(q, k, v, window=win)
+    check(swa_ops.LAUNCHES == {**before, "swa_attention_tf32":
+                               before["swa_attention_tf32"] + 1},
+          "swa_attention fp32: the call did not launch swa_attention_tf32 alone")
+    simt = _simt_call(torch, dev, q, k, v, "repro_swa_attention_f32")
+    old = simt().clone()
+    rna_lo = _entry_call(torch, dev, q, k, v, _variant_entry(
+        variant_libs["swa_attention_tf32_rna_lo"], "repro_swa_attention_tf32_f32"),
+        "swa_attention_tf32 (-DSWA_TF32_RNA_LO)")
+    rounded = rna_lo().clone()
+    outs = (("swa_attention_tf32", got), ("swa_attention", old), ("rna_lo", rounded))
+    ref = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  window=win).transpose(1, 2)
+    close = {}
+    for name, out in outs:
+        close[name] = swa_close(torch, out, ref, "fp32")
+        ok, err, rel, _ = close[name]
+        check(ok, f"{name} S=8192 fp32: outside {swa_tol_text('fp32')} (max abs err "
+                  f"{err:.3g}, rel L2 {rel:.3g})")
+    del ref
+    # against fp64: the largest error and the mean error signed along the
+    # exact value, relative to its mean size (a truncating sum shrinks)
+    diff = {name: [] for name, _ in outs}
+    size = 0.0
+    for hh in SWA_FP64_HEADS:
+        exact = _swa_fp64(torch, q, k, v, hh)
+        size += float(exact.abs().sum())
+        for name, out in outs:
+            d = out[0, :, hh].double() - exact
+            diff[name].append((float(d.abs().max()), float((d * exact.sign()).sum())))
+        del exact
+    fp64 = {name: (max(e for e, _ in ds), sum(s_ for _, s_ in ds) / size)
+            for name, ds in diff.items()}
+    check(fp64["swa_attention_tf32"][0] <= SWA_FP64_ERR_VS_SIMT * fp64["swa_attention"][0],
+          f"swa_attention_tf32: max abs err against fp64 {fp64['swa_attention_tf32'][0]:.3g}"
+          f" > {SWA_FP64_ERR_VS_SIMT} x the SIMT kernel's {fp64['swa_attention'][0]:.3g}")
+    check(abs(fp64["swa_attention_tf32"][1]) <= SWA_FP64_BIAS,
+          f"swa_attention_tf32: mean relative bias against fp64 "
+          f"{fp64['swa_attention_tf32'][1]:.3g} outside +-{SWA_FP64_BIAS:.3g}")
+    del got, old, rounded, outs
+    tc = sorted({op for kname, r in res.items() if kname.startswith("swa_tf32_kernel")
+                 for op in r.get("tensor_ops", {}) if "TF32" in op})
+    check(bool(tc) and all(any("TF32" in op for op in r.get("tensor_ops", {}))
+                           for kname, r in res.items() if kname.startswith("swa_tf32_kernel")),
+          "swa_attention_tf32: no TF32 tensor-core instruction in the kernel's SASS")
 
-    def inputs(s, dtype):
-        return [torch.randn((b, s, n, dh), generator=gen, device=dev).to(dtype)
-                for n in (h, g, g)]
-
-    def library_call(qt, kt, vt, s):
-        pos = torch.arange(s, device=dev)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                      enable_gqa=True)
-
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
+                 reps=10, warmup=2)
+    rna_lo_ms = time_ms(torch, rna_lo, reps=10, warmup=2)
+    simt_ms = time_ms(torch, simt, reps=5, warmup=1)
+    plain = time_ms(torch, lambda: swa_ref(qt, kt, vt, window=win), reps=5, warmup=1)
+    lib = time_ms(torch, _swa_library_call(torch, dev, qt, kt, vt), reps=5, warmup=1)
+    del q, k, v, qt, kt, vt
     rows = {}
-    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        route = swa_route(torch, dtype)
-        q, k, v = inputs(8192, dtype)
-        before = dict(swa_ops.LAUNCHES)
-        got = swa_ops.swa_attention(q, k, v, window=win)
-        check(swa_ops.LAUNCHES[route] == before[route] + 1,
-              f"swa_attention {name}: the call did not launch {route}")
-        ref = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      window=win).transpose(1, 2)
-        ok, err, rel, scale = swa_close(torch, got, ref, name)
-        check(ok, f"{route} S=8192 {name}: outside {swa_tol_text(name)} "
-                  f"(max abs err {err:.3g}, rel L2 {rel:.3g})")
-        del got, ref
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
-                     reps=10, warmup=2)
-        plain = time_ms(torch, lambda: swa_ref(qt, kt, vt, window=win),
-                        reps=5, warmup=1)
-        lib = time_ms(torch, library_call(qt, kt, vt, 8192), reps=5, warmup=1)
-        b_ms, b_by = swa_bound(b, 8192, h, g, dh, win, q.element_size(),
-                               BF16_TC_FLOPS if name == "bf16" else FP32_FLOPS)
-        rows[route] = {
-            "name": route, "shape": [b, 8192, h, g, dh], "window": win,
-            "dtype": name, "max_abs_err": err, "rel_l2": rel,
-            "tolerance": swa_tol_text(name), "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "bound_share": b_ms / ms}
-        print(f"kernel {route} S=8192 {name}: max abs err {err:.3g}, rel L2 "
-              f"{rel:.3g}, output std {scale:.3g} (tol {swa_tol_text(name)}); "
-              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-              f"(F.scaled_dot_product_attention, bool mask, enable_gqa) "
-              f"bound_ms {b_ms:.4f} ({b_by}, {name} peak), share of the "
-              f"bound {b_ms / ms:.3f}")
-        del qt, kt, vt
-    row = rows["swa_attention_tc"]
+    for name, t in (("swa_attention_tf32", ms), ("swa_attention", simt_ms)):
+        _, err, rel, _ = close[name]
+        b_ms, b_by = swa_bound(b, 8192, h, g, dh, win, 4, *peaks[name])
+        rows[name] = {
+            "name": name, "shape": [b, 8192, h, g, dh], "window": win, "dtype": "fp32",
+            "max_abs_err": err, "rel_l2": rel, "tolerance": swa_tol_text("fp32"),
+            "ms": t, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "bound_share": b_ms / t,
+            "fp64_max_abs_err": fp64[name][0], "fp64_bias": fp64[name][1]}
+    row, old_row = rows["swa_attention_tf32"], rows["swa_attention"]
+    row["bound_ms_fp32_units"] = old_row["bound_ms"]
+    row["sass_tensor_ops"] = tc
+    row["ms_rna_lo"] = rna_lo_ms
+    row["fp64_max_abs_err_rna_lo"], row["fp64_bias_rna_lo"] = fp64["rna_lo"]
+    print(f"kernel swa_attention_tf32 S=8192 fp32: max abs err {row['max_abs_err']:.3g}, "
+          f"rel L2 {row['rel_l2']:.3g}, output std {close['swa_attention_tf32'][3]:.3g} "
+          f"(tol {swa_tol_text('fp32')}); kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+          f"library_ms {lib:.4f} (F.scaled_dot_product_attention, fp32, bool mask, "
+          f"enable_gqa) bound_ms {row['bound_ms']:.4f} ({row['bound_by']}: 3 TF32 "
+          f"products per fp32 one at the TF32 tensor-core peak), share of the bound "
+          f"{row['bound_share']:.3f}; on the fp32 units bound_ms "
+          f"{row['bound_ms_fp32_units']:.4f}, share {row['bound_ms_fp32_units'] / ms:.3f}; "
+          f"against fp64 on heads {list(SWA_FP64_HEADS)}: max abs err "
+          f"{row['fp64_max_abs_err']:.3g}, mean relative bias {row['fp64_bias']:.3g} "
+          f"(limits {SWA_FP64_ERR_VS_SIMT} x the SIMT kernel's, +-{SWA_FP64_BIAS:.3g}); "
+          f"TF32 tensor ops {tc}")
+    print(f"kernel swa_attention (SIMT, the earlier design, entry point called "
+          f"directly) S=8192 fp32: max abs err {old_row['max_abs_err']:.3g} (tol "
+          f"{swa_tol_text('fp32')}); kernel_ms {simt_ms:.4f} bound_ms "
+          f"{old_row['bound_ms']:.4f} ({old_row['bound_by']}, fp32 units), share "
+          f"{old_row['bound_share']:.3f}; against fp64: max abs err "
+          f"{old_row['fp64_max_abs_err']:.3g}, mean relative bias {old_row['fp64_bias']:.3g}")
+    print(f"kernel swa_attention_tf32 split A/B S=8192 fp32, lo = x - hi read by the "
+          f"tensor cores as TF32 (the shipped build) against lo rounded to nearest "
+          f"(-DSWA_TF32_RNA_LO, mix.cu's split; max abs err vs plain "
+          f"{close['rna_lo'][1]:.3g}): kernel_ms {ms:.4f} vs {rna_lo_ms:.4f}; "
+          f"against fp64 max abs err {row['fp64_max_abs_err']:.4g} vs "
+          f"{row['fp64_max_abs_err_rna_lo']:.4g} (ratio "
+          f"{row['fp64_max_abs_err'] / row['fp64_max_abs_err_rna_lo']:.3f}), mean "
+          f"relative bias {row['fp64_bias']:.4g} vs {row['fp64_bias_rna_lo']:.4g}")
 
-    # the earlier design of the bf16 path, on the same (last) inputs: the
-    # SIMT kernel's bf16 entry point, called directly (no launch counted)
-    out = torch.empty_like(q)
-    simt = build.library().repro_swa_attention_bf16
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    row["simt_bf16_ms"] = time_ms(torch, lambda: build.check(simt(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, 8192, h, g,
-        dh, win, stream), "swa_attention bf16"), reps=5, warmup=1)
-    del q, k, v, out
+    # S=32768, the prefill's length: two heads against the plain version
+    q, k, v = _swa_inputs(torch, dev, gen, 32768, torch.float32)
+    got = swa_ops.swa_attention(q, k, v, window=win)
+    for hh in (0, h - 1):
+        gg = hh // (h // g)
+        ref = swa_ref(q[:, :, hh:hh + 1].transpose(1, 2), k[:, :, gg:gg + 1].transpose(1, 2),
+                      v[:, :, gg:gg + 1].transpose(1, 2), window=win).transpose(1, 2)
+        ok, err, rel, _ = swa_close(torch, got[:, :, hh:hh + 1], ref, "fp32")
+        check(ok, f"swa_attention_tf32 S=32768 fp32 head {hh}: outside "
+                  f"{swa_tol_text('fp32')} (max abs err {err:.3g}, rel L2 {rel:.3g})")
+        del ref
+    del got
+    row["ms_s32768"] = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
+                               reps=5, warmup=1)
+    old_row["ms_s32768"] = time_ms(torch, _simt_call(torch, dev, q, k, v,
+                                                     "repro_swa_attention_f32"),
+                                   reps=3, warmup=1)
+    # no library time: SDPA in fp32 with a mask takes its math path, which
+    # builds the (H, S, S) scores, 192 GiB here
+    for name, r in rows.items():
+        r["library_ms_s32768"] = None
+        r["bound_ms_s32768"], _ = swa_bound(b, 32768, h, g, dh, win, 4, *peaks[name])
+    row["bound_ms_fp32_units_s32768"] = old_row["bound_ms_s32768"]
+    print(f"kernel swa_attention_tf32 B={b} H={h} G={g} dh={dh} window={win} fp32: "
+          f"S=32768 kernel_ms {row['ms_s32768']:.4f} library_ms not measurable (SDPA's "
+          f"fp32 masked path builds 192 GiB of scores) bound_ms "
+          f"{row['bound_ms_s32768']:.4f} (3 TF32 products, share "
+          f"{row['bound_ms_s32768'] / row['ms_s32768']:.3f}), on the fp32 units "
+          f"{old_row['bound_ms_s32768']:.4f} (share "
+          f"{old_row['bound_ms_s32768'] / row['ms_s32768']:.3f}); the SIMT kernel "
+          f"{old_row['ms_s32768']:.4f} ms; plain_ms not measurable (206 GB of "
+          f"scores); card right after (SM clock, power, temperature): {card_state()}")
+    _swa_profile(torch, dev, "swa_attention_tf32", variant_libs["swa_attention_tf32"],
+                 q, k, v, row["ms_s32768"])
+    del q, k, v
+    return rows
 
-    q, k, v = inputs(32768, torch.bfloat16)
+
+def _swa_rows(torch, dev, gen, profile_lib: Path) -> dict[str, dict]:
+    """The bf16 tensor-core kernel at starcoder2-15b's heads (B=1, H=48,
+    G=4, dh=128, window 4096) against its plain version at S=8192, timed
+    beside the plain version and one library call
+    (``F.scaled_dot_product_attention`` with a boolean mask and GQA) at
+    S=8192 and at S=32768, the prefill's length (bf16 tensor-core bound),
+    with the SIMT kernel's bf16 entry point (the earlier design of the bf16
+    path) timed in the same run and the tensor-core kernel's phase
+    profile."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa.ref import swa_ref
+
+    b, h, g, dh, win = SWA_SHAPE
+    route = "swa_attention_tc"
+    q, k, v = _swa_inputs(torch, dev, gen, 8192, torch.bfloat16)
+    before = dict(swa_ops.LAUNCHES)
+    got = swa_ops.swa_attention(q, k, v, window=win)
+    check(swa_ops.LAUNCHES == {**before, route: before[route] + 1},
+          f"swa_attention bf16: the call did not launch {route} alone")
+    ref = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  window=win).transpose(1, 2)
+    ok, err, rel, scale = swa_close(torch, got, ref, "bf16")
+    check(ok, f"{route} S=8192 bf16: outside {swa_tol_text('bf16')} "
+              f"(max abs err {err:.3g}, rel L2 {rel:.3g})")
+    del got, ref
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = time_ms(torch, lambda: swa_ops.swa_attention(q, k, v, window=win),
+                 reps=10, warmup=2)
+    plain = time_ms(torch, lambda: swa_ref(qt, kt, vt, window=win), reps=5, warmup=1)
+    lib = time_ms(torch, _swa_library_call(torch, dev, qt, kt, vt), reps=5, warmup=1)
+    b_ms, b_by = swa_bound(b, 8192, h, g, dh, win, 2)
+    row = {"name": route, "shape": [b, 8192, h, g, dh], "window": win,
+           "dtype": "bf16", "max_abs_err": err, "rel_l2": rel,
+           "tolerance": swa_tol_text("bf16"), "ms": ms, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+           "bound_share": b_ms / ms}
+    print(f"kernel {route} S=8192 bf16: max abs err {err:.3g}, rel L2 {rel:.3g}, "
+          f"output std {scale:.3g} (tol {swa_tol_text('bf16')}); kernel_ms {ms:.4f} "
+          f"plain_ms {plain:.4f} library_ms {lib:.4f} (F.scaled_dot_product_attention, "
+          f"bool mask, enable_gqa) bound_ms {b_ms:.4f} ({b_by}, bf16 peak), share of "
+          f"the bound {b_ms / ms:.3f}")
+    del qt, kt, vt
+
+    # the earlier design of the bf16 path, on the same inputs: the SIMT
+    # kernel's bf16 entry point, called directly (no launch counted)
+    row["simt_bf16_ms"] = time_ms(
+        torch, _simt_call(torch, dev, q, k, v, "repro_swa_attention_bf16"), reps=5, warmup=1)
+    del q, k, v
+
+    q, k, v = _swa_inputs(torch, dev, gen, 32768, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     row["ms_s32768"] = time_ms(
         torch, lambda: swa_ops.swa_attention(q, k, v, window=win), reps=10, warmup=2)
-    row["library_ms_s32768"] = time_ms(torch, library_call(qt, kt, vt, 32768),
+    row["library_ms_s32768"] = time_ms(torch, _swa_library_call(torch, dev, qt, kt, vt),
                                        reps=3, warmup=1)
     del qt, kt, vt
     row["bound_ms_s32768"], _ = swa_bound(b, 32768, h, g, dh, win, 2)
@@ -721,65 +954,85 @@ def _swa_rows(torch, dev, gen, profile_lib: Path) -> dict[str, dict]:
           f"S=8192 kernel_ms {row['ms']:.4f}, share {row['bound_share']:.3f}, "
           f"the SIMT kernel's bf16 entry {row['simt_bf16_ms']:.4f} ms; card "
           f"right after (SM clock, power, temperature): {card_state()}")
-    _swa_tc_profile(torch, dev, profile_lib, q, k, v, win, row)
+    _swa_profile(torch, dev, route, profile_lib, q, k, v, row["ms_s32768"])
     del q, k, v
-    return rows
+    return {route: row}
 
 
-def start_profile_build() -> tuple[subprocess.Popen, Path]:
-    """Starts nvcc on ``swa_attention_tc.cu`` with ``-DSWA_TC_PROFILE`` (a
-    library of its own, built beside the kernels' library)."""
+# the cycle-profile builds of the SWA kernels: source, macro, entry point,
+# counter reader, and the phases of the tile loop in the order of the
+# kernel's Phase enum
+PROFILE_BUILDS = {
+    "swa_attention_tc": ("swa_attention_tc.cu", "SWA_TC_PROFILE",
+                         "repro_swa_attention_tc_bf16", "repro_swa_tc_profile",
+                         ("wait_q", "wait_k", "s_gemm", "softmax", "wait_v", "pv_gemm",
+                          "epilogue")),
+    "swa_attention_tf32": ("swa_attention_tf32.cu", "SWA_TF32_PROFILE",
+                           "repro_swa_attention_tf32_f32", "repro_swa_tf32_profile",
+                           ("barriers", "s_issue", "split", "s_wait", "softmax", "pv_issue",
+                            "pv_wait", "copy", "epilogue")),
+}
+
+
+# every build of an SWA kernel's source with a macro, a library of its own
+# each: the profile builds, and the split-TF32 kernel with lo rounded to
+# nearest (phase 2's A/B of the split)
+VARIANT_BUILDS = {**{name: (source, macro) for name, (source, macro, *_)
+                     in PROFILE_BUILDS.items()},
+                  "swa_attention_tf32_rna_lo": ("swa_attention_tf32.cu", "SWA_TF32_RNA_LO")}
+
+
+def start_variant_builds() -> dict[str, tuple[subprocess.Popen, Path]]:
+    """Starts nvcc on each of ``VARIANT_BUILDS`` (built beside the kernels'
+    library)."""
     from repro_torch.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = build.BUILD_DIR / "swa_tc_profile.so"
-    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-DSWA_TC_PROFILE", "-shared",
-           str(build.CSRC / "swa_attention_tc.cu"), "-o", str(lib)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), lib
+    procs = {}
+    for name, (source, macro) in VARIANT_BUILDS.items():
+        lib = build.BUILD_DIR / f"{name}_variant.so"
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, f"-D{macro}", "-shared",
+               str(build.CSRC / source), "-o", str(lib)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), lib)
+    return procs
 
 
-SWA_TC_PHASES = ("wait_q", "wait_k", "s_gemm", "softmax", "wait_v", "pv_gemm",
-                 "epilogue")
-
-
-def _swa_tc_profile(torch, dev, path: Path, q, k, v, win: int, row: dict) -> None:
-    """Runs the profile build of the tensor-core kernel on the S=32768
-    inputs and prints the share of its consumer warpgroups' clock cycles
-    spent in each phase of the tile loop, with the cycles per KV tile."""
+def _swa_profile(torch, dev, name: str, path: Path, q, k, v, ms: float) -> None:
+    """Runs the profile build of SWA kernel ``name`` on the inputs and prints
+    the share of its warpgroups' clock cycles spent in each phase of the
+    tile loop, with the cycles per KV tile (``ms``: the kernel's time per
+    call without the profile)."""
     import ctypes
 
-    lib = ctypes.CDLL(str(path))
-    fn = lib.repro_swa_attention_tc_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    counters = (ctypes.c_ulonglong * (len(SWA_TC_PHASES) + 2))()
-    lib.repro_swa_tc_profile.argtypes = [ctypes.c_void_p]
-    lib.repro_swa_tc_profile.restype = ctypes.c_int
+    _, _, entry, reader, phases = PROFILE_BUILDS[name]
+    fn = _variant_entry(path, entry)
+    read = getattr(ctypes.CDLL(str(path)), reader)
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    counters = (ctypes.c_ulonglong * (len(phases) + 2))()
     b, s, h, dh = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-                 k.shape[2], dh, win, stream)
-        check(err == 0, f"swa_attention_tc profile build: launch error {err}")
+                 k.shape[2], dh, SWA_SHAPE[4], stream)
+        check(err == 0, f"{name} profile build: launch error {err}")
 
-    ms = time_ms(torch, launch, reps=5, warmup=1)
-    check(lib.repro_swa_tc_profile(counters) == 0, "profile counters unreadable")
+    prof_ms = time_ms(torch, launch, reps=3, warmup=1)
+    check(read(counters) == 0, "profile counters unreadable")
     launch()
     torch.cuda.synchronize()
-    check(lib.repro_swa_tc_profile(counters) == 0, "profile counters unreadable")
-    cycles = list(counters[:len(SWA_TC_PHASES)])
-    tiles, wgs = counters[len(SWA_TC_PHASES)], counters[len(SWA_TC_PHASES) + 1]
+    check(read(counters) == 0, "profile counters unreadable")
+    cycles = list(counters[:len(phases)])
+    tiles, wgs = counters[len(phases)], counters[len(phases) + 1]
     total = sum(cycles)
-    share = {p: c / total for p, c in zip(SWA_TC_PHASES, cycles)}
-    per_tile = {p: c / tiles for p, c in zip(SWA_TC_PHASES, cycles)}
-    print(f"swa_attention_tc profile S=32768 (build with -DSWA_TC_PROFILE, "
-          f"{ms:.4f} ms per call against {row['ms_s32768']:.4f} without): "
-          f"{tiles / wgs:.2f} KV tiles per consumer warpgroup; share of its "
-          f"cycles (cycles per tile): " + ", ".join(
-              f"{p} {share[p]:.3f} ({per_tile[p]:.0f})" for p in SWA_TC_PHASES))
+    print(f"{name} profile S={s} (build with -D{PROFILE_BUILDS[name][1]}, {prof_ms:.4f} "
+          f"ms per call against {ms:.4f} without): {tiles / wgs:.2f} KV tiles per "
+          f"warpgroup, {total / tiles:.0f} cycles per tile; share of its cycles (cycles "
+          f"per tile): " + ", ".join(f"{p} {c / total:.3f} ({c / tiles:.0f})"
+                                     for p, c in zip(phases, cycles)))
     del out
 
 
@@ -1011,9 +1264,11 @@ def phase_cpu(dev, m: int = 64, dim: int = 784) -> None:
           f"worst share of the allowance: {used}")
 
 
-def _device_activity(torch, run) -> tuple[int, float, dict[str, float]]:
-    """Device activities, their summed device time (ms) and the time per
-    kernel name of one ``run()`` under ``torch.profiler``."""
+def _device_activity(torch, run
+                     ) -> tuple[int, float, dict[str, float], dict[str, int]]:
+    """Device activities, their summed device time (ms), and the time and
+    the number of activities per kernel name of one ``run()`` under
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1023,9 +1278,29 @@ def _device_activity(torch, run) -> tuple[int, float, dict[str, float]]:
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     per_name: dict[str, float] = {}
+    count: dict[str, int] = {}
     for e in dev_events:
         per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return len(dev_events), sum(per_name.values()), per_name
+        count[e.name] = count.get(e.name, 0) + 1
+    return len(dev_events), sum(per_name.values()), per_name, count
+
+
+def _repo_kernel(name: str) -> str | None:
+    """The repo's kernel function (``REPO_KERNELS``) a profiler event name
+    belongs to, if any."""
+    import re
+
+    hit = re.search(r"::(\w+_kernel)\b", name)
+    return hit.group(1) if hit and hit.group(1) in REPO_KERNELS else None
+
+
+def _repo_counts(count: dict[str, int]) -> dict[str, int]:
+    """Device activities per kernel name, summed per repo kernel function."""
+    seen: dict[str, int] = {}
+    for name, n in count.items():
+        if fn := _repo_kernel(name):
+            seen[fn] = seen.get(fn, 0) + n
+    return seen
 
 
 def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
@@ -1035,17 +1310,15 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     the difference over 4 iterations cancels staging and init.  The idle
     share is 1 - busy / ``step_ms[cell]``, the ms per iteration of the
     cell's run without the profiler."""
-    import re
-
     cells = {"paper": lambda T: phase_paper(dev, T=T)[1],
              "fleet": lambda T: phase_fleet(dev, T=T)[1],
              "dense fabric": lambda T: phase_fleet(
                  dev, m=1024, T=T, radius=0.4, routes=("mix_sparse_wide",))[1]}
     for name, cell in cells.items():
         cell(4)  # warm
-        n4, busy4, per4 = _device_activity(torch, lambda: cell(4))
+        n4, busy4, per4, _ = _device_activity(torch, lambda: cell(4))
         out = {}
-        n8, busy8, per_name = _device_activity(
+        n8, busy8, per_name, _ = _device_activity(
             torch, lambda: out.setdefault("res", cell(8)))
         if not n8:
             print(f"profile {name}: the profiler saw no device activity; "
@@ -1063,9 +1336,8 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
         own: dict[str, float] = {}
         for per, sign in ((per_name, 1), (per4, -1)):
             for kname, ms in per.items():
-                hit = re.search(r"::(\w+_kernel)\b", kname)
-                if hit and hit.group(1) in REPO_KERNELS:
-                    own[hit.group(1)] = own.get(hit.group(1), 0.0) + sign * ms / 4
+                if fn := _repo_kernel(kname):
+                    own[fn] = own.get(fn, 0.0) + sign * ms / 4
         print(f"profile {name}: the repo's kernels, device ms/iteration: " + (
             ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())) or "none seen"))
 
@@ -1079,32 +1351,41 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def _profile_line(torch, label: str, wall_ms: float, n: int, run) -> None:
+def _profile_line(torch, label: str, wall_ms: float, n: int, run
+                  ) -> dict[str, int] | None:
     """Device activities and busy time per call of ``run`` (which makes
     ``n`` calls) under the profiler, the idle share against ``wall_ms``
-    per call measured without it, and the kernels that take the most."""
-    n_act, busy, per_name = _device_activity(torch, run)
+    per call measured without it, and the kernels that take the most.
+    Returns the device activities of each of the repo's kernels in the
+    run, or None when the profiler saw no device activity."""
+    n_act, busy, per_name, count = _device_activity(torch, run)
     if not n_act:
         print(f"{label} profile: the profiler saw no device activity; busy "
               f"share not measured")
-        return
+        return None
     swa = sum(ms for name, ms in per_name.items()
-              if "swa_kernel" in name or "swa_tc_kernel" in name)
+              if (_repo_kernel(name) or "").startswith("swa_"))
     print(f"{label} profile: {n_act / n:.0f} device activities per call, device "
           f"busy {busy / n:.2f} ms of {wall_ms:.2f} ms (idle share "
           f"{1 - busy / n / wall_ms:.3f}); swa_attention {swa / n:.2f} ms")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"{label} profile:   {ms / n:9.3f} ms per call  {name[:90]}")
+    return _repo_counts(count)
 
 
 def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
                 prompt: int = 16, new: int = 16, cache_len: int = 4096,
-                heads=(0, 23, 47), seed: int = 0) -> int:
+                heads=(0, 23, 47), seed: int = 0, twin: str | None = None
+                ) -> tuple[int, dict[str, int] | None]:
     """starcoder2-15b (or ``cfg``) with ``attn_impl="pallas_swa"``: one
     prefill of ``seq`` tokens (the prefill_32k length, batch cut from 32
-    to 1), then ``n_req`` requests decoded token by token.  Returns the
-    prefill's launches of the SWA kernel that serves the model's dtype (the
-    tensor-core kernel in bf16), which must be all of its SWA launches."""
+    to 1), its logits within atol=rtol 1e-4 of the same prefill with
+    ``attn_impl=twin`` where ``twin`` is given, then ``n_req`` requests
+    decoded token by token.  Returns the prefill's launches of the SWA
+    kernel that serves the model's dtype (the tensor-core kernel in bf16,
+    the split-TF32 one in fp32), which must be all of its SWA launches,
+    and the device activities of each repo kernel in a profiled prefill
+    (None off the card or when the profiler saw none)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1161,6 +1442,17 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     check(tuple(logits.shape) == (1, seq, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           f"serve prefill: logits {tuple(logits.shape)} not finite or misshaped")
+    twin_text = ""
+    if twin is not None:
+        other = steps.make_prefill_step(dataclasses.replace(cfg, attn_impl=twin))(
+            params, {"tokens": tokens})
+        err = float((logits - other).abs().max())
+        check(bool(torch.allclose(logits, other, atol=1e-4, rtol=1e-4)),
+              f"serve prefill: logits vs attn_impl={twin!r} outside atol=rtol 1e-4 "
+              f"(max abs err {err:.3g})")
+        twin_text = (f"; logits vs attn_impl={twin!r} on the card: max abs err "
+                     f"{err:.3g}, logits std {float(logits.std()):.3g} (tol atol=rtol 1e-4)")
+        del other
     del logits
     q, k, v, out, win = first.pop()
     group = cfg.n_heads // cfg.n_kv_heads
@@ -1193,14 +1485,15 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     print(f"serve prefill B=1 S={seq}: {launches} {route} launches; logits "
           f"finite; layer 0 heads {list(heads)} vs plain: max abs err "
           f"{max(errs):.3g}, rel L2 {max(rels):.3g}, output std "
-          f"{min(scales):.3g}-{max(scales):.3g} (tol {swa_tol_text(tol)}); "
+          f"{min(scales):.3g}-{max(scales):.3g} (tol {swa_tol_text(tol)}){twin_text}; "
           f"{prefill_ms:.1f} ms "
           f"({seq / prefill_ms * 1e3:.0f} tokens/s, host clock to a sync, second "
           f"run); peak memory {peak:.2f} GB; card right after (SM clock, power, "
           f"temperature): {state}")
+    seen = None
     if on_card:
-        _profile_line(torch, "serve prefill", prefill_ms, 1,
-                      lambda: prefill(params, {"tokens": tokens}))
+        seen = _profile_line(torch, "serve prefill", prefill_ms, 1,
+                             lambda: prefill(params, {"tokens": tokens}))
 
     # (b) decode: prompts replayed into the ring-buffer cache, then greedy
     serve = steps.make_serve_step(cfg)
@@ -1240,13 +1533,16 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     del params, cache, dec, fwd
     if on_card:
         torch.cuda.empty_cache()
-    return launches
+    return launches, seen
 
 
-def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> int:
+def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0
+                    ) -> tuple[int, dict[str, int] | None]:
     """The starcoder2 smoke configuration (fp32, pallas_swa) on the card
-    (the SIMT kernel) and on the CPU (plain version), one set of weights.
-    Returns the SIMT kernel's launches on the card."""
+    (the split-TF32 kernel) and on the CPU (plain version), one set of
+    weights.  Returns the split-TF32 kernel's launches on the card and the
+    device activities of each repo kernel in that prefill, which runs under
+    the profiler (None off the card or when the profiler saw none)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -1261,28 +1557,74 @@ def phase_serve_cpu(torch, dev, seq: int = 128, seed: int = 0) -> int:
                              dtype=torch.int64).reshape(2, seq)
     prefill = steps.make_prefill_step(cfg)
     _reset_launches()
-    card = prefill(card_params, {"tokens": tokens.to(dev)})
-    _sync(torch, dev)
+    if torch.device(dev).type == "cuda":
+        out: dict = {}
+        n_act, _, _, count = _device_activity(torch, lambda: out.setdefault(
+            "logits", prefill(card_params, {"tokens": tokens.to(dev)})))
+        card, seen = out["logits"], _repo_counts(count) if n_act else None
+    else:
+        card, seen = prefill(card_params, {"tokens": tokens.to(dev)}), None
     counts = _launches()
-    launches = counts["swa_attention"]  # fp32: the SIMT kernel
+    launches = counts["swa_attention_tf32"]  # fp32: the split-TF32 kernel
     check(launches == cfg.n_layers and counts["swa_attention_tc"] == 0,
-          f"serve_cpu: expected {cfg.n_layers} swa_attention launches and no "
+          f"serve_cpu: expected {cfg.n_layers} swa_attention_tf32 launches and no "
           f"swa_attention_tc launch, got {counts}")
     cpu = prefill(cpu_params, {"tokens": tokens})
     err = float((card.cpu() - cpu).abs().max())
     check(bool(torch.allclose(card.cpu(), cpu, atol=1e-4, rtol=1e-4)),
           f"serve_cpu: card vs cpu logits outside atol=rtol 1e-4 (max abs err "
           f"{err:.3g})")
-    print(f"serve card vs cpu {cfg.name} fp32 S={seq}: {launches} swa_attention "
+    print(f"serve card vs cpu {cfg.name} fp32 S={seq}: {launches} swa_attention_tf32 "
           f"launches on the card, logits max abs err {err:.3g} (tol atol=rtol 1e-4)")
-    return launches
+    return launches, seen
+
+
+def simt_launches(runs: dict[str, tuple[int, str, dict[str, int] | None]]
+                  ) -> int | None:
+    """The SIMT SWA kernel's (``swa_kernel``) launches in the serve
+    prefills ``runs`` (label: the launches its wrapper counted, the kernel
+    function that serves it, the profiler's device activities per repo
+    kernel), counted by the profiler: no wrapper route reaches the kernel,
+    so it has no counter.  Each prefill's profile must hold as many
+    activities of its serving kernel as the wrapper counted, and the SIMT
+    kernel none.  None when the profiler saw no device activity."""
+    total = 0
+    for label, (want, kernel, seen) in runs.items():
+        if seen is None:
+            print(f"{label}: the profiler saw no device activity; the SIMT "
+                  f"kernel's launches not measured")
+            return None
+        check(seen.get(kernel, 0) == want,
+              f"{label}: the profiler saw {seen.get(kernel, 0)} {kernel} launches, "
+              f"the wrapper counted {want}")
+        total += seen.get("swa_kernel", 0)
+    check(total == 0, f"swa_kernel (SIMT) ran {total} times in the serve prefills; "
+                      f"no route should reach it")
+    print(f"swa_kernel (SIMT) launches in the serve prefills, counted by the "
+          f"profiler beside each one's serving kernel: {total} ("
+          + ", ".join(f"{label}: {want} {kernel}" for label, (want, kernel, _)
+                      in runs.items()) + ")")
+    return total
+
+
+def starcoder2_fp32(n_layers: int = 2):
+    """starcoder2-15b at its full width in fp32, its depth cut from 40 to
+    ``n_layers`` layers (~1.5 GB of fp32 weights a layer beside the
+    embedding and head), with ``attn_impl="pallas_swa"``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("starcoder2-15b"), n_layers=n_layers,
+                               layer_plan=((("attn",), n_layers),), dtype="float32",
+                               attn_impl="pallas_swa")
 
 
 # kernel functions of csrc/ (the names the profiler shows)
 REPO_KERNELS = ("trigger_sq_kernel", "mix_kernel", "mix_sparse_kernel",
                 "compact_slots_kernel", "mix_sparse_wide_kernel",
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
-                "swa_tc_kernel")
+                "swa_tc_kernel", "swa_tf32_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -1299,6 +1641,8 @@ KERNEL_SOURCES = {
                       "src/repro/kernels/swa/kernel.py:76"),
     "swa_attention_tc": ("src/repro_torch/kernels/csrc/swa_attention_tc.cu",
                          "src/repro/kernels/swa/kernel.py:76"),
+    "swa_attention_tf32": ("src/repro_torch/kernels/csrc/swa_attention_tf32.cu",
+                           "src/repro/kernels/swa/kernel.py:76"),
 }
 
 
@@ -1323,16 +1667,18 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)}")
         from repro_torch.kernels import build
         t0 = time.perf_counter()
-        profile_build, profile_lib = start_profile_build()  # beside the kernels'
+        variant_builds = start_variant_builds()  # beside the kernels'
         try:
             build.library()
         finally:
-            out, _ = profile_build.communicate()
-        check(profile_build.returncode == 0,
-              f"nvcc failed on the profile build of swa_attention_tc.cu:\n{out}")
+            outs = {name: proc.communicate()[0] for name, (proc, _) in variant_builds.items()}
+        for name, (proc, _) in variant_builds.items():
+            check(proc.returncode == 0,
+                  f"nvcc failed on the variant build {name}:\n{outs[name]}")
         print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
-        rows = phase_kernels(torch, dev, seed=0, profile_lib=profile_lib)
+        rows = phase_kernels(torch, dev, seed=0, variant_libs={
+            name: lib for name, (_, lib) in variant_builds.items()})
         phase_golden(dev)
         paper, paper_res = phase_paper(dev, twin=True)
         fleet, fleet_res = phase_fleet(dev, twin=True)
@@ -1348,8 +1694,15 @@ def main() -> int:
         phase_profile(torch, dev, {
             name: res.timing["ms_per_step"] for name, res in (
                 ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res))})
-        launches["swa_attention_tc"] = phase_serve(torch, dev)
-        launches["swa_attention"] = phase_serve_cpu(torch, dev)
+        launches["swa_attention_tc"], seen_bf16 = phase_serve(torch, dev)
+        launches["swa_attention_tf32"], seen_fp32 = phase_serve(
+            torch, dev, cfg=starcoder2_fp32(), seq=8192, twin="chunked")
+        smoke, seen_smoke = phase_serve_cpu(torch, dev)
+        launches["swa_attention"] = simt_launches({
+            "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
+            "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
+                                   seen_fp32),
+            "serve card vs cpu": (smoke, "swa_tf32_kernel", seen_smoke)})
         torch.cuda.synchronize()
     except Exception as exc:  # report any phase's failure, then exit non-zero
         import traceback
@@ -1366,7 +1719,10 @@ def main() -> int:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             **{k: row[k] for k in ("ms_s32768", "library_ms_s32768",
-                                   "plan_build_ms", "ms_32_columns",
+                                   "bound_ms_s32768", "bound_ms_fp32_units",
+                                   "bound_ms_fp32_units_s32768", "fp64_max_abs_err",
+                                   "fp64_bias", "ms_rna_lo", "fp64_max_abs_err_rna_lo",
+                                   "fp64_bias_rna_lo", "plan_build_ms", "ms_32_columns",
                                    "ms_64_columns", "ms_m4096_r04",
                                    "plain_ms_m4096_r04", "bound_ms_m4096_r04",
                                    "library_ms_m4096_r04", "sass_tensor_ops")

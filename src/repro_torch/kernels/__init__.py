@@ -4,7 +4,7 @@ the JAX package:
   trigger/ - per-device ||w - w_hat||^2 row reduction   (paper Event 2)
   mixing/  - dense P @ W and the ELL gather-mix          (paper Event 3)
   swa/     - sliding-window causal attention with GQA    (model prefill):
-             tensor cores (wgmma + TMA) for bf16, SIMT for fp32
+             tensor cores for bf16 (wgmma + TMA) and for fp32 (split TF32)
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (built on first
 use by ``build.py`` from ``csrc/``) and counts the launch in its module's

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu",
-                             "swa_attention.cu", "swa_attention_tc.cu")
+                             "swa_attention.cu", "swa_attention_tc.cu",
+                             "swa_attention_tf32.cu")
 NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "repro_swa_attention_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tc_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
+    "repro_swa_attention_tf32_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -13,7 +13,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/swa/kernel.py:76
 // (swa_attention_pallas, body _swa_fwd_kernel at :30) for bf16 inputs; fp32
-// inputs keep the SIMT kernel of swa_attention.cu.
+// inputs take the split-TF32 kernel of swa_attention_tf32.cu.
 //
 // Bound on the H100: operations.  The work is 4 dh flops per in-window
 // (query, key) pair and head: at S = 32768, window 4096, H = 48, dh = 128

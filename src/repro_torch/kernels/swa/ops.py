@@ -2,12 +2,16 @@
 (B, S, H, dh) layout.
 
 Routes by dtype alone.  A bf16 CUDA tensor launches the tensor-core kernel
-(``csrc/swa_attention_tc.cu``: wgmma + TMA, 16-byte aligned, B * S < 2^31);
-an fp32 CUDA tensor launches the SIMT kernel (``csrc/swa_attention.cu``);
-either takes contiguous inputs with dh in {32, 64, 128} and raises on what
-it cannot take.  A CPU tensor runs the plain version in ``ref.py``.  The
-kernels read the (B, S, ., dh) rows in place, so the card path needs none
-of the transposes the plain version takes."""
+(``csrc/swa_attention_tc.cu``: wgmma + TMA, B * S < 2^31); an fp32 CUDA
+tensor launches the split-TF32 tensor-core kernel
+(``csrc/swa_attention_tf32.cu``: wgmma + cp.async).  Either takes
+contiguous, 16-byte aligned inputs with dh in {32, 64, 128} and raises on
+what it cannot take; no route falls back to another kernel or to the plain
+version.  A CPU tensor runs the plain version in ``ref.py``.  The kernels
+read the (B, S, ., dh) rows in place, so the card path needs none of the
+transposes the plain version takes.  The SIMT kernel of
+``csrc/swa_attention.cu``, the earlier design of both paths, stays in the
+library for comparison; no route reaches it."""
 from __future__ import annotations
 
 import torch
@@ -16,13 +20,13 @@ from repro_torch.kernels import build, check_cuda_input, on_cpu, stream_handle
 from repro_torch.kernels.swa.ref import swa_ref
 
 # launches of each CUDA kernel, counted where it is launched and nowhere
-# else: "swa_attention" the SIMT kernel (fp32), "swa_attention_tc" the
-# tensor-core kernel (bf16)
-LAUNCHES = {"swa_attention": 0, "swa_attention_tc": 0}
+# else: "swa_attention_tc" the bf16 tensor-core kernel, "swa_attention_tf32"
+# the fp32 split-TF32 one
+LAUNCHES = {"swa_attention_tc": 0, "swa_attention_tf32": 0}
 
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_YZ = 65535
-_TMA_ALIGN = 16  # bytes: a tensor map's base address
+_ALIGN = 16  # bytes: a tensor map's base address (bf16), 16-byte copies (fp32)
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -55,20 +59,19 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"the SWA kernels take H, B <= {_MAX_GRID_YZ} and "
                          f"S < 2^31; got H={h}, B={b}, S={s}")
     tc = q.dtype == torch.bfloat16
-    if tc:
-        if b * s >= 2 ** 31:
-            raise ValueError(f"the tensor-core SWA kernel takes B * S < 2^31; "
-                             f"got {b * s}")
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % _TMA_ALIGN:
-                raise ValueError(f"the tensor-core SWA kernel takes {name} at "
-                                 f"a {_TMA_ALIGN}-byte aligned address")
+    if tc and b * s >= 2 ** 31:
+        raise ValueError(f"the tensor-core SWA kernel takes B * S < 2^31; "
+                         f"got {b * s}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(f"the SWA kernels take {name} at a {_ALIGN}-byte "
+                             f"aligned address")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = build.library()
-    fn = lib.repro_swa_attention_tc_bf16 if tc else lib.repro_swa_attention_f32
-    name = "swa_attention_tc" if tc else "swa_attention"
+    fn = lib.repro_swa_attention_tc_bf16 if tc else lib.repro_swa_attention_tf32_f32
+    name = "swa_attention_tc" if tc else "swa_attention_tf32"
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, g, dh, int(window), stream_handle(q.device))
     build.check(err, name)

@@ -186,10 +186,10 @@ def test_mix_sparse_plan_follows_the_table(cuda):
 
 
 @pytest.mark.gpu
-# (atol, rtol, relative L2): fp32 (SIMT kernel) sums the same fp32 products
-# in another order; bf16 (tensor-core kernel) also rounds P to bf16 before
-# P V, and both sides round the output once to bf16, so they differ by
-# about one bf16 step
+# (atol, rtol, relative L2): fp32 (split-TF32 kernel) sums the fp32 products
+# (three TF32 products each) in another order; bf16 (tensor-core kernel)
+# also rounds P to bf16 before P V, and both sides round the output once to
+# bf16, so they differ by about one bf16 step
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 2e-5, None)),
                                        (torch.bfloat16, (5e-3, 1e-2, 1e-2))])
 @pytest.mark.parametrize("shape", [
@@ -211,12 +211,10 @@ def test_swa_kernel_matches_plain(cuda, shape, dtype, tol):
     gen = torch.Generator(device=cuda).manual_seed(s + h)
     q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=cuda).to(dtype)
                for n in (h, g, g))
-    route = "swa_attention_tc" if dtype == torch.bfloat16 else "swa_attention"
-    other = "swa_attention" if dtype == torch.bfloat16 else "swa_attention_tc"
+    route = "swa_attention_tc" if dtype == torch.bfloat16 else "swa_attention_tf32"
     before = dict(tswa.LAUNCHES)
     got = tswa.swa_attention(q, k, v, window=win)
-    assert tswa.LAUNCHES[route] == before[route] + 1
-    assert tswa.LAUNCHES[other] == before[other]
+    assert tswa.LAUNCHES == {**before, route: before[route] + 1}
     want = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    window=win).transpose(1, 2)
     assert got.dtype == dtype
@@ -226,6 +224,39 @@ def test_swa_kernel_matches_plain(cuda, shape, dtype, tol):
     if rel_max is not None:
         norm = torch.linalg.vector_norm
         assert norm(got - want) <= rel_max * norm(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["q_nan", "q_inf", "k_inf", "v_inf", "k_huge"])
+def test_swa_tf32_kernel_nonfinite_where_plain_is(cuda, where):
+    """A non-finite q, k or v value: the split-TF32 kernel's output is finite
+    exactly where the plain version's is (its epilogue recomputes the
+    outputs the split leaves NaN in fp32), and equal to it there.  V's inf
+    sits at key 0 with S <= window, where every row attends to it (the
+    plain version's dense P V multiplies every masked key's V by 0 too); a
+    finite k that TF32 rounding carries past FLT_MAX leaves its rows finite."""
+    b, s, h, g, dh, win = 1, 200, 4, 2, 64, 256
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=cuda)
+               for n in (h, g, g))
+    if where == "q_nan":
+        q[0, 20, 1, 3] = float("nan")
+    elif where == "q_inf":
+        q[0, 140, 2, 7] = float("inf")
+    elif where == "k_inf":
+        k[0, 10, 1, 5] = float("inf")
+    elif where == "v_inf":
+        v[0, 0, 0, 9] = float("-inf")
+    else:
+        k[0, 30, 0, 2] = 3.4028e38  # rounds to inf in TF32
+        q[0, 30:, :2, 2] = 1e-38  # the scores stay finite
+    got = tswa.swa_attention(q, k, v, window=win)
+    want = swa_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   window=win).transpose(1, 2)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert where == "k_huge" or not bool(fin.all())
+    torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu
@@ -248,3 +279,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         flat = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
         qu = flat[1:].view(q.shape)
         tswa.swa_attention(qu, qu, qu, window=16)
+    with pytest.raises(ValueError):  # fp32 not 16-byte aligned: no 16-byte copies
+        flat = torch.zeros(q.numel() + 1, device=cuda)
+        qu = flat[1:].view(q.shape)
+        tswa.swa_attention(qu, q, q, window=16)

@@ -293,9 +293,9 @@ def test_smoke_forward_pallas_swa_matches_reference(smoke):
     tok = _rng(9).integers(0, jcfg.vocab, size=(2, 128)).astype(np.int32)
     want, _ = JM.forward(jcfg, jp, {"tokens": jnp.asarray(tok)})
     prefill = tsteps.make_prefill_step(tcfg)
-    before = tswa.LAUNCHES["swa_attention"]
+    before = tswa.LAUNCHES["swa_attention_tf32"]  # the kernel that serves fp32
     got = prefill(tp, {"tokens": torch.as_tensor(tok, dtype=torch.int64)})
-    assert tswa.LAUNCHES["swa_attention"] == before  # CPU: the plain version
+    assert tswa.LAUNCHES["swa_attention_tf32"] == before  # CPU: the plain version
     assert tuple(got.shape) == (2, 128, jcfg.vocab)
     _close(got, want)
     _close(TM.prefill(tcfg, tp, {"tokens": torch.as_tensor(tok)}), want)
