@@ -22,6 +22,10 @@ error:
    rgg r=0.4 fabric at m=1024 and on rgg r=0.2 at m=4096, and the wide
    and direct kernels on rgg r=0.4 at m=4096, each route alone on its
    rows; on each dense fabric the plan's chunk width beside the other;
+   the sweep's cell axis at C = 8 (``mix`` at m=1024, D=50890, against
+   batched ``torch.matmul`` and the fp64 gates; ``mix_sparse`` on the
+   fleet fabric, rgg r=0.4 at m=1024 and at m=4096, against CSR of the
+   block-diagonal P), each cell bit-equal to its solo launch;
    the dense mix's and the fp32 SWA kernel's tensor-core opcodes and
    registers (``cuobjdump``, TF32 ones required) and their error and bias
    against fp64, each within a stated limit;
@@ -40,11 +44,20 @@ error:
    same at m=1024 on the rgg r=0.4 fabric (10 iterations, every row on
    ``mix_sparse_wide``) and at m=4096 on rgg r=0.4 (3 iterations, on
    ``mix_sparse_wide`` and ``mix_sparse_direct``);
+   4b. paper sweep: ``api.sweep`` of the paper cell over seeds (0, 1) and
+   the four policies, 8 cells in one batched run: exactly 20 ``mix`` and
+   20 ``trigger_sq`` launches (one an iteration for all cells), its
+   ``mix_impl="dense"`` twin (every cell's v, comm_count and deg equal),
+   each cell against ``api.simulate`` of its (seed, policy) on the card,
+   and the sweep's ms/iteration beside 8 x the solo runs';
+   5b. fleet sweep: ``run_sweep`` of the fleet cell over the same grid:
+   exactly 20 ``mix_sparse`` launches, and its ``sparse`` twin;
 6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30 on the card and on
    the CPU (plain versions), channel by channel;
 7. profile: device activities, device busy time, idle share and each of
-   the repo's kernels' device time per iteration of the paper, fleet and
-   dense-fabric paths, under ``torch.profiler``;
+   the repo's kernels' device time per iteration of the paper, fleet,
+   dense-fabric, paper-sweep and fleet-sweep paths, under
+   ``torch.profiler``;
 8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
    ``attn_impl="pallas_swa"``, random weights from a seeded generator):
    one prefill of 32768 tokens through the steps of
@@ -361,22 +374,158 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     _width_row(torch, dev, gen)
     rows["mix_sparse_direct"], wide_4096 = _direct_row(torch, dev, gen)
     rows["mix_sparse_wide"].update(wide_4096)
+    # the sweep's cell axis: C = 8 cells in one launch
+    rows["mix"].update(_mix_cells_row(torch, dev, gen))
+    rows["mix_sparse"].update(_mix_sparse_cells_row(torch, dev, gen, 4096, None,
+                                                    ("mix_sparse",)))
+    rows["mix_sparse_wide"].update(_mix_sparse_cells_row(torch, dev, gen, 1024, 0.4,
+                                                         ("mix_sparse_wide",)))
+    rows["mix_sparse_direct"].update(_mix_sparse_cells_row(
+        torch, dev, gen, 4096, 0.4, ("mix_sparse_wide", "mix_sparse_direct")))
     rows.update(_swa_fp32_rows(torch, dev, gen, res, variant_libs))
     rows.update(_swa_rows(torch, dev, gen, variant_libs["swa_attention_tc"]))
     return rows
 
 
-def _ell_p(torch, dev, gen, m: int, radius: float):
+CELLS = 8  # the paper sweep's cells: seeds (0, 1) x four policies
+
+
+def _mix_cells_row(torch, dev, gen, m: int = 1024, n: int = 50890,
+                   cells: int = CELLS) -> dict:
+    """The dense mix with the sweep's cell axis: P (C, m, m), W (C, m, D)
+    in one launch.  Each cell must give the bits of a launch on that cell
+    alone, and the batch stays within the split-TF32 gates against fp64;
+    timed against the plain version, batched ``torch.matmul`` (TF32 off)
+    and C x the solo bound."""
+    from repro_torch.core import mixing, topology, triggers
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_ref
+
+    g = topology.make_process(m, "rgg", time_varying="edge_dropout", drop=0.3, seed=0)
+    adj = g.adjacency(0, dev)
+    v = torch.rand((cells, m), generator=gen, device=dev) < 0.5
+    p = mixing.build_p(adj, triggers.communication_matrix(v, adj))
+    w = torch.randn((cells, m, n), generator=gen, device=dev)
+    before = mixing_ops.LAUNCHES["mix"]
+    got = mixing_ops.mix(p, w)
+    check(mixing_ops.LAUNCHES["mix"] == before + 1, "mix with cells: not one launch")
+    for c in range(cells):
+        check(torch.equal(got[c], mixing_ops.mix(p[c], w[c])),
+              f"mix with cells: cell {c} differs from its solo launch")
+    ref = mix_ref(p, w)
+    abs_err = float((got - ref).abs().max())
+    exact = p.double() @ w.double()
+    fp64_err = {k: (float((x.double() - exact).abs().max()),
+                    float(((x.double() - exact) * exact.sign()).mean() / exact.abs().mean()))
+                for k, x in (("kernel", got), ("library", ref))}
+    del exact
+    check(fp64_err["kernel"][0] <= MIX_FP64_ERR_VS_LIB * fp64_err["library"][0],
+          f"mix with cells: max abs err against fp64 {fp64_err['kernel'][0]:.3g} > "
+          f"{MIX_FP64_ERR_VS_LIB} x torch.matmul's {fp64_err['library'][0]:.3g}")
+    check(abs(fp64_err["kernel"][1]) <= MIX_FP64_BIAS,
+          f"mix with cells: mean relative bias against fp64 "
+          f"{fp64_err['kernel'][1]:.3g} outside +-{MIX_FP64_BIAS:.3g}")
+    ms = time_ms(torch, lambda: mixing_ops.mix(p, w), reps=10)
+    plain = time_ms(torch, lambda: mix_ref(p, w), reps=10)
+    lib = time_ms(torch, lambda: torch.matmul(p, w), reps=10)
+    solo = time_ms(torch, lambda: mixing_ops.mix(p[0], w[0]))
+    b_ms, b_by = bound(cells * (m * m + 2 * m * n) * 4, cells * 3 * 2 * m * m * n,
+                       TF32_TC_FLOPS)
+    print(f"kernel mix with cells C={cells} m={m} D={n}: every cell bit-equal to its "
+          f"solo launch; max abs err {abs_err:.3g} against the plain version; against "
+          f"fp64: kernel {fp64_err['kernel'][0]:.3g} (bias {fp64_err['kernel'][1]:.3g}),"
+          f" torch.matmul {fp64_err['library'][0]:.3g} (limits {MIX_FP64_ERR_VS_LIB} x "
+          f"torch.matmul's, +-{MIX_FP64_BIAS:.3g}); kernel_ms {ms:.4f} ({ms / solo:.3f} x "
+          f"the solo launch's {solo:.4f} in this call, {ms / (cells * solo):.3f} of "
+          f"{cells} solo launches) plain_ms {plain:.4f} library_ms {lib:.4f} "
+          f"(torch.matmul on (C, m, m) @ (C, m, D), TF32 off) bound_ms {b_ms:.4f} "
+          f"({b_by}, {cells} x the solo bound)")
+    return {"cells": cells, "ms_c8": ms, "plain_ms_c8": plain, "library_ms_c8": lib,
+            "bound_ms_c8": b_ms, "solo_ms_in_c8_call": solo,
+            "fp64_max_abs_err_c8": fp64_err["kernel"][0]}
+
+
+def _csr_cells(torch, idx, p_diag, p_off):
+    """The C cells' ELL P as one block-diagonal (C m, C m) CSR matrix."""
+    cells, m, d = p_off.shape
+    off = (torch.arange(cells, device=idx.device) * m)[:, None, None]
+    nz = p_off != 0
+    r = torch.arange(m, device=idx.device)[None, :, None] + off
+    diag = (torch.arange(m, device=idx.device)[None, :] + off[:, :, 0]).reshape(-1)
+    rows = torch.cat([r.expand(cells, m, d)[nz], diag])
+    cols = torch.cat([(idx[None] + off)[nz], diag])
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), torch.cat([p_off[nz], p_diag.reshape(-1)]),
+        (cells * m, cells * m)).coalesce().to_sparse_csr()
+
+
+def _mix_sparse_cells_row(torch, dev, gen, m: int, radius: float | None,
+                          routes: tuple[str, ...], n: int = 7850,
+                          cells: int = CELLS) -> dict:
+    """The gather-mix with the sweep's cell axis on one rgg fabric
+    (``radius`` None: the fleet's): one shared table and plan, each cell
+    its own broadcasting devices.  The wrapper must launch each route of
+    ``routes`` once for all cells, and each cell must give the plain slot
+    loop's bits and those of a launch on that cell alone; timed against
+    the plain version, CSR ``torch.sparse.mm`` of the block-diagonal
+    (C m, C m) P on W as (C m, D), and the bound of the cells' work."""
+    from repro_torch.core import topology
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    nl, p_diag, p_off = _ell_p(torch, dev, gen, m, radius or topology.fleet_radius(m),
+                               cells)
+    w = torch.randn((cells, m, n), generator=gen, device=dev)
+    plan = mixing_ops.prepare_plan(nl.idx)
+    label = f"mix_sparse with cells C={cells} m={m} rgg r={radius or 'fleet'}"
+    # the plain version, timed once (at m=4096 r=0.4 one call takes seconds)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = mix_sparse_ref(nl.idx, p_diag, p_off, w)
+    b.record()
+    b.synchronize()
+    plain = a.elapsed_time(b)
+    abs_err = _wrapper_check(torch, nl, p_diag, p_off, w, ref, routes, label)
+    for c in range(cells):
+        check(torch.equal(mixing_ops.mix_sparse(nl.idx, p_diag[c], p_off[c], w[c]), ref[c]),
+              f"{label}: cell {c}'s solo launch differs from the batched one")
+    reps = 5 if plan.n_direct else 10
+    ms = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w), reps=reps)
+    solo = time_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag[0], p_off[0], w[0]),
+                   reps=reps)
+    csr = _csr_cells(torch, nl.idx, p_diag, p_off)
+    w2 = w.reshape(cells * m, n)
+    lib = time_ms(torch, lambda: torch.sparse.mm(csr, w2), reps=reps)
+    del csr
+    nnz = int((p_off != 0).sum())
+    b_ms, b_by = _sparse_bound(nnz, cells * m, cells * m, nl.d_max, n)
+    print(f"kernel {label} D={n} d_max={nl.d_max} nnz_off={nnz} (all cells): routes "
+          f"{routes} launched once each for all cells, every cell bit-equal to the "
+          f"plain version and to its solo launch (max abs err {abs_err:.3g}); "
+          f"kernel_ms {ms:.4f} ({ms / solo:.3f} x the solo launch's {solo:.4f} in this "
+          f"call, {ms / (cells * solo):.3f} of {cells} solo launches) plain_ms "
+          f"{plain:.4f} (one call) library_ms {lib:.4f} (torch.sparse.mm, CSR, the "
+          f"block-diagonal (C m, C m) P) bound_ms {b_ms:.4f} ({b_by}); one plan "
+          f"({plan.n_groups} groups, {plan.n_direct} direct rows)")
+    return {"cells": cells, "ms_c8": ms, "plain_ms_c8": plain, "library_ms_c8": lib,
+            "bound_ms_c8": b_ms, "solo_ms_in_c8_call": solo}
+
+
+def _ell_p(torch, dev, gen, m: int, radius: float, cells: int | None = None):
     """The rgg fabric at ``radius`` with edge dropout, its neighbor list on
-    the card and the ELL P of half the devices broadcasting."""
+    the card and the ELL P of half the devices broadcasting (with
+    ``cells``, each cell its own broadcasting devices over the shared
+    table: p_diag (C, m), p_off (C, m, d_max))."""
     from repro_torch.core import mixing, topology
 
     g = topology.make_process(m, "rgg", radius=radius, time_varying="edge_dropout",
                               drop=0.3, seed=0)
     nl = topology.StagedNeighbors.from_host(g.neighbors(), dev)
     adj_ell = g.adjacency_ell(0, nl)
-    v = torch.rand(m, generator=gen, device=dev) < 0.5
-    comm_ell = torch.logical_and(torch.logical_or(v[:, None], v[nl.idx]), adj_ell)
+    v = torch.rand(m if cells is None else (cells, m), generator=gen, device=dev) < 0.5
+    comm_ell = torch.logical_and(torch.logical_or(v[..., :, None], v[..., nl.idx]),
+                                 adj_ell)
     p_diag, p_off = mixing.build_p_ell(nl.idx, adj_ell, comm_ell)
     return nl, p_diag, p_off
 
@@ -472,14 +621,14 @@ def _launcher(torch, plan, p_diag, p_off, w, routes=("wide", "direct")):
                 p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(), out.data_ptr(),
                 plan.rows.data_ptr(), plan.row_ptr.data_ptr(), plan.union.data_ptr(),
                 plan.union_ptr.data_ptr(), plan.slot_pos.data_ptr(),
-                plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(),
+                plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(), 1, m,
                 plan.n_groups, n_rows, d_max, stride, n, plan.max_union, plan.chunk,
                 stream), "mix_sparse_wide")
         if "direct" in routes and plan.n_direct:
             build.check(lib.repro_mix_sparse_direct_f32(
                 idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
-                out.data_ptr(), plan.direct.data_ptr(), finite.data_ptr(), plan.n_direct,
-                m, d_max, n, stream), "mix_sparse_direct")
+                out.data_ptr(), plan.direct.data_ptr(), finite.data_ptr(), 1,
+                plan.n_direct, m, d_max, n, stream), "mix_sparse_direct")
         return out
     return run
 
@@ -1122,7 +1271,8 @@ class TriggerLog:
         self._mod, self._real, self.calls = triggers, triggers.broadcast_events, []
 
         def logged(cfg, **kw):
-            self.calls.append((cfg, kw["dev"], kw["bandwidths"], kw["gamma_k"]))
+            self.calls.append((cfg, kw["dev"], kw["bandwidths"], kw["gamma_k"],
+                               kw.get("cells")))
             return self._real(cfg, **kw)
 
         triggers.broadcast_events = logged
@@ -1132,10 +1282,27 @@ class TriggerLog:
         self._mod.broadcast_events = self._real
 
     def margins(self) -> np.ndarray:
-        """(T, m) dev / threshold - 1, in float64, of each decision."""
+        """(T, C, m) dev / threshold - 1, in float64, of each decision of
+        each cell under the cell's policy (inf or NaN where the policy
+        has no threshold: zero and gossip)."""
+        import dataclasses
+
         import torch
-        return torch.stack([d.double() / self._mod.thresholds(c, b, g).double() - 1
-                            for c, d, b, g in self.calls]).cpu().numpy()
+
+        def thresholds(cfg, bw, gamma, cells):
+            names = [cfg.policy] * bw.shape[0] if cells is None else cells.names
+            return torch.stack([self._mod.thresholds(dataclasses.replace(cfg, policy=n),
+                                                     bw[i], gamma)
+                                for i, n in enumerate(names)])
+
+        return torch.stack([d.double() / thresholds(c, b, g, cells).double() - 1
+                            for c, d, b, g, cells in self.calls]).cpu().numpy()
+
+
+def _closest(mk: np.ndarray) -> float:
+    """The closest decision |dev / threshold - 1| among the finite margins."""
+    fin = np.abs(mk[np.isfinite(mk)])
+    return float(fin.min()) if fin.size else float("nan")
 
 
 def _twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
@@ -1144,18 +1311,41 @@ def _twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
     ``impl`` on the card: equal, or the first flips with their margins."""
     differ = [f for f in INT_FIELDS
               if not np.array_equal(getattr(res, f), getattr(plain, f))]
-    mk = log.margins()
+    mk = log.margins()[:, 0]  # a solo run is one cell
     if not differ:
         print(f"{label} kernel vs plain ({impl}) on the card: v, comm_count, deg "
               f"equal over {mk.shape[0]} iterations x {mk.shape[1]} devices; "
-              f"closest decision |dev / threshold - 1| {np.abs(mk).min():.3g}")
+              f"closest decision |dev / threshold - 1| {_closest(mk):.3g}")
         return
-    mp = plain_log.margins()
+    mp = plain_log.margins()[:, 0]
     flips = [(int(k), int(i), float(mk[k, i]), float(mp[k, i]))
              for k, i in np.argwhere(np.asarray(res.v) != np.asarray(plain.v))[:5]]
     check(False, f"{label}: the kernel and plain ({impl}) runs differ in {differ}; "
                  f"first v flips (iteration, device, margin kernel run, margin "
                  f"plain run): {flips}")
+
+
+def _sweep_twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
+                impl: str) -> None:
+    """``_twin`` for a sweep: every cell's integer channels against the
+    same cell of the sweep of the plain ``impl`` on the card."""
+    differ = [f for f in INT_FIELDS
+              if not np.array_equal(getattr(res, f), getattr(plain, f))]
+    mk = log.margins()  # (T, C, m), cells in (seed, policy) order
+    S, P = len(res.seeds), len(res.policies)
+    if not differ:
+        print(f"{label} kernel vs plain ({impl}) on the card: v, comm_count, deg "
+              f"equal in all {S * P} cells over {mk.shape[0]} iterations x "
+              f"{mk.shape[2]} devices; closest decision |dev / threshold - 1| "
+              f"{_closest(mk):.3g}")
+        return
+    mp = plain_log.margins()
+    flips = [(res.seeds[s], res.policies[p], int(k), int(i),
+              float(mk[k, s * P + p, i]), float(mp[k, s * P + p, i]))
+             for s, p, k, i in np.argwhere(np.asarray(res.v) != np.asarray(plain.v))[:5]]
+    check(False, f"{label}: the kernel and plain ({impl}) sweeps differ in {differ}; "
+                 f"first v flips (seed, policy, iteration, device, margin kernel "
+                 f"run, margin plain run): {flips}")
 
 
 def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
@@ -1248,6 +1438,127 @@ def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20,
     return launches, res
 
 
+SWEEP_SEEDS = (0, 1)  # x the four policies: 8 cells
+
+
+def phase_sweep(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
+                T: int = 20, twin: bool = False, solo: bool = False):
+    """The paper sweep: ``api.sweep`` of the paper cell over seeds (0, 1)
+    and the four policies, 8 cells in one batched run, each kernel
+    launched once an iteration for all cells; with ``twin``, then again
+    with the plain dense mix, every cell's integer channels required
+    equal; with ``solo``, each cell against ``api.simulate`` of its (seed,
+    policy) on the card (integer channels equal, floats within RTOL /
+    ATOL), and the sweep's ms/iteration beside 8 x the solo runs' mean."""
+    import dataclasses
+
+    from repro_torch import api
+
+    spec = api.ScenarioSpec(m=m, model="mlp", dim=dim, n_train=n_train,
+                            iters=T, eval_every=10, mix_impl="pallas",
+                            trace="summary")
+    t0 = time.perf_counter()
+    _reset_launches()
+    with TriggerLog() as log:
+        res = api.sweep(spec, seeds=SWEEP_SEEDS, device=dev)
+    launches = _launches()
+    wall = time.perf_counter() - t0
+    cells = len(res.seeds) * len(res.policies)
+    check({k: n for k, n in launches.items() if n} == {"trigger_sq": T, "mix": T},
+          f"paper sweep: expected {T} trigger_sq and {T} mix launches for "
+          f"{cells} cells, got {launches}")
+    check(res.model_dim == (dim + 1) * 64 + 65 * 10, f"paper sweep: D={res.model_dim}")
+    _finite(res, "paper sweep")
+    print(f"paper sweep m={m} mlp D={res.model_dim} pallas T={T}, seeds "
+          f"{res.seeds} x policies {res.policies} ({cells} cells): launches "
+          f"{launches}; first step {res.timing['first_step_ms']:.2f} ms, "
+          f"{res.timing['ms_per_step']:.3f} ms/iteration after it for all cells; "
+          f"wall {wall:.2f} s with staging; final acc per cell "
+          f"{np.round(res.acc[..., -1].ravel(), 4).tolist()}; trigger rate per "
+          f"policy {np.round(res.v.mean(axis=(0, 2, 3)), 4).tolist()}")
+    if twin:
+        with TriggerLog() as plain_log:
+            plain = api.sweep(dataclasses.replace(spec, mix_impl="dense"),
+                              seeds=SWEEP_SEEDS, device=dev)
+        _sweep_twin("paper sweep", res, log, plain, plain_log, "dense")
+        del plain
+    if solo:
+        solo_ms, used = [], {}
+        for s in res.seeds:
+            for pol in res.policies:
+                one = api.simulate(dataclasses.replace(spec, policy=pol), seed=s,
+                                   device=dev)
+                used[(s, pol)] = _compare(
+                    res.result(s, pol), {f: getattr(one, f) for f in (
+                        *INT_FIELDS, *FLOAT_FIELDS, "acc")},
+                    f"paper sweep cell (seed {s}, {pol}) vs its solo run",
+                    fields_float=(*FLOAT_FIELDS, "acc"))
+                solo_ms.append(one.timing["ms_per_step"])
+        solo_mean = statistics.mean(solo_ms)
+        print(f"paper sweep: every cell against its solo api.simulate run on the "
+              f"card: integer channels equal, float channels within rtol {RTOL} / "
+              f"atol {ATOL}; worst shares of the allowance: "
+              + "; ".join(f"{s}/{p}: {u}" for (s, p), u in used.items()))
+        print(f"paper sweep: {res.timing['ms_per_step']:.3f} ms/iteration for "
+              f"{cells} cells against {cells} x solo {cells * solo_mean:.3f} ms "
+              f"(solo mean {solo_mean:.3f} ms/iteration over the {cells} runs, "
+              f"{min(solo_ms):.3f}-{max(solo_ms):.3f}); ratio "
+              f"{res.timing['ms_per_step'] / (cells * solo_mean):.3f}")
+    return launches, res
+
+
+def phase_fleet_sweep(dev, m: int = 4096, dim: int = 784, T: int = 20,
+                      twin: bool = False):
+    """The fleet sweep: ``run_sweep`` of the fleet cell (rgg at
+    ``fleet_radius(m)`` with edge dropout, svm, ``mix_impl=
+    "sparse_pallas"``) over seeds (0, 1) and the four policies: one plan
+    and one ``mix_sparse`` launch an iteration for all 8 cells; with
+    ``twin``, then with the plain slot loop (``mix_impl="sparse"``), every
+    cell's integer channels required equal."""
+    import dataclasses
+
+    from repro_torch.core.topology import fleet_radius, make_process
+    from repro_torch.data.loader import FederatedBatches
+    from repro_torch.data.partition import by_labels
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.fl.simulator import SimConfig, make_eval_fn
+    from repro_torch.fl.sweep import run_sweep
+
+    x, y = image_dataset(max(4000, 4 * m), seed=0, dim=dim)
+    xt, yt = image_dataset(800, seed=1, dim=dim)
+    parts = by_labels(y, m, 3)
+    graph = make_process(m, "rgg", radius=fleet_radius(m),
+                         time_varying="edge_dropout", drop=0.3, seed=0)
+    sim = SimConfig(m=m, iters=T, dim=dim, r=50.0, trace="summary",
+                    mix_impl="sparse_pallas")
+    eval_fn = make_eval_fn(sim, xt, yt)
+
+    def sweep(cfg):
+        return run_sweep(cfg, graph, lambda s: FederatedBatches(x, y, parts, cfg.batch,
+                                                                seed=2 + s),
+                         eval_fn, seeds=SWEEP_SEEDS, eval_every=20, device=dev)
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    with TriggerLog() as log:
+        res = sweep(sim)
+    launches = _launches()
+    wall = time.perf_counter() - t0
+    check({k: n for k, n in launches.items() if n} == {"mix_sparse": T},
+          f"fleet sweep: expected {T} mix_sparse launches, got {launches}")
+    _finite(res, "fleet sweep")
+    print(f"fleet sweep m={m} svm D={res.model_dim} sparse_pallas T={T}, seeds "
+          f"{res.seeds} x policies {res.policies}: launches {launches}; first step "
+          f"{res.timing['first_step_ms']:.2f} ms, {res.timing['ms_per_step']:.3f} "
+          f"ms/iteration after it for all cells; wall {wall:.2f} s with staging; "
+          f"final acc per cell {np.round(res.acc[..., -1].ravel(), 4).tolist()}")
+    if twin:
+        with TriggerLog() as plain_log:
+            plain = sweep(dataclasses.replace(sim, mix_impl="sparse"))
+        _sweep_twin("fleet sweep", res, log, plain, plain_log, "sparse")
+    return launches, res
+
+
 def phase_cpu(dev, m: int = 64, dim: int = 784) -> None:
     from repro_torch import api
 
@@ -1304,16 +1615,19 @@ def _repo_counts(count: dict[str, int]) -> dict[str, int]:
 
 
 def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
-    """Per-iteration device activities, device busy time, idle share and
-    the device time of each of the repo's kernels, of the paper, fleet and
-    dense-fabric paths: each runs at T=4 and T=8 under the profiler, and
+    """Per-iteration device activities, device busy time, idle share, the
+    device time of the kernels that take the most and of each of the
+    repo's kernels, of the paper, fleet, dense-fabric, paper-sweep and
+    fleet-sweep paths: each runs at T=4 and T=8 under the profiler, and
     the difference over 4 iterations cancels staging and init.  The idle
     share is 1 - busy / ``step_ms[cell]``, the ms per iteration of the
     cell's run without the profiler."""
     cells = {"paper": lambda T: phase_paper(dev, T=T)[1],
              "fleet": lambda T: phase_fleet(dev, T=T)[1],
              "dense fabric": lambda T: phase_fleet(
-                 dev, m=1024, T=T, radius=0.4, routes=("mix_sparse_wide",))[1]}
+                 dev, m=1024, T=T, radius=0.4, routes=("mix_sparse_wide",))[1],
+             "paper sweep": lambda T: phase_sweep(dev, T=T)[1],
+             "fleet sweep": lambda T: phase_fleet_sweep(dev, T=T)[1]}
     for name, cell in cells.items():
         cell(4)  # warm
         n4, busy4, per4, _ = _device_activity(torch, lambda: cell(4))
@@ -1326,13 +1640,16 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
             continue
         launches = (n8 - n4) / 4
         busy = (busy8 - busy4) / 4
-        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        # device time per iteration by kernel name: the same difference
+        per_it = {k: (ms - per4.get(k, 0.0)) / 4 for k, ms in per_name.items()}
+        top = sorted(per_it.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile {name}: {launches:.1f} device activities/iteration, "
               f"device busy {busy:.3f} ms/iteration of {step_ms[name]:.3f} ms "
               f"without the profiler (idle share {1 - busy / step_ms[name]:.3f}); "
               f"{out['res'].timing['ms_per_step']:.3f} ms/iteration under it")
         for kname, ms in top:
-            print(f"profile {name}:   {ms:9.3f} ms in the T=8 run  {kname[:90]}")
+            print(f"profile {name}:   {ms:8.4f} ms/iteration ({ms / busy:.3f} of "
+                  f"busy)  {kname[:90]}")
         own: dict[str, float] = {}
         for per, sign in ((per_name, 1), (per4, -1)):
             for kname, ms in per.items():
@@ -1681,7 +1998,12 @@ def main() -> int:
             name: lib for name, (_, lib) in variant_builds.items()})
         phase_golden(dev)
         paper, paper_res = phase_paper(dev, twin=True)
+        sweep, sweep_res = phase_sweep(dev, twin=True, solo=True)
         fleet, fleet_res = phase_fleet(dev, twin=True)
+        fleet_sweep, fleet_sweep_res = phase_fleet_sweep(dev, twin=True)
+        rows["trigger_sq"]["sweep_launches"] = sweep["trigger_sq"]
+        rows["mix"]["sweep_launches"] = sweep["mix"]
+        rows["mix_sparse"]["sweep_launches"] = fleet_sweep["mix_sparse"]
         dense, dense_res = phase_fleet(dev, m=1024, T=10, twin=True, radius=0.4,
                                        routes=("mix_sparse_wide",))
         launches = {"trigger_sq": paper["trigger_sq"], "mix": paper["mix"],
@@ -1693,7 +2015,12 @@ def main() -> int:
         phase_cpu(dev)
         phase_profile(torch, dev, {
             name: res.timing["ms_per_step"] for name, res in (
-                ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res))})
+                ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res),
+                ("paper sweep", sweep_res), ("fleet sweep", fleet_sweep_res))})
+        # the sweeps held ~17 GB of (8, 1024, 50890) tensors: hand the cached
+        # blocks back before the serve phases load 32 GB of weights
+        del paper_res, sweep_res, fleet_res, fleet_sweep_res, dense_res
+        torch.cuda.empty_cache()
         launches["swa_attention_tc"], seen_bf16 = phase_serve(torch, dev)
         launches["swa_attention_tf32"], seen_fp32 = phase_serve(
             torch, dev, cfg=starcoder2_fp32(), seq=8192, twin="chunked")
@@ -1723,6 +2050,8 @@ def main() -> int:
                                    "bound_ms_fp32_units_s32768", "fp64_max_abs_err",
                                    "fp64_bias", "ms_rna_lo", "fp64_max_abs_err_rna_lo",
                                    "fp64_bias_rna_lo", "plan_build_ms", "ms_32_columns",
+                                   "sweep_launches", "ms_c8", "plain_ms_c8",
+                                   "library_ms_c8", "bound_ms_c8",
                                    "ms_64_columns", "ms_m4096_r04",
                                    "plain_ms_m4096_r04", "bound_ms_m4096_r04",
                                    "library_ms_m4096_r04", "sass_tensor_ops")

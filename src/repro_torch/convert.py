@@ -50,16 +50,19 @@ def arch_params_from_jax(np_tree, device, dtype=None):
 def state_from_jax(state, device, *, opt_state=None) -> efhc.EFHCState:
     """An object with the reference ``EFHCState``'s fields ``w``, ``w_hat``,
     ``k``, ``prev_adj``, ``bandwidths`` and ``key`` (numpy leaves) -> the
-    port's ``EFHCState`` on ``device``."""
+    port's one-cell ``EFHCState`` on ``device`` (the per-cell fields gain
+    a leading cell axis of 1; ``opt_state`` is passed as it is)."""
+    def cell(tree):
+        return {k: v[None] for k, v in params_from_jax(tree, device).items()}
+
     return efhc.EFHCState(
-        w=params_from_jax(state.w, device),
-        w_hat=params_from_jax(state.w_hat, device),
+        w=cell(state.w), w_hat=cell(state.w_hat),
         k=torch.tensor(int(np.asarray(state.k)), dtype=torch.int64,
                        device=device),
         prev_adj=torch.as_tensor(np.array(state.prev_adj, bool)).to(device),
         bandwidths=torch.as_tensor(
-            np.array(state.bandwidths, np.float32)).to(device),
+            np.array(state.bandwidths, np.float32)[None]).to(device),
         # a legacy uint32[2] jax key -> the port's int64 key words
-        key=torch.as_tensor(np.asarray(state.key, np.uint32).astype(np.int64)
+        key=torch.as_tensor(np.asarray(state.key, np.uint32).astype(np.int64)[None]
                             ).to(device),
         opt_state=opt_state)

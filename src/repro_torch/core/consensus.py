@@ -5,6 +5,11 @@ rows.  The ELL forms loop over neighbor-list slots s = 0..d_max-1 in
 order and accumulate in fp32, the reference's ``_sparse_mix_flat`` order;
 the (m, d_max, D) gather never exists.  ``mix_dense`` is one float32
 matrix product (TF32 off on the card, as the caller sets it).
+
+A batched run gives ``flat`` and the weights a leading cell axis,
+(C, m, D) rows under P (C, m, m) or ``p_diag`` (C, m) / ``p_off``
+(C, m, d_max); the neighbor table (m, d_max) is shared.  Each cell's
+rows are those its solo call gives.
 """
 from __future__ import annotations
 
@@ -23,18 +28,20 @@ def mix_delta_dense(p: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
 
 def _sparse_mix_flat(nbr_idx: torch.Tensor, p_off: torch.Tensor,
                      flat: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """acc + sum_s p_off[:, s] * flat[nbr_idx[:, s]], slot by slot."""
+    """acc + sum_s p_off[..., s] * flat[..., nbr_idx[:, s], :], slot by
+    slot."""
     for s in range(nbr_idx.shape[1]):
-        acc = acc + p_off[:, s:s + 1].float() * flat[nbr_idx[:, s]]
+        acc = acc + p_off[..., s:s + 1].float() * flat[..., nbr_idx[:, s], :]
     return acc
 
 
 def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
                p_off: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """p_ii w_i + sum_{j in N(i)} p_ij w_j over the neighbor list."""
+    """p_ii w_i + sum_{j in N(i)} p_ij w_j over the neighbor list; p_diag
+    (..., m) or (..., m, 1)."""
     flat = flat.float()
-    return _sparse_mix_flat(nbr_idx, p_off, flat,
-                            p_diag.float().reshape(-1, 1) * flat)
+    p_diag = p_diag.float().reshape(p_off.shape[:-1] + (1,))
+    return _sparse_mix_flat(nbr_idx, p_off, flat, p_diag * flat)
 
 
 def mix_delta_sparse(nbr_idx: torch.Tensor, p_off: torch.Tensor,
@@ -43,5 +50,5 @@ def mix_delta_sparse(nbr_idx: torch.Tensor, p_off: torch.Tensor,
     flat = flat.float()
     delta = torch.zeros_like(flat)
     for s in range(nbr_idx.shape[1]):
-        delta = delta + p_off[:, s:s + 1].float() * (flat[nbr_idx[:, s]] - flat)
+        delta = delta + p_off[..., s:s + 1].float() * (flat[..., nbr_idx[:, s], :] - flat)
     return flat + delta

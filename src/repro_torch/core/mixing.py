@@ -8,6 +8,11 @@ Port of ``repro.core.mixing``:
 in the dense (m, m) layout and in the padded neighbor-list (ELL) layout
 the m >= 4096 path uses.  P is symmetric and doubly stochastic
 (Assumption 2); the ``assert_*`` checks are host numpy.
+
+A batched run gives ``comm`` (and may give the adjacency) a leading cell
+axis: (C, m, m) dense, (C, m, d_max) ELL.  The graph realization is shared
+by the cells, so the Metropolis weights are computed once for all of
+them, and each cell's P is the one its solo run builds.
 """
 from __future__ import annotations
 
@@ -17,13 +22,13 @@ import torch
 
 def metropolis_weights(adjacency: torch.Tensor) -> torch.Tensor:
     a = adjacency.float()
-    inv = 1.0 / (1.0 + a.sum(dim=1))
-    return torch.minimum(inv[:, None], inv[None, :]) * a
+    inv = 1.0 / (1.0 + a.sum(dim=-1))
+    return torch.minimum(inv[..., :, None], inv[..., None, :]) * a
 
 
 def transition_matrix(beta: torch.Tensor, comm: torch.Tensor) -> torch.Tensor:
     off = beta * comm.to(beta.dtype)
-    return off + torch.diag(1.0 - off.sum(dim=1))
+    return off + torch.diag_embed(1.0 - off.sum(dim=-1))
 
 
 def build_p(adjacency: torch.Tensor, comm: torch.Tensor) -> torch.Tensor:
@@ -32,12 +37,12 @@ def build_p(adjacency: torch.Tensor, comm: torch.Tensor) -> torch.Tensor:
 
 def metropolis_weights_ell(nbr_idx: torch.Tensor, adj_ell: torch.Tensor) -> torch.Tensor:
     inv = 1.0 / (1.0 + adj_ell.sum(dim=-1).float())
-    return torch.minimum(inv[:, None], inv[nbr_idx]) * adj_ell.float()
+    return torch.minimum(inv[..., :, None], inv[..., nbr_idx]) * adj_ell.float()
 
 
 def transition_ell(beta_ell: torch.Tensor, comm_ell: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(p_diag (m,), p_off (m, d_max))``."""
+    """Returns ``(p_diag (..., m), p_off (..., m, d_max))``."""
     off = beta_ell * comm_ell.to(beta_ell.dtype)
     return 1.0 - off.sum(dim=-1), off
 

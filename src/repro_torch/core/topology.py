@@ -417,15 +417,16 @@ def clustered_edges(m: int, n_clusters: int = 0,
 
 
 def scatter_ell(nbr_idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """(m, d_max) ELL slot values -> dense (m, m) with zero diagonal.
+    """(..., m, d_max) ELL slot values over one (m, d_max) table -> dense
+    (..., m, m) with zero diagonal.
 
     Padded slots point at the row's own index and carry zero/False values
     (the ``NeighborList`` contract), and no real slot repeats a column, so
     a plain indexed write gives the reference's max/add scatter."""
     m = nbr_idx.shape[0]
     rows = torch.arange(m, device=nbr_idx.device)[:, None].expand_as(nbr_idx)
-    out = torch.zeros((m, m), dtype=vals.dtype, device=vals.device)
-    out[rows, nbr_idx] = vals
+    out = torch.zeros(vals.shape[:-2] + (m, m), dtype=vals.dtype, device=vals.device)
+    out[..., rows, nbr_idx] = vals
     return out
 
 

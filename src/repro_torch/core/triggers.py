@@ -6,13 +6,19 @@ Port of ``repro.core.triggers``.  Device i broadcasts when
 
 (strict, Eq. 7) with rho_i = 1 / b_i for EF-HC, 1 / b_M for the global
 threshold (GT), zero for ZT; randomized gossip (RG) fires with
-probability 1/m from the step's trigger key.  The policy is chosen by
-name on the host: one run serves one policy.
+probability 1/m from the step's trigger key.
+
+A batched run carries a leading cell axis (``dev``, ``bandwidths`` (C, m),
+one trigger key per cell (C, 2)), and each cell has its own policy
+(``CellPolicies``): every policy some cell runs is evaluated over all
+cells and selected per cell, as the reference's ``lax.switch`` over
+``policy_branches`` becomes a select under ``vmap``.  So a cell draws its
+gossip uniforms from its own key, exactly as its solo run does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -77,24 +83,52 @@ def policy_branches(cfg: TriggerConfig):
                           device=bandwidths.device)
 
     def gossip(dev, bandwidths, gamma_k, key):
-        m = bandwidths.shape[0]
+        # key (..., 2): one (m,) draw per key, as each solo run draws it
+        m = bandwidths.shape[-1]
         p = cfg.gossip_p if cfg.gossip_p is not None else 1.0 / m
         return prng.uniform(key, (m,)) < p
 
     return (_threshold_policy("efhc"), zero, _threshold_policy("global"), gossip)
 
 
+class CellPolicies(NamedTuple):
+    """The trigger policy of each cell of a batched run: the names on the
+    host and their ``POLICIES`` indices as a (C,) tensor on the run's
+    device, made once per run so that a step copies nothing to the card."""
+
+    names: tuple[str, ...]
+    idx: torch.Tensor
+
+    @classmethod
+    def of(cls, names: Sequence[str], device) -> "CellPolicies":
+        names = tuple(names)
+        return cls(names, torch.tensor([policy_index(n) for n in names],
+                                       dtype=torch.int64, device=device))
+
+
 def broadcast_events(cfg: TriggerConfig, *, dev: torch.Tensor,
                      bandwidths: torch.Tensor, gamma_k: torch.Tensor,
-                     key: torch.Tensor) -> torch.Tensor:
-    """v_i^(k) in {0, 1} under ``cfg.policy`` (static dispatch)."""
-    branch = policy_branches(cfg)[policy_index(cfg.policy)]
-    return branch(dev, bandwidths, gamma_k, key)
+                     key: torch.Tensor,
+                     cells: CellPolicies | None = None) -> torch.Tensor:
+    """v_i^(k) in {0, 1}: under ``cfg.policy`` (static dispatch), or with
+    ``cells`` under each cell's own policy (``dev``, ``bandwidths`` (C, m),
+    ``key`` (C, 2)); a policy no cell runs is not evaluated."""
+    branches = policy_branches(cfg)
+    if cells is None:
+        return branches[policy_index(cfg.policy)](dev, bandwidths, gamma_k, key)
+    present = sorted({policy_index(n) for n in cells.names})
+    v = branches[present[0]](dev, bandwidths, gamma_k, key)
+    for p in present[1:]:
+        v = torch.where((cells.idx == p)[:, None],
+                        branches[p](dev, bandwidths, gamma_k, key), v)
+    return v
 
 
 def communication_matrix(v: torch.Tensor, adjacency: torch.Tensor) -> torch.Tensor:
-    """v_ij = max{v_i, v_j} on the edges of G^(k) (Eq. 7); (m, m) bool."""
-    return torch.logical_and(torch.logical_or(v[:, None], v[None, :]), adjacency)
+    """v_ij = max{v_i, v_j} on the edges of G^(k) (Eq. 7): v (..., m) over
+    a shared (m, m) adjacency -> (..., m, m) bool."""
+    return torch.logical_and(
+        torch.logical_or(v[..., :, None], v[..., None, :]), adjacency)
 
 
 # smallest bandwidth any sampler may emit, as a fraction of b_mean

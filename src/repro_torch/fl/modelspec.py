@@ -11,8 +11,11 @@ The reference vmaps a per-device function over the device axis; here the
 device axis is written out.  Forward passes are batched products over
 (m, batch, dim), and ``loss_and_grad`` takes one autograd pass over the
 sum of the per-device mean losses, which gives each device its own
-gradient.  Init keeps the reference's stream: ``split(key, m)``, one
-subkey per device, and the same ``normal`` draws.
+gradient.  A batched run (``efhc.step`` over C cells) folds the cells
+into the device axis and calls it once with C m devices.  Init keeps the
+reference's stream: ``split(key, m)``, one subkey per device, and the
+same ``normal`` draws; a batched run calls ``init_stack`` once per cell
+key, as the reference's ``_EngineCore.init(seed)`` does per cell.
 """
 from __future__ import annotations
 

@@ -1,24 +1,27 @@
-"""Scenario requests and their solo path (``api.simulate``).
+"""Scenario requests, their solo path (``api.simulate``) and their sweep
+path (``api.sweep``).
 
-Port of the part of ``repro.fl.service`` that one scenario run needs: the
-validated request schema ``ScenarioSpec``, the synthetic data provider,
-the graph and eval staging caches and ``solo_run``.  The continuous-batched
-``ScenarioService`` and the sweep path are ROADMAP.md Queue 1 items 5 and
-8.
+Port of the part of ``repro.fl.service`` that one scenario and its seeds
+x policies grid need: the validated request schema ``ScenarioSpec``, the
+synthetic data provider, the graph and eval staging caches, ``solo_run``
+and ``sweep_run``.  The continuous-batched ``ScenarioService`` is
+ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 
+from repro_torch.core import triggers
 from repro_torch.core.topology import GraphProcess, make_process
 from repro_torch.data.loader import FederatedBatches
 from repro_torch.data.partition import by_labels, dirichlet
 from repro_torch.data.synthetic import image_dataset
 from repro_torch.fl import simulator
+from repro_torch.fl import sweep as sweep_mod
 from repro_torch.fl.simulator import EvalFn, SimConfig, SimResult, make_eval_fn
 
 TOPOLOGIES: tuple[str, ...] = ("rgg", "er", "ring", "complete",
@@ -221,3 +224,18 @@ def solo_run(spec: ScenarioSpec, *, seed: int | None = None, provider=None,
     return simulator.run(
         spec.to_sim(seed=s), stager.graph(spec), spec.batches(s, ds),
         stager.eval_fn(spec, ds), eval_every=spec.eval_every, device=device)
+
+
+def sweep_run(spec: ScenarioSpec, *, seeds: Sequence[int] | None = None,
+              policies: Sequence[str] = triggers.POLICIES, provider=None,
+              device="cuda") -> sweep_mod.SweepResult:
+    """The seeds x policies grid for one scenario as one batched engine
+    call on ``device`` (``repro_torch.api.sweep``): ``spec.policy`` is
+    ignored in favor of the ``policies`` axis."""
+    stager = _Stager(provider) if provider is not None else _SOLO_STAGER
+    ds = stager.provider(spec)
+    return sweep_mod.run_sweep(
+        spec.to_sim(), stager.graph(spec),
+        lambda s: spec.batches(s, ds), stager.eval_fn(spec, ds),
+        seeds=spec.seeds if seeds is None else seeds, policies=policies,
+        eval_every=spec.eval_every, device=device)

@@ -1,21 +1,28 @@
 """Decentralized FL simulator (the paper's Sec. IV experiment harness).
 
-Port of ``repro.fl.simulator`` (the scan engine).  ``run`` simulates
-``sim.iters`` universal iterations of EF-HC for m devices and returns the
-paper's trajectories as a ``SimResult``.
+Port of ``repro.fl.simulator`` (the scan engine).  ``make_engine`` builds
+the engine over a list of cells (policy, seed, staged batch indices), the
+reference's ``vmap(engine)`` contract written out: all cells advance
+together, one ``efhc.step`` over a leading cell axis per iteration, so
+each kernel launches once per iteration whatever the number of cells, and
+the graph is realized once per iteration for all of them.  ``run``
+simulates one scenario as the one-cell call and returns the paper's
+trajectories as a ``SimResult``; ``repro_torch.fl.sweep`` runs the seeds x
+policies grid through the same engine.
 
 The reference compiles the horizon as one chunked ``lax.scan``; here it is
 a Python loop over ``efhc.step`` that stays on the device:
 
-* batches are pre-staged as (T, m, batch) index arrays
-  (``FederatedBatches.stage``) and gathered from the device-resident
-  dataset each step;
-* every per-iteration metric is written into a preallocated (T, m) / (T,)
-  device tensor, and evaluation runs on the device after the first step
-  of each ``eval_every`` chunk (iterations 0, E, 2E, ...) and once more
-  after the last step (the k = T-1 overwrite);
+* batches are pre-staged as (T, C, m, batch) index arrays
+  (``FederatedBatches.stage`` per cell) and gathered from the
+  device-resident dataset each step;
+* every per-iteration metric is written into a preallocated (T, C, m) /
+  (T, C) device tensor, and evaluation runs on the device after the first
+  step of each ``eval_every`` chunk (iterations 0, E, 2E, ...) and once
+  more after the last step (the k = T-1 overwrite);
 * nothing in the loop reads a tensor's value on the host, so the host
-  syncs once per run, when the trajectories are copied back at the end.
+  syncs once per engine call, when the trajectories are copied back at
+  the end.
 
 Resource dynamics, fault injection, the watchdog, the sharded engine and
 the python engine are not ported yet: a config that asks for one raises
@@ -194,11 +201,12 @@ class SimResult:
 
 
 class EvalFn:
-    """Mean test accuracy over devices, computed on the device.
+    """Mean test accuracy over devices, per cell, computed on the device.
 
-    ``device(w)`` takes the stacked parameter dict and returns a 0-d float32
-    tensor without syncing; the test set moves to a device once and is
-    cached there.  ``argmax`` ties resolve to the first maximum, as in jax."""
+    ``device(w)`` takes the stacked parameter dict, leaves (C, m, ...), and
+    returns a (C,) float32 tensor without syncing; the test set moves to a
+    device once and is cached there.  ``argmax`` ties resolve to the first
+    maximum, as in jax."""
 
     def __init__(self, logits_fn, x_test: np.ndarray, y_test: np.ndarray):
         self._logits_fn = logits_fn
@@ -215,9 +223,13 @@ class EvalFn:
         return hit
 
     def device(self, w_stack: dict[str, torch.Tensor]) -> torch.Tensor:
-        x, y = self._data(next(iter(w_stack.values())).device)
-        pred = self._logits_fn(w_stack, x).argmax(-1)  # (m, n)
-        return (pred == y).float().mean(-1).mean()
+        leaf = next(iter(w_stack.values()))
+        cells, m = leaf.shape[:2]
+        x, y = self._data(leaf.device)
+        # the cells as more devices: one batched forward over C m models
+        w = {n: efhc.fold_cells(t) for n, t in w_stack.items()}
+        pred = self._logits_fn(w, x).argmax(-1)  # (C m, n)
+        return (pred == y).float().mean(-1).reshape(cells, m).mean(-1)
 
 
 def model_spec(sim: SimConfig) -> modelspec_mod.ModelSpec:
@@ -237,25 +249,27 @@ def _efhc_cfg(sim: SimConfig) -> efhc.EFHCConfig:
 
 
 class _Buffers:
-    """Preallocated device trajectories for a T-iteration run."""
+    """Preallocated device trajectories for a T-iteration run of C cells;
+    the adjacency, shared by the cells, is kept once."""
 
-    def __init__(self, T: int, m: int, trace: str, device: torch.device):
+    def __init__(self, T: int, C: int, m: int, trace: str, device: torch.device):
         f32, i32 = torch.float32, torch.int32
 
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.trace = trace
-        self.ys = {"loss": z((T, m), f32), "tx_time": z(T, f32),
-                   "util": z(T, f32), "v": z((T, m), torch.bool),
-                   "consensus_err": z(T, f32), "comm_count": z((T, m), i32),
-                   "deg": z((T, m), i32), "acc": z(T, f32)}
+        self.ys = {"loss": z((T, C, m), f32), "tx_time": z((T, C), f32),
+                   "util": z((T, C), f32), "v": z((T, C, m), torch.bool),
+                   "consensus_err": z((T, C), f32),
+                   "comm_count": z((T, C, m), i32), "deg": z((T, C, m), i32),
+                   "acc": z((T, C), f32)}
         if trace == "full":
-            self.ys["comm"] = z((T, m, m), torch.bool)
+            self.ys["comm"] = z((T, C, m, m), torch.bool)
             self.ys["adj"] = z((T, m, m), torch.bool)
         elif trace == "packed":
             w = trace_mod.packed_words(m)
-            self.ys["comm"] = z((T, m, w), torch.int64)
+            self.ys["comm"] = z((T, C, m, w), torch.int64)
             self.ys["adj"] = z((T, m, w), torch.int64)
 
     def write(self, k: int, aux: efhc.StepAux) -> None:
@@ -298,23 +312,144 @@ class _Clock:
         return (self.marks[b] - self.marks[a]) * 1e3
 
 
-def _result_from_device(ys: dict, bw: torch.Tensor, model_dim: int,
-                        trace: str) -> SimResult:
-    """Copies the trajectories back: the run's single host sync."""
+def _to_host(ys: dict, bw: torch.Tensor) -> dict[str, np.ndarray]:
+    """Copies the trajectories back, the engine call's single host sync:
+    per-cell channels (C, T, ...) (the shared adjacency stays (T, ...)),
+    and ``bandwidths`` (C, m)."""
     host = {k: v.cpu().numpy() for k, v in ys.items()}
-    T = host["acc"].shape[0]
+    out = {k: (v if k == "adj" else np.ascontiguousarray(np.moveaxis(v, 1, 0)))
+           for k, v in host.items()}
+    out["bandwidths"] = bw.cpu().numpy()
+    return out
+
+
+def result_of_cell(host: dict, c: int, model_dim: int, trace: str) -> SimResult:
+    """Cell ``c`` of an engine call's host trajectories as a ``SimResult``."""
+    T = host["acc"].shape[1]
     zeros = np.zeros(T, np.int32)
     link = trace_mod.link_dtype(trace)
     return SimResult(
-        loss=host["loss"], acc=host["acc"], tx_time=host["tx_time"],
-        util=host["util"], v=host["v"], comm_count=host["comm_count"],
-        deg=host["deg"], consensus_err=host["consensus_err"],
-        model_dim=model_dim, bandwidths=bw.cpu().numpy(), trace=trace,
-        _comm=host["comm"].astype(link) if "comm" in host else None,
+        loss=host["loss"][c], acc=host["acc"][c], tx_time=host["tx_time"][c],
+        util=host["util"][c], v=host["v"][c], comm_count=host["comm_count"][c],
+        deg=host["deg"][c], consensus_err=host["consensus_err"][c],
+        model_dim=model_dim, bandwidths=host["bandwidths"][c], trace=trace,
+        _comm=host["comm"][c].astype(link) if "comm" in host else None,
         _adj=host["adj"].astype(link) if "adj" in host else None,
         down_count=zeros, exhausted_count=zeros.copy(),
         fault_down_count=zeros.copy(), stale_max=zeros.copy(),
         window_connected=np.ones(T, bool), window_needed=zeros.copy())
+
+
+def make_engine(
+    sim: SimConfig,
+    graph: GraphProcess,
+    *,
+    T: int,
+    eval_every: int = 10,
+    x: np.ndarray,
+    y: np.ndarray,
+    eval_fn: EvalFn | None = None,
+    device="cuda",
+):
+    """Builds the device-resident simulation engine over a list of cells,
+    the reference's ``make_engine`` contract with its cell axis written
+    out:
+
+        engine(policy_idx, seeds, idx) -> (host trajectories, timing)
+
+    ``policy_idx`` (C,) indexes ``triggers.POLICIES``, ``seeds`` (C,) are
+    the cells' run seeds and ``idx`` (C, T, m, batch) their staged dataset
+    rows (``FederatedBatches.stage``) into the shared ``x``/``y``.  The
+    trajectories are host numpy arrays with a leading cell axis (the
+    shared adjacency excepted) and ``bandwidths`` (C, m); cell ``c`` is
+    ``result_of_cell(out, c, model_dim, sim.trace)``.  ``timing`` holds the
+    first iteration's ms (with its eval) and the mean ms of the later ones
+    on the device's clock.  Returns ``(engine, model_dim)``.
+
+    Set ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) for
+    true-fp32 products on the card; TF32 breaks parity with the reference.
+    """
+    if eval_fn is not None and not isinstance(eval_fn, EvalFn):
+        raise NotImplementedError(
+            "host eval callables need the python engine, which is not ported; "
+            "pass an EvalFn (make_eval_fn) or None")
+    dev = resolve_device(device)
+    m, E = sim.m, max(1, int(eval_every))
+    if graph.m != m:
+        raise ValueError(f"sim.m={m} but the graph has {graph.m} devices")
+    trace = trace_mod.check_trace_mode(sim.trace)
+    spec = model_spec(sim)
+    opt = init_opt(sim.optimizer)
+    cfg = _efhc_cfg(sim)
+    sparse = cfg.mix_impl in efhc.SPARSE_MIX_IMPLS
+    sched = paper_diminishing(sim.alpha0, gamma=1.0, theta=0.5)
+    model_dim = spec.flat_dim
+    nl = (topology.StagedNeighbors.from_host(graph.neighbors(), dev)
+          if sparse else None)
+    x_all = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    y_all = torch.as_tensor(np.asarray(y), dtype=torch.int64).to(dev)
+    dense_aux = trace != "summary"
+
+    def init(seeds):
+        # the reference's init stream (_EngineCore.init), cell by cell
+        bws, w0s, keys = [], [], []
+        for seed in seeds:
+            k_bw, k_init, k_state = prng.split(prng.PRNGKey(int(seed), dev), 3)
+            bws.append(triggers.sample_bandwidths(k_bw, m, sim.b_mean, sim.sigma_n))
+            w0s.append(spec.init_stack(k_init, m))
+            keys.append(k_state)
+        w0 = {n: torch.stack([w[n] for w in w0s]) for n in w0s[0]}
+        bw, key = torch.stack(bws), torch.stack(keys)
+        adj0 = graph.adjacency_ell(0, nl) if sparse else graph.adjacency(0, dev)
+        return efhc.init_state(w0, bw, adj0, key, opt_state=opt.init(w0))
+
+    def engine(policy_idx, seeds, idx):
+        idx = np.asarray(idx)
+        C = len(seeds)
+        if len(policy_idx) != C or idx.shape[:3] != (C, T, m):
+            raise ValueError(
+                f"engine takes C policy indices, C seeds and idx (C, T={T}, "
+                f"m={m}, batch); got {len(policy_idx)}, {C}, {idx.shape}")
+        cells = triggers.CellPolicies.of(
+            [triggers.POLICIES[int(i)] for i in policy_idx], dev)
+        if cfg.mix_impl == "sparse_pallas":  # the gather-mix kernel's plan, before the loop
+            mixing_ops.prepare_plan(nl.idx)
+        # (T, C, m, batch): iteration k's rows of every cell are contiguous
+        ix_all = torch.as_tensor(np.ascontiguousarray(np.swapaxes(idx, 0, 1)),
+                                 dtype=torch.int64).to(dev)
+        alphas = sched(torch.arange(T, device=dev))
+        state = init(seeds)
+        bw = state.bandwidths
+        buf = _Buffers(T, C, m, trace, dev)
+
+        def eval_acc(st):
+            if eval_fn is None:
+                return torch.zeros(C, dtype=torch.float32, device=dev)
+            return eval_fn.device(st.w).float()
+
+        clock = _Clock(dev)
+        clock.mark("start")
+        for k in range(T):
+            ix = ix_all[k]
+            state, aux = efhc.step(cfg, graph, state, loss_and_grad=spec.loss_and_grad,
+                                   batch=(x_all[ix], y_all[ix]), alpha_k=alphas[k],
+                                   model_dim=model_dim, cells=cells, nl=nl,
+                                   opt_update=opt.update, dense_aux=dense_aux)
+            buf.write(k, aux)
+            if k % E == 0:
+                # eval after the chunk's first step covers the whole chunk
+                buf.ys["acc"][k:k + E] = eval_acc(state)
+            if k == 0:
+                clock.mark("first")
+        clock.mark("end")
+        buf.ys["acc"][T - 1] = eval_acc(state)  # the reference's k == T-1 eval
+        host = _to_host(buf.ys, bw)
+        timing = {"first_step_ms": clock.ms("start", "first"),
+                  "ms_per_step": (clock.ms("first", "end") / (T - 1)
+                                  if T > 1 else float("nan"))}
+        return host, timing
+
+    return engine, model_dim
 
 
 def run(
@@ -328,12 +463,11 @@ def run(
     device="cuda",
 ) -> SimResult:
     """Simulates ``sim.iters`` universal iterations on ``device``; returns
-    ``SimResult``.  The run is deterministic given ``sim.seed``, the graph
-    process and the batch sampler's seed, and realizes the reference's
-    streams (bandwidths, init, graphs, gossip).
-
-    Set ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) for
-    true-fp32 products on the card; TF32 breaks parity with the reference.
+    ``SimResult``: the engine's one-cell call.  The run is deterministic
+    given ``sim.seed``, the graph process and the batch sampler's seed, and
+    realizes the reference's streams (bandwidths, init, graphs, gossip).
+    ``SimResult.timing`` holds the first iteration's ms and the mean ms per
+    later iteration on the device's clock.
     """
     if engine == "python":
         raise NotImplementedError(
@@ -341,65 +475,14 @@ def run(
             "only the device-resident engine); use engine='scan'")
     if engine != "scan":
         raise ValueError(f"unknown engine {engine!r}; allowed: ('scan', 'python')")
-    if eval_fn is not None and not isinstance(eval_fn, EvalFn):
-        raise NotImplementedError(
-            "host eval callables need the python engine, which is not ported; "
-            "pass an EvalFn (make_eval_fn) or None")
-    dev = resolve_device(device)
-    T, m, E = sim.iters, sim.m, max(1, int(eval_every))
-    if graph.m != m or batches.m != m:
-        raise ValueError(f"sim.m={m} but the graph has {graph.m} devices and "
+    if graph.m != sim.m or batches.m != sim.m:
+        raise ValueError(f"sim.m={sim.m} but the graph has {graph.m} devices and "
                          f"the sampler {batches.m}")
-    spec = model_spec(sim)
-    opt = init_opt(sim.optimizer)
-    cfg = _efhc_cfg(sim)
-    sparse = cfg.mix_impl in efhc.SPARSE_MIX_IMPLS
-    sched = paper_diminishing(sim.alpha0, gamma=1.0, theta=0.5)
-    model_dim = spec.flat_dim
-    nl = (topology.StagedNeighbors.from_host(graph.neighbors(), dev)
-          if sparse else None)
-    if cfg.mix_impl == "sparse_pallas":  # the gather-mix kernel's plan, before the loop
-        mixing_ops.prepare_plan(nl.idx)
-
-    idx = torch.as_tensor(batches.stage(T), dtype=torch.int64).to(dev)
-    x_all = torch.as_tensor(np.asarray(batches.x, np.float32)).to(dev)
-    y_all = torch.as_tensor(np.asarray(batches.y), dtype=torch.int64).to(dev)
-    alphas = sched(torch.arange(T, device=dev))
-
-    # the reference's init stream (_EngineCore.init)
-    key = prng.PRNGKey(sim.seed, dev)
-    k_bw, k_init, k_state = prng.split(key, 3)
-    bw = triggers.sample_bandwidths(k_bw, m, sim.b_mean, sim.sigma_n)
-    w0 = spec.init_stack(k_init, m)
-    adj0 = graph.adjacency_ell(0, nl) if sparse else graph.adjacency(0, dev)
-    state = efhc.init_state(w0, bw, adj0, k_state, opt_state=opt.init(w0))
-
-    buf = _Buffers(T, m, sim.trace, dev)
-    dense_aux = sim.trace != "summary"
-
-    def eval_acc(st):
-        if eval_fn is None:
-            return torch.zeros((), dtype=torch.float32, device=dev)
-        return eval_fn.device(st.w).float()
-
-    clock = _Clock(dev)
-    clock.mark("start")
-    for k in range(T):
-        batch = (x_all[idx[k]], y_all[idx[k]])
-        state, aux = efhc.step(cfg, graph, state, loss_and_grad=spec.loss_and_grad,
-                               batch=batch, alpha_k=alphas[k],
-                               model_dim=model_dim, nl=nl,
-                               opt_update=opt.update, dense_aux=dense_aux)
-        buf.write(k, aux)
-        if k % E == 0:
-            # eval after the chunk's first step covers the whole chunk
-            buf.ys["acc"][k:k + E] = eval_acc(state)
-        if k == 0:
-            clock.mark("first")
-    clock.mark("end")
-    buf.ys["acc"][T - 1] = eval_acc(state)  # the reference's k == T-1 eval
-    res = _result_from_device(buf.ys, bw, model_dim, sim.trace)
-    res.timing = {"first_step_ms": clock.ms("start", "first"),
-                  "ms_per_step": (clock.ms("first", "end") / (T - 1)
-                                  if T > 1 else float("nan"))}
+    eng, model_dim = make_engine(sim, graph, T=sim.iters, eval_every=eval_every,
+                                 x=batches.x, y=batches.y, eval_fn=eval_fn,
+                                 device=device)
+    host, timing = eng([triggers.policy_index(sim.policy)], [sim.seed],
+                       batches.stage(sim.iters)[None])
+    res = result_of_cell(host, 0, model_dim, sim.trace)
+    res.timing = timing
     return res

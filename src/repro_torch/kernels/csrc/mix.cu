@@ -45,6 +45,12 @@
 // on load and masked on store.  Blocks are numbered m-tiles-fastest: the
 // blocks of one W column block run together, so W comes from device
 // memory once.
+// Cells: a batched run mixes C cells at once, P (C, m, m) and W (C, m, D)
+// each cell's own, in one launch with the cells on blockIdx.z (slowest:
+// one cell's blocks run together).  A cell's offsets are 64-bit (C m D
+// passes 2^31 at 16 cells of 4096 x 50890), and its blocks do the solo
+// launch's arithmetic on its slices, so each cell's output is bit-equal
+// to a launch on that cell alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -213,6 +219,11 @@ template <int VA, int VB>
 __global__ void __launch_bounds__(NT, 1)
 mix_kernel(const float* __restrict__ P, const float* __restrict__ W, float* __restrict__ OUT,
            int M, long long N) {
+  // this block's cell: its slices of P, W and OUT
+  const long long cell = blockIdx.z;
+  P += cell * M * (long long)M;
+  W += cell * M * N;
+  OUT += cell * M * N;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles start on 1024-byte boundaries
   uint8_t* base =
@@ -317,12 +328,13 @@ mix_kernel(const float* __restrict__ P, const float* __restrict__ W, float* __re
 }
 
 template <int VA, int VB>
-int launch(const float* P, const float* W, float* OUT, long long m, long long D,
-           cudaStream_t stream) {
+int launch(const float* P, const float* W, float* OUT, long long cells, long long m,
+           long long D, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(mix_kernel<VA, VB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned int)((m + BM - 1) / BM), (unsigned int)((D + BN - 1) / BN));
+  dim3 grid((unsigned int)((m + BM - 1) / BM), (unsigned int)((D + BN - 1) / BN),
+            (unsigned int)cells);
   mix_kernel<VA, VB><<<grid, NT, SMEM_BYTES, stream>>>(P, W, OUT, (int)m, D);
   return (int)cudaGetLastError();
 }
@@ -333,25 +345,27 @@ int width(long long n, uintptr_t ptrs) {
 }
 
 template <int VA>
-int launch_b(int vb, const float* P, const float* W, float* OUT, long long m, long long D,
-             cudaStream_t s) {
-  if (vb == 4) return launch<VA, 4>(P, W, OUT, m, D, s);
-  if (vb == 2) return launch<VA, 2>(P, W, OUT, m, D, s);
-  return launch<VA, 1>(P, W, OUT, m, D, s);
+int launch_b(int vb, const float* P, const float* W, float* OUT, long long cells, long long m,
+             long long D, cudaStream_t s) {
+  if (vb == 4) return launch<VA, 4>(P, W, OUT, cells, m, D, s);
+  if (vb == 2) return launch<VA, 2>(P, W, OUT, cells, m, D, s);
+  return launch<VA, 1>(P, W, OUT, cells, m, D, s);
 }
 
 }  // namespace
 
-// P: (m, m), W: (m, D), OUT: (m, D), all fp32 row-major.  Copies of P and
-// of W are 16, 8 or 4 bytes, the widest that m, D and the pointers'
-// alignment allow.  Launches on `stream` and returns the CUDA error of the
-// launch (0 on success).
-extern "C" int repro_mix_f32(const float* P, const float* W, float* OUT, long long m,
-                             long long D, void* stream) {
+// P: (cells, m, m), W: (cells, m, D), OUT: (cells, m, D), all fp32
+// row-major, 1 <= cells <= 65535.  Copies of P and of W are 16, 8 or 4
+// bytes, the widest that m, D and the pointers' alignment allow (a cell's
+// slices keep its alignment: m and D set the width).  Launches on `stream`
+// and returns the CUDA error of the launch (0 on success).
+extern "C" int repro_mix_f32(const float* P, const float* W, float* OUT, long long cells,
+                             long long m, long long D, void* stream) {
+  if (cells < 1 || cells > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int va = width(m, (uintptr_t)P);
   const int vb = width(D, (uintptr_t)W | (uintptr_t)OUT);
-  if (va == 4) return launch_b<4>(vb, P, W, OUT, m, D, s);
-  if (va == 2) return launch_b<2>(vb, P, W, OUT, m, D, s);
-  return launch_b<1>(vb, P, W, OUT, m, D, s);
+  if (va == 4) return launch_b<4>(vb, P, W, OUT, cells, m, D, s);
+  if (va == 2) return launch_b<2>(vb, P, W, OUT, cells, m, D, s);
+  return launch_b<1>(vb, P, W, OUT, cells, m, D, s);
 }

@@ -80,6 +80,14 @@
 // in flight share a few column chunks whose m x chunk x 4 bytes stay in
 // L2: W comes from device memory about once, and from L2 about (union
 // rows / group rows) times.
+// Cells: a batched run mixes C cells over one shared neighbor table and so
+// one plan, with p_diag (C, m), p_off (C, m, d_max), W and OUT (C, m, D)
+// each cell's own.  Every kernel takes the cells on its slowest grid axis
+// (blockIdx.z; blockIdx.y in the two helper passes), with 64-bit cell
+// offsets, and the helpers' scratch is per cell (kept (C, n_rows, stride),
+// n_kept (C, n_rows), finite (C, m)).  A cell's blocks do the solo launch's
+// arithmetic on its slices, so each cell's output is bit-equal to a launch
+// on that cell alone, and the plan does not depend on C.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,8 +144,14 @@ mix_sparse_kernel(const int64_t* __restrict__ idx, const float* __restrict__ p_d
                   float* __restrict__ out, const int* __restrict__ rows,
                   const int* __restrict__ row_ptr, const int* __restrict__ uni,
                   const int* __restrict__ uni_ptr, const int* __restrict__ slot_pos,
-                  const int* __restrict__ self_pos, int d_max, long long D, int umax,
+                  const int* __restrict__ self_pos, int m, int d_max, long long D, int umax,
                   int rmax, int n_chunks) {
+  // this block's cell: its slices of the weights, W and OUT
+  const long long cell = blockIdx.z;
+  p_diag += cell * m;
+  p_off += cell * m * d_max;
+  w += cell * m * D;
+  out += cell * m * D;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_rows[ROWS_MAX], s_self[ROWS_MAX], s_uni[UNION_MAX];
   __shared__ float s_pd[ROWS_MAX];
@@ -259,10 +273,14 @@ constexpr int COMPACT_NT = 256;
 
 __global__ void __launch_bounds__(COMPACT_NT)
 compact_slots_kernel(const float* __restrict__ p_off, const int* __restrict__ slot_pos,
-                     const int* __restrict__ rows, int n_rows, int d_max, int stride, int CH,
-                     int2* __restrict__ kept, int* __restrict__ n_kept) {
+                     const int* __restrict__ rows, int m, int n_rows, int d_max, int stride,
+                     int CH, int2* __restrict__ kept, int* __restrict__ n_kept) {
   const int r = blockIdx.x * (COMPACT_NT / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (r >= n_rows) return;
+  const long long cell = blockIdx.y;  // this cell's weights and scratch
+  p_off += cell * m * d_max;
+  kept += cell * n_rows * stride;
+  n_kept += cell * n_rows;
   const long long i = rows[r];
   int2* out = kept + (long long)r * stride;
   int n = 0;
@@ -293,9 +311,17 @@ mix_sparse_wide_kernel(const float* __restrict__ p_diag, const float* __restrict
                        const int* __restrict__ rows, const int* __restrict__ row_ptr,
                        const int* __restrict__ uni, const int* __restrict__ uni_ptr,
                        const int* __restrict__ slot_pos, const int* __restrict__ self_pos,
-                       const int2* __restrict__ kept, const int* __restrict__ n_kept,
-                       int d_max, int stride, long long D, int n_chunks) {
+                       const int2* __restrict__ kept, const int* __restrict__ n_kept, int m,
+                       int n_rows, int d_max, int stride, long long D, int n_chunks) {
   constexpr int CH = 32 * L, PER_ROW = CH / V;
+  // this block's cell: its slices of the weights, W, OUT and the scratch
+  const long long cell = blockIdx.z;
+  p_diag += cell * m;
+  p_off += cell * m * d_max;
+  w += cell * m * D;
+  out += cell * m * D;
+  kept += cell * n_rows * stride;
+  n_kept += cell * n_rows;
   extern __shared__ __align__(16) float slab[];  // [union rows][CH]
   const int g = blockIdx.x;
   const int r0 = row_ptr[g], nr = row_ptr[g + 1] - r0;
@@ -383,12 +409,16 @@ mix_sparse_wide_kernel(const float* __restrict__ p_diag, const float* __restrict
 constexpr int FINITE_NT = 256;
 
 __global__ void __launch_bounds__(FINITE_NT)
-row_finite_kernel(const float* __restrict__ w, long long D, unsigned char* __restrict__ finite) {
-  const float* row = w + (long long)blockIdx.x * D;
+row_finite_kernel(const float* __restrict__ w, int m, long long D,
+                  unsigned char* __restrict__ finite) {
+  // row blockIdx.x of cell blockIdx.y
+  const long long at = (long long)blockIdx.y * m + blockIdx.x;
+  finite += at;
+  const float* row = w + at * D;
   bool bad = false;
   for (long long c = threadIdx.x; c < D; c += FINITE_NT) bad |= !isfinite(__ldg(row + c));
   bad = __syncthreads_or(bad);
-  if (threadIdx.x == 0) finite[blockIdx.x] = !bad;
+  if (threadIdx.x == 0) *finite = !bad;
 }
 
 // rows that no slab holds: 4 listed rows and 1024 columns a block
@@ -398,8 +428,15 @@ __global__ void __launch_bounds__(DIRECT_NT)
 mix_sparse_direct_kernel(const int64_t* __restrict__ idx, const float* __restrict__ p_diag,
                          const float* __restrict__ p_off, const float* __restrict__ w,
                          float* __restrict__ out, const int* __restrict__ rows,
-                         const unsigned char* __restrict__ finite, int n_rows, int d_max,
-                         long long D) {
+                         const unsigned char* __restrict__ finite, int m, int n_rows,
+                         int d_max, long long D) {
+  // this block's cell: its slices of the weights, W, OUT and the flags
+  const long long cell = blockIdx.z;
+  p_diag += cell * m;
+  p_off += cell * m * d_max;
+  w += cell * m * D;
+  out += cell * m * D;
+  finite += cell * m;
   // the slots of the current 256 that are taken, in order, and the count
   // each warp keeps of them
   __shared__ float s_p[DIRECT_NT];
@@ -467,20 +504,22 @@ mix_sparse_direct_kernel(const int64_t* __restrict__ idx, const float* __restric
 
 }  // namespace
 
-// idx: (m, d_max) int64, p_diag: (m,) fp32, p_off: (m, d_max) fp32,
-// w and out: (m, D) fp32, all row-major; the plan's int32 tables (rows,
-// row_ptr, uni, uni_ptr, slot_pos, self_pos) from kernels/mixing/plan.py
-// with n_groups staged groups, the largest union umax rows and the
-// largest group rmax rows.  Launches on `stream` and returns the CUDA error
-// of the launch (0 on success).
+// idx: (m, d_max) int64, shared by the cells; p_diag: (cells, m) fp32,
+// p_off: (cells, m, d_max) fp32, w and out: (cells, m, D) fp32, all
+// row-major, 1 <= cells <= 65535; the plan's int32 tables (rows, row_ptr,
+// uni, uni_ptr, slot_pos, self_pos) from kernels/mixing/plan.py with
+// n_groups staged groups, the largest union umax rows and the largest group
+// rmax rows.  Launches on `stream` and returns the CUDA error of the launch
+// (0 on success).
 extern "C" int repro_mix_sparse_f32(const int64_t* idx, const float* p_diag,
                                     const float* p_off, const float* w, float* out,
                                     const int* rows, const int* row_ptr, const int* uni,
                                     const int* uni_ptr, const int* slot_pos,
-                                    const int* self_pos, long long n_groups,
-                                    long long d_max, long long D, long long umax,
-                                    long long rmax, void* stream) {
-  if (umax > UNION_MAX || rmax > ROWS_MAX) return (int)cudaErrorInvalidValue;
+                                    const int* self_pos, long long cells, long long m,
+                                    long long n_groups, long long d_max, long long D,
+                                    long long umax, long long rmax, void* stream) {
+  if (umax > UNION_MAX || rmax > ROWS_MAX || cells < 1 || cells > 65535)
+    return (int)cudaErrorInvalidValue;
   const long long list = rmax * d_max;
   const size_t smem = 4 * ((umax * CHUNK > 2 * list ? umax * CHUNK : 2 * list) + 2 * list + rmax);
   const bool v2 = D % 2 == 0 && (uintptr_t)w % 8 == 0 && (uintptr_t)out % 8 == 0;
@@ -490,32 +529,37 @@ extern "C" int repro_mix_sparse_f32(const int64_t* idx, const float* p_diag,
   if (err != cudaSuccess) return (int)err;
   const int n_chunks = (int)((D + CHUNK - 1) / CHUNK);
   dim3 grid((unsigned int)n_groups,
-            (unsigned int)((n_chunks + CHUNKS_PER_BLOCK - 1) / CHUNKS_PER_BLOCK));
+            (unsigned int)((n_chunks + CHUNKS_PER_BLOCK - 1) / CHUNKS_PER_BLOCK),
+            (unsigned int)cells);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(idx, p_diag, p_off, w, out, rows, row_ptr,
-                                                  uni, uni_ptr, slot_pos, self_pos, (int)d_max,
-                                                  D, (int)umax, (int)rmax, n_chunks);
+                                                  uni, uni_ptr, slot_pos, self_pos, (int)m,
+                                                  (int)d_max, D, (int)umax, (int)rmax, n_chunks);
   return (int)cudaGetLastError();
 }
 
 // The wide tier: the plan's groups (same tables as above, n_rows rows
 // in all) cut for a chunk of 32 or 64 columns, with unions of at most
-// umax rows; kept (n_rows x stride int2, stride even and >= d_max) and
-// n_kept (n_rows int32) are scratch for the compacted slot lists.
+// umax rows; kept (cells x n_rows x stride int2, stride even and >= d_max)
+// and n_kept (cells x n_rows int32) are scratch for the compacted slot
+// lists.
 extern "C" int repro_mix_sparse_wide_f32(const float* p_diag, const float* p_off,
                                          const float* w, float* out, const int* rows,
                                          const int* row_ptr, const int* uni,
                                          const int* uni_ptr, const int* slot_pos,
                                          const int* self_pos, void* kept, int* n_kept,
-                                         long long n_groups, long long n_rows,
-                                         long long d_max, long long stride, long long D,
-                                         long long umax, long long chunk, void* stream) {
+                                         long long cells, long long m, long long n_groups,
+                                         long long n_rows, long long d_max, long long stride,
+                                         long long D, long long umax, long long chunk,
+                                         void* stream) {
   if ((chunk != 32 && chunk != 64) || umax * chunk * 4 > WIDE_SMEM_MAX || stride % 2 ||
-      stride < d_max || (uintptr_t)kept % 16)
+      stride < d_max || (uintptr_t)kept % 16 || cells < 1 || cells > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  compact_slots_kernel<<<(unsigned int)((n_rows + COMPACT_NT / 32 - 1) / (COMPACT_NT / 32)),
-                         COMPACT_NT, 0, st>>>(p_off, slot_pos, rows, (int)n_rows, (int)d_max,
-                                              (int)stride, (int)chunk, (int2*)kept, n_kept);
+  dim3 compact_grid((unsigned int)((n_rows + COMPACT_NT / 32 - 1) / (COMPACT_NT / 32)),
+                    (unsigned int)cells);
+  compact_slots_kernel<<<compact_grid, COMPACT_NT, 0, st>>>(
+      p_off, slot_pos, rows, (int)m, (int)n_rows, (int)d_max, (int)stride, (int)chunk,
+      (int2*)kept, n_kept);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = 4 * umax * chunk;
@@ -525,27 +569,31 @@ extern "C" int repro_mix_sparse_wide_f32(const float* p_diag, const float* p_off
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long n_chunks = (D + chunk - 1) / chunk;
-  dim3 grid((unsigned int)n_groups, (unsigned int)(n_chunks < 65535 ? n_chunks : 65535));
+  dim3 grid((unsigned int)n_groups, (unsigned int)(n_chunks < 65535 ? n_chunks : 65535),
+            (unsigned int)cells);
   kernel<<<grid, WIDE_NT, smem, st>>>(p_diag, p_off, w, out, rows, row_ptr, uni, uni_ptr,
-                                      slot_pos, self_pos, (const int2*)kept, n_kept,
-                                      (int)d_max, (int)stride, D, (int)n_chunks);
+                                      slot_pos, self_pos, (const int2*)kept, n_kept, (int)m,
+                                      (int)n_rows, (int)d_max, (int)stride, D, (int)n_chunks);
   return (int)cudaGetLastError();
 }
 
 // The rows of W listed in rows (n_rows int32 ids) that no slab holds,
 // mixed from device memory, after a pass that flags the finite rows of w
-// (m rows) in finite (m bytes, scratch); other arguments as above.
+// (cells x m rows) in finite (cells x m bytes, scratch); other arguments
+// as above.
 extern "C" int repro_mix_sparse_direct_f32(const int64_t* idx, const float* p_diag,
                                            const float* p_off, const float* w, float* out,
                                            const int* rows, unsigned char* finite,
-                                           long long n_rows, long long m, long long d_max,
-                                           long long D, void* stream) {
-  row_finite_kernel<<<(unsigned int)m, FINITE_NT, 0, (cudaStream_t)stream>>>(w, D, finite);
+                                           long long cells, long long n_rows, long long m,
+                                           long long d_max, long long D, void* stream) {
+  if (cells < 1 || cells > 65535) return (int)cudaErrorInvalidValue;
+  row_finite_kernel<<<dim3((unsigned int)m, (unsigned int)cells), FINITE_NT, 0,
+                      (cudaStream_t)stream>>>(w, (int)m, D, finite);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned int)((n_rows + DIRECT_ROWS - 1) / DIRECT_ROWS),
-            (unsigned int)((D + DIRECT_CHUNK - 1) / DIRECT_CHUNK));
+            (unsigned int)((D + DIRECT_CHUNK - 1) / DIRECT_CHUNK), (unsigned int)cells);
   mix_sparse_direct_kernel<<<grid, DIRECT_NT, 0, (cudaStream_t)stream>>>(
-      idx, p_diag, p_off, w, out, rows, finite, (int)n_rows, (int)d_max, D);
+      idx, p_diag, p_off, w, out, rows, finite, (int)m, (int)n_rows, (int)d_max, D);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the mixing kernels (the CPU path and the
-card's yardstick).  ``mix_sparse_ref`` runs the slot loop in the kernel's
-order and arithmetic, so the two agree bit for bit.  ``mix_ref_3xtf32``
+card's yardstick), with the kernels' optional leading cell axis.
+``mix_sparse_ref`` runs the slot loop in the kernel's order and
+arithmetic, so the two agree bit for bit.  ``mix_ref_3xtf32``
 emulates the dense kernel's split-TF32 arithmetic (tests only; ``mix_ref``
 stays the yardstick)."""
 import torch

@@ -1,4 +1,6 @@
-"""Minimal functional optimizers on dicts of stacked (m, ...) tensors.
+"""Minimal functional optimizers on dicts of stacked (m, ...) tensors, or
+(C, m, ...) in a batched run (the updates are elementwise, so the cells
+are more devices).
 
 Each optimizer is ``(init, update)``: ``init(params) -> state``,
 ``update(grads, state, params, lr) -> (new_params, new_state)``, the

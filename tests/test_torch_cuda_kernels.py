@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA device and skips where torch finds none; the
+Every test here needs a CUDA device and skips where torch finds none (the
+batched launches of the sweep's cell axis included); the
 file imports nothing of jax, so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
@@ -102,20 +103,21 @@ def test_mix_sparse_kernel_bit_equal_to_plain(cuda, m, n):
     assert torch.equal(tmix.mix_sparse(idx, p_diag, p_off, w), want)  # reuses it
 
 
-def _fabric_p(cuda, m, radius, silent=()):
+def _fabric_p(cuda, m, radius, silent=(), cells=None):
     """The ELL P of an rgg fabric with edge dropout, half the devices
     broadcasting except ``silent`` and their neighbours (every slot that
-    reads a silent row then carries zero weight)."""
+    reads a silent row then carries zero weight); with ``cells``, each
+    cell its own broadcasting devices over the shared table."""
     g = ttopo.make_process(m, "rgg", radius=radius, time_varying="edge_dropout",
                            drop=0.3, seed=0)
     nl = ttopo.StagedNeighbors.from_host(g.neighbors(), cuda)
-    v = np.random.default_rng(m).uniform(size=m) < 0.5
+    v = np.random.default_rng(m).uniform(size=m if cells is None else (cells, m)) < 0.5
     for j in silent:
-        v[j] = False
-        v[nl.idx[j].cpu().numpy()] = False
+        v[..., j] = False
+        v[..., nl.idx[j].cpu().numpy()] = False
     v = torch.as_tensor(v, device=cuda)
     adj_ell = g.adjacency_ell(0, nl)
-    comm_ell = adj_ell & (v[:, None] | v[nl.idx])
+    comm_ell = adj_ell & (v[..., :, None] | v[..., nl.idx])
     p_diag, p_off = tmixing.build_p_ell(nl.idx, adj_ell, comm_ell)
     return nl, p_diag, p_off
 
@@ -283,3 +285,81 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         flat = torch.zeros(q.numel() + 1, device=cuda)
         qu = flat[1:].view(q.shape)
         tswa.swa_attention(qu, q, q, window=16)
+
+
+# ---- the cell axis: C cells in one launch ----------------------------------
+
+@pytest.mark.gpu
+# 16-, 8- and 4-byte copies, m and D off the tile, the paper sweep's shape
+@pytest.mark.parametrize("cells,m,n", [(3, 33, 130), (2, 256, 4096), (3, 130, 1001),
+                                       (8, 1024, 50890)])
+def test_mix_kernel_cells_bit_equal_to_solo_launches(cuda, cells, m, n):
+    """One launch for C cells gives each cell the bits of a launch on that
+    cell alone, NaN and inf included (a non-finite value in one cell)."""
+    g = torch.Generator(device=cuda).manual_seed(cells + m + n)
+    p = torch.softmax(torch.randn((cells, m, m), generator=g, device=cuda), -1)
+    w = torch.randn((cells, m, n), generator=g, device=cuda)
+    w[cells - 1, 3 % m, 10] = float("inf")
+    p[0, m // 2, 1] = float("nan")
+    before = tmix.LAUNCHES["mix"]
+    got = tmix.mix(p, w)
+    assert tmix.LAUNCHES["mix"] == before + 1
+    for c in range(cells):
+        torch.testing.assert_close(got[c], tmix.mix(p[c], w[c]), atol=0, rtol=0,
+                                   equal_nan=True)
+    torch.testing.assert_close(got, mix_ref(p, w), rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.gpu
+# every route: the 128-column tier (fleet fabric, D even and odd), the wide
+# tier at 64 and 32 columns, and the wide tier beside the direct kernel
+@pytest.mark.parametrize("cells,m,radius,n", [(4, 4096, None, 7850), (3, 4096, None, 7851),
+                                              (8, 1024, 0.4, 7850), (3, 1024, 0.4, 1001),
+                                              (2, 4096, 0.2, 7851), (3, 4096, 0.4, 7850)])
+def test_mix_sparse_kernel_cells_bit_equal_to_solo_launches(cuda, cells, m, radius, n):
+    """One plan and one launch per route for C cells: each cell's rows are
+    the bits of a launch on that cell alone and of the plain slot loop,
+    NaN for NaN (one cell's W holds inf and NaN)."""
+    nl, p_diag, p_off = _fabric_p(cuda, m, radius or ttopo.fleet_radius(m), cells=cells)
+    plan = tmix.prepare_plan(nl.idx)
+    w = torch.randn((cells, m, n), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda)
+    w[cells - 1, 17, 5] = float("inf")
+    w[cells - 1, m // 2, 140:142] = float("nan")
+    before = dict(tmix.LAUNCHES)
+    got = tmix.mix_sparse(nl.idx, p_diag, p_off, w)
+    staged = "mix_sparse_wide" if plan.wide else "mix_sparse"
+    assert {k: tmix.LAUNCHES[k] - before[k] for k in before} == {
+        "mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+        staged: 1, **({"mix_sparse_direct": 1} if plan.n_direct else {})}
+    assert tmix.prepare_plan(nl.idx) is plan  # one plan for any number of cells
+    torch.testing.assert_close(got, mix_sparse_ref(nl.idx, p_diag, p_off, w),
+                               atol=0, rtol=0, equal_nan=True)
+    for c in range(cells):
+        torch.testing.assert_close(got[c], tmix.mix_sparse(nl.idx, p_diag[c], p_off[c], w[c]),
+                                   atol=0, rtol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix_impl", ["pallas", "sparse_pallas"])
+def test_sweep_on_the_card_launches_once_per_iteration(cuda, mix_impl):
+    """A seeds x policies grid on the card: each kernel of the path
+    launches once per iteration for all 8 cells, and the cells' integer
+    channels equal the same sweep on the CPU (plain versions)."""
+    from repro_torch import api
+
+    spec = api.ScenarioSpec(m=16, dim=48, n_train=600, n_test=80, iters=10,
+                            eval_every=5, mix_impl=mix_impl, trace="full",
+                            labels_per_device=2)
+    before = {**ttrig.LAUNCHES, **tmix.LAUNCHES}
+    card = api.sweep(spec, seeds=(0, 1), device=cuda)
+    moved = {k: v - before[k] for k, v in {**ttrig.LAUNCHES, **tmix.LAUNCHES}.items()}
+    want = ({"trigger_sq": 10, "mix": 10} if mix_impl == "pallas" else {"mix_sparse": 10})
+    assert {k: n for k, n in moved.items() if n} == want
+    cpu = api.sweep(spec, seeds=(0, 1), device="cpu")
+    for f in ("v", "comm_count", "deg"):
+        assert np.array_equal(getattr(card, f), getattr(cpu, f)), f
+    assert np.array_equal(card.comm, cpu.comm) and np.array_equal(card.adj, cpu.adj)
+    for f in ("loss", "tx_time", "util", "consensus_err", "acc"):
+        np.testing.assert_allclose(getattr(card, f), getattr(cpu, f), rtol=2e-4,
+                                   atol=2e-5, err_msg=f)

@@ -1,9 +1,9 @@
 """One EF-HC iteration of repro_torch against repro.core.efhc.step from
-the same state (carried across with ``convert.state_from_jax``): every
-mix impl under the EF-HC policy on svm, and every trigger policy under
-``dense`` on mlp (whose flat rows are [b1 | b2 | w1 | w2]).  Integer and
-bool outputs must be equal; float outputs agree at the golden tolerances
-(rtol 2e-4, atol 2e-5)."""
+the same state (carried across with ``convert.state_from_jax`` as the
+port's one-cell state): every mix impl under the EF-HC policy on svm, and
+every trigger policy under ``dense`` on mlp (whose flat rows are
+[b1 | b2 | w1 | w2]).  Integer and bool outputs must be equal; float
+outputs agree at the golden tolerances (rtol 2e-4, atol 2e-5)."""
 import numpy as np
 import pytest
 
@@ -76,18 +76,22 @@ def _run_both(mix_impl: str, policy: str, model: str):
     tnl = ttopo.StagedNeighbors.from_host(nl, CPU) if sparse else None
     tnew, taux = tefhc.step(
         tcfg, tgraph, tstate, loss_and_grad=tm.loss_and_grad,
-        batch=(torch.as_tensor(xb), torch.as_tensor(yb, dtype=torch.int64)),
+        batch=(torch.as_tensor(xb)[None],
+               torch.as_tensor(yb, dtype=torch.int64)[None]),
         alpha_k=torch.tensor(np.asarray(alpha)), model_dim=tm.flat_dim,
         nl=tnl)
     return jnew, jaux, tnew, taux
 
 
 def _check(jnew, jaux, tnew, taux):
-    for f in ("v", "comm", "adj", "comm_count", "deg"):
-        assert np.array_equal(getattr(taux, f).numpy(),
+    # the port's step carries a cell axis (one cell here); the adjacency
+    # and prev_adj are shared by the cells and have none
+    assert np.array_equal(taux.adj.numpy(), np.asarray(jaux.adj))
+    for f in ("v", "comm", "comm_count", "deg"):
+        assert np.array_equal(getattr(taux, f)[0].numpy(),
                               np.asarray(getattr(jaux, f))), f
     for f in ("p", "loss", "tx_time", "util", "consensus_err"):
-        np.testing.assert_allclose(getattr(taux, f).numpy(),
+        np.testing.assert_allclose(getattr(taux, f)[0].numpy(),
                                    np.asarray(getattr(jaux, f)), rtol=RTOL,
                                    atol=ATOL, err_msg=f)
     for tree in ("w", "w_hat"):
@@ -95,10 +99,10 @@ def _check(jnew, jaux, tnew, taux):
         want = getattr(jnew, tree)
         assert sorted(got) == sorted(want)
         for n in want:
-            np.testing.assert_allclose(got[n], np.asarray(want[n]), rtol=RTOL,
+            np.testing.assert_allclose(got[n][0], np.asarray(want[n]), rtol=RTOL,
                                        atol=ATOL, err_msg=f"{tree}[{n}]")
     assert np.array_equal(tnew.prev_adj.numpy(), np.asarray(jnew.prev_adj))
-    assert np.array_equal(tnew.key.numpy(),
+    assert np.array_equal(tnew.key[0].numpy(),
                           np.asarray(jnew.key).astype(np.int64))
     assert int(tnew.k) == int(jnew.k) == K + 1
 

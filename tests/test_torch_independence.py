@@ -58,6 +58,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         tapi.simulate(spec, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.simulate(spec)  # the default device is the card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.sweep(spec, seeds=(0, 1))
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -89,9 +91,10 @@ def test_unported_features_raise_not_implemented(kw, item):
 
 
 def test_unported_entry_points_raise_not_implemented():
-    spec = tapi.ScenarioSpec(m=4, dim=8)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapi.sweep(spec)
+    spec = tapi.ScenarioSpec(m=4, dim=8, n_train=40, n_test=8, iters=2)
+    grid = tapi.sweep(spec, seeds=(0,), device="cpu")  # item 5 is ported
+    assert grid.v.shape == (1, 4, 2, 4) and grid.policies == ("efhc", "zero",
+                                                             "global", "gossip")
     with pytest.raises(NotImplementedError, match="item 8"):
         tapi.serve([spec])
     with pytest.raises(NotImplementedError, match="python"):
