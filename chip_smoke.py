@@ -29,10 +29,11 @@ error:
    the dense mix's and the fp32 SWA kernel's tensor-core opcodes and
    registers (``cuobjdump``, TF32 ones required) and their error and bias
    against fp64, each within a stated limit;
-3. golden: the m=8 golden configuration of
-   ``tests/test_golden_trajectory.py`` on the card under
-   ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
-   ``tests/golden/efhc_m8_trajectory.json``;
+3. golden: the m=8 golden configurations of
+   ``tests/test_golden_trajectory.py`` (svm and ``mlp_blocks``) on the
+   card under ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
+   ``tests/golden/efhc_m8_trajectory.json`` and
+   ``efhc_m8_mlp_blocks.json``;
 4. paper: ``api.simulate`` at m=1024, mlp, D=50890, ``mix_impl="pallas"``
    for 20 iterations, counting ``trigger_sq`` and ``mix`` launches, then
    with the plain ``mix_impl="dense"``: v, comm_count and deg must agree
@@ -52,12 +53,29 @@ error:
    and the sweep's ms/iteration beside 8 x the solo runs';
    5b. fleet sweep: ``run_sweep`` of the fleet cell over the same grid:
    exactly 20 ``mix_sparse`` launches, and its ``sparse`` twin;
-6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30 on the card and on
-   the CPU (plain versions), channel by channel;
+   5c. service: ``api.serve`` on one ``ScenarioService`` (max_cells 8),
+   two waves of interleaved requests over three signatures (A the paper
+   cell, 6 cells; B svm ``sparse_pallas`` on the spec's rgg r=0.4 fabric,
+   3 cells; C B on another fabric): every report ok, one launch per
+   signature a wave with exactly 20 ``trigger_sq`` + 20 ``mix`` (A) and
+   20 ``mix_sparse_wide`` (B, C) launches, 2 gather-mix plan builds over
+   both waves, engine and program cache hits in the second, every cell
+   against its solo ``api.simulate`` on the card; then A with an Inf
+   training row planted (``PoisonedProvider``): the cell that draws it
+   quarantined, its neighbour in the launch equal to its solo run;
+   5d. deep models: ``api.simulate`` of ``cnn`` and ``mlp_blocks`` at
+   m=1024, dim 784, and ``tiny_transformer`` at m=64 on seeded token
+   windows, each under ``mix_impl="pallas"`` (exactly 20 ``mix`` + 20
+   ``trigger_sq`` launches) beside its ``dense`` twin (the cnn's step by
+   step from the same state, ``StepTwin``: the decisions, the ``mix``
+   kernel's output, the loss and the consensus error; its whole runs
+   under ``dense``, ``delta`` and an fp64 dense mix printed, ungated);
+6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30, and m=16, cnn,
+   T=10, on the card and on the CPU (plain versions), channel by channel;
 7. profile: device activities, device busy time, idle share and each of
    the repo's kernels' device time per iteration of the paper, fleet,
-   dense-fabric, paper-sweep and fleet-sweep paths, under
-   ``torch.profiler``;
+   dense-fabric, paper-sweep and fleet-sweep paths, one service launch of
+   signature A and the cnn path, under ``torch.profiler``;
 8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
    ``attn_impl="pallas_swa"``, random weights from a seeded generator):
    one prefill of 32768 tokens through the steps of
@@ -1212,30 +1230,36 @@ def _compare(res, want: dict, label: str, fields_int=INT_FIELDS,
     return ", ".join(f"{f} {u:.3g}" for f, u in used.items())
 
 
-def phase_golden(dev) -> None:
+GOLDEN = {"svm": "efhc_m8_trajectory.json", "mlp_blocks": "efhc_m8_mlp_blocks.json"}
+
+
+def phase_golden(dev, model: str = "svm") -> None:
+    """The m=8 golden configuration of ``model`` (``GOLDEN``) under the two
+    kernel impls, against its artifact."""
     from repro_torch.core.topology import make_process
     from repro_torch.data.loader import FederatedBatches
     from repro_torch.data.partition import by_labels
     from repro_torch.data.synthetic import image_dataset
     from repro_torch.fl.simulator import SimConfig, run
 
-    want = json.loads((ROOT / "tests" / "golden" / "efhc_m8_trajectory.json"
-                       ).read_text())
+    want = json.loads((ROOT / "tests" / "golden" / GOLDEN[model]).read_text())
     for impl in ("pallas", "sparse_pallas"):
         x, y = image_dataset(600, seed=0, dim=want["dim"])
         parts = by_labels(y, want["m"], 3)
         graph = make_process(want["m"], "rgg", time_varying="edge_dropout",
                              drop=0.3, seed=0)
         sim = SimConfig(m=want["m"], iters=want["iters"], dim=want["dim"],
-                        batch=8, r=50.0, seed=0, mix_impl=impl)
+                        batch=8, r=50.0, seed=0, mix_impl=impl, model=model)
         res = run(sim, graph, FederatedBatches(x, y, parts, sim.batch, seed=2),
                   None, eval_every=5, device=dev)
         check(np.allclose(res.bandwidths, want["bandwidths"], rtol=1e-5),
-              f"golden {impl}: bandwidth draw differs")
-        used = _compare(res, want, f"golden {impl}")
-        print(f"golden m=8 {impl}: v/comm_count/deg exact, loss/tx_time/util/"
-              f"consensus_err within rtol {RTOL} / atol {ATOL}; worst share of "
-              f"the allowance: {used}")
+              f"golden {model} {impl}: bandwidth draw differs")
+        check(res.model_dim == want.get("model_dim", res.model_dim),
+              f"golden {model} {impl}: D={res.model_dim}")
+        used = _compare(res, want, f"golden {model} {impl}")
+        print(f"golden m=8 {model} {impl}: v/comm_count/deg exact, loss/tx_time/"
+              f"util/consensus_err within rtol {RTOL} / atol {ATOL}; worst share "
+              f"of the allowance: {used}")
 
 
 def _finite(res, label: str) -> None:
@@ -1323,6 +1347,87 @@ def _twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
     check(False, f"{label}: the kernel and plain ({impl}) runs differ in {differ}; "
                  f"first v flips (iteration, device, margin kernel run, margin "
                  f"plain run): {flips}")
+
+
+class StepTwin:
+    """While active, each EF-HC step of a kernel run (``mix_impl``
+    "pallas") is taken once more from the same state with the plain
+    ``dense`` mix, and the two steps are compared at every iteration of
+    the full-size run, without the trajectories' drift: v, comm_count and
+    deg equal; the ``mix`` kernel's output against ``consensus.mix_dense``
+    of the same P and W within RTOL / ATOL, and against the fp64 product
+    within ``MIX_FP64_ERR_VS_LIB`` x the plain mix's error or an fp32 ulp
+    of the largest output, whichever is larger (``mix_err``:
+    the largest of each, kernel vs plain, kernel vs fp64, plain vs fp64);
+    the step's loss and consensus error (both computed after the mix)
+    within RTOL / ATOL.  ``differ`` lists the (iteration, channels) that
+    disagree.  The new models are compared as well and reported, not
+    gated (``w_gap``: each step's largest difference and the number of
+    entries outside RTOL / ATOL): a relu unit that changes sign on a
+    rounding difference changes that step's gradient by a finite
+    amount."""
+
+    def __init__(self):
+        self.steps, self.differ, self.mix_err, self.w_gap = 0, [], [0.0] * 3, []
+
+    def __enter__(self):
+        import dataclasses
+
+        import torch
+
+        from repro_torch.core import consensus, efhc
+        from repro_torch.kernels.mixing import ops as mixing_ops
+        self._mod, self._real = efhc, efhc.step
+        self._ops, self._mix = mixing_ops, mixing_ops.mix
+        mixed = []
+
+        def held_mix(p, w):
+            out = self._mix(p, w)
+            plain = consensus.mix_dense(p, w)
+            exact = p.double() @ w.double()
+            errs = [float((a - b).abs().max())
+                    for a, b in ((out, plain), (out, exact), (plain, exact))]
+            # an fp32 ulp of the largest output, where the plain mix is exact
+            ulp = float(exact.abs().max()) * 2.0 ** -23
+            mixed.append((errs, bool(torch.allclose(out, plain, rtol=RTOL, atol=ATOL))
+                          and errs[1] <= max(MIX_FP64_ERR_VS_LIB * errs[2], ulp)))
+            return out
+
+        def close(a, b) -> bool:
+            return bool(torch.allclose(a, b, rtol=RTOL, atol=ATOL))
+
+        def twinned(cfg, graph, state, **kw):
+            mixed.clear()
+            mixing_ops.mix = held_mix
+            try:
+                new, aux = self._real(cfg, graph, state, **kw)
+            finally:
+                mixing_ops.mix = self._mix
+            plain_new, plain = self._real(dataclasses.replace(cfg, mix_impl="dense"),
+                                          graph, state, **kw)
+            bad = [f for f in INT_FIELDS
+                   if not bool((getattr(aux, f) == getattr(plain, f)).all())]
+            bad += [f for f in ("loss", "consensus_err")
+                    if not close(getattr(aux, f), getattr(plain, f))]
+            if len(mixed) != 1 or not mixed[0][1]:
+                bad.append(f"mix ({len(mixed)} launches, max abs err "
+                           f"{[e for e, _ in mixed]})")
+            for errs, _ in mixed:
+                self.mix_err = [max(a, b) for a, b in zip(self.mix_err, errs)]
+            w, wp = efhc.flatten_stack(new.w, lead=2), efhc.flatten_stack(plain_new.w, lead=2)
+            outside = ~torch.isclose(w, wp, rtol=RTOL, atol=ATOL)
+            self.w_gap.append((float((w - wp).abs().max()), int(outside.sum())))
+            if bad:
+                self.differ.append((self.steps, bad))
+            self.steps += 1
+            return new, aux
+
+        efhc.step = twinned
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.step = self._real
+        self._ops.mix = self._mix
 
 
 def _sweep_twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
@@ -1559,19 +1664,376 @@ def phase_fleet_sweep(dev, m: int = 4096, dim: int = 784, T: int = 20,
     return launches, res
 
 
-def phase_cpu(dev, m: int = 64, dim: int = 784) -> None:
+# ---------------------------------------------------------------------------
+# phases 5c-5d: the scenario service and the deep models
+# ---------------------------------------------------------------------------
+
+SERVICE_CELLS = 8  # the service's max_cells
+
+
+def service_specs(m: int = 1024, dim: int = 784, n_train: int = 8192, T: int = 20
+                  ) -> dict:
+    """The service's three signatures: A the paper cell (mlp, the trigger
+    and dense-mix kernels), B svm on the spec's rgg r=0.4 fabric (the
+    wide gather-mix tier at m=1024), C B on another fabric."""
+    import dataclasses
+
     from repro_torch import api
 
-    spec = api.ScenarioSpec(m=m, model="svm", dim=dim, iters=30,
+    a = api.ScenarioSpec(m=m, model="mlp", dim=dim, n_train=n_train, iters=T,
+                         mix_impl="pallas", trace="summary")
+    b = api.ScenarioSpec(m=m, model="svm", dim=dim, n_train=n_train, iters=T,
+                         mix_impl="sparse_pallas", trace="summary")
+    return {"A": a, "B": b, "C": dataclasses.replace(b, graph_seed=1)}
+
+
+# one wave of interleaved requests: (signature, policy, seeds); A has 6
+# cells (a bucket of 8), B and C 3 each (buckets of 4)
+SERVICE_WAVE = (("A", "efhc", (0, 1)), ("B", "efhc", (0, 1)), ("C", "efhc", (0, 1)),
+                ("A", "gossip", (0, 1)), ("B", "gossip", (0,)), ("C", "gossip", (0,)),
+                ("A", "zero", (2,)), ("A", "global", (3,)))
+
+
+def phase_service(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
+                  T: int = 20, solo: bool = True, waves=(0, 10)):
+    """``api.serve`` on one resident ``ScenarioService`` (max_cells 8), two
+    waves of ``SERVICE_WAVE`` (seeds shifted by each of ``waves``): each
+    wave is one launch per signature, exactly T ``trigger_sq`` + T ``mix``
+    launches for A and T ``mix_sparse_wide`` for B and C; the gather-mix
+    plans are built twice over both waves (B's and C's tables); the second
+    wave hits the engine and program caches; with ``solo``, every cell
+    against its solo ``api.simulate`` on the card.  Returns the launch
+    counts over both waves and one A launch's first result (its timing is
+    the launch's)."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.fl.service import _bucket
+    from repro_torch.kernels.mixing import ops as mixing_ops
+
+    specs = service_specs(m, dim, n_train, T)
+    svc = api.ScenarioService(max_cells=SERVICE_CELLS, device=dev)
+    plans0 = mixing_ops.PLAN_BUILDS
+    total: dict[str, int] = {}
+    served = []
+    a_res = None
+    for w, shift in enumerate(waves):
+        reqs = [(sig, dataclasses.replace(specs[sig], policy=pol,
+                                          seeds=tuple(s + shift for s in seeds)))
+                for sig, pol, seeds in SERVICE_WAVE]
+        t0 = time.perf_counter()
+        _reset_launches()
+        reports = api.serve([spec for _, spec in reqs], service=svc)
+        launches = _launches()
+        wall = time.perf_counter() - t0
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        check(all(r.ok for r in reports),
+              f"service wave {w}: reports failed: "
+              f"{[(r.request_id, r.error) for r in reports if not r.ok]}")
+        check(not any(r.quarantined for r in reports),
+              f"service wave {w}: cells quarantined: "
+              f"{[(r.request_id, r.quarantined) for r in reports if r.quarantined]}")
+        want = {"trigger_sq": T, "mix": T, "mix_sparse_wide": 2 * T}
+        check({k: n for k, n in launches.items() if n} == want,
+              f"service wave {w}: expected launches {want} (A: T trigger_sq + T mix; "
+              f"B, C: T mix_sparse_wide each), got {launches}")
+        by_launch: dict[int, list] = {}
+        for (sig, _), rep in zip(reqs, reports):
+            by_launch.setdefault(rep.launch_id, []).append((sig, rep))
+        check(len(by_launch) == 3 and all(len({s for s, _ in reps}) == 1
+                                         for reps in by_launch.values()),
+              f"service wave {w}: expected one launch per signature, got "
+              f"{ {k: [s for s, _ in v] for k, v in by_launch.items()} }")
+        cells = sum(len(r.results) for r in reports)
+        for lid, reps in sorted(by_launch.items()):
+            sig, rep = reps[0]
+            res = next(iter(rep.results.values()))
+            if sig == "A" and a_res is None:
+                a_res = res
+            print(f"service wave {w} launch {lid} (signature {sig}, "
+                  f"{specs[sig].model} {specs[sig].mix_impl}): {rep.launch_cells} cells, "
+                  f"{_bucket(rep.launch_cells) - rep.launch_cells} padded; first "
+                  f"step {res.timing['first_step_ms']:.2f} ms, "
+                  f"{res.timing['ms_per_step']:.3f} ms/iteration after it; run_s "
+                  f"{rep.run_s:.3f}, stage_s {rep.stage_s:.3f}; engine cache hit "
+                  f"{rep.engine_cache_hit}, program cache hit {rep.program_cache_hit}")
+        print(f"service wave {w}: {len(reports)} requests, {cells} cells in "
+              f"{len(by_launch)} launches, {wall:.2f} s wall ({cells / wall:.2f} "
+              f"sims/s); launches {launches}")
+        if w:
+            check(all(r.engine_cache_hit and r.program_cache_hit for r in reports),
+                  f"service wave {w}: expected engine and program cache hits, got "
+                  f"{[(r.engine_cache_hit, r.program_cache_hit) for r in reports]}")
+        served += reports
+    builds = mixing_ops.PLAN_BUILDS - plans0
+    check(builds == 2, f"service: expected 2 gather-mix plan builds over both "
+                       f"waves (B's and C's tables), got {builds}")
+    print(f"service: {builds} gather-mix plan builds over {len(waves)} waves; "
+          f"stats {json.dumps(svc.stats().as_dict())}")
+    if solo:
+        worst = 0.0
+        for rep in served:
+            for s, res in rep.results.items():
+                one = api.simulate(rep.spec, seed=s, device=dev)
+                used = _compare(res, {f: getattr(one, f) for f in (
+                    *INT_FIELDS, *FLOAT_FIELDS, "acc")},
+                    f"service cell (request {rep.request_id}, seed {s}) vs its solo run",
+                    fields_float=(*FLOAT_FIELDS, "acc"))
+                worst = max([worst] + [float(u.split()[-1]) for u in used.split(", ")])
+        print(f"service: every cell against its solo api.simulate run on the card: "
+              f"integer channels equal, float channels within rtol {RTOL} / atol "
+              f"{ATOL}; worst share of the allowance {worst:.3g}")
+    return total, a_res
+
+
+class PoisonedProvider:
+    """The default synthetic dataset with one appended training row of Inf
+    that only device 0 can draw, among ``extra`` other rows added to its
+    partition: a cell diverges only if its sampler draws that row."""
+
+    def __init__(self, extra: int = 300):
+        self.extra, self._cache = extra, {}
+
+    def __call__(self, spec):
+        import dataclasses
+
+        from repro_torch.fl import service
+
+        k = service.SyntheticProvider.key(spec)
+        if k not in self._cache:
+            ds = service._DEFAULT_PROVIDER(spec)
+            n = len(ds.x)
+            x = np.concatenate([ds.x, np.full((1, ds.x.shape[1]), np.inf, np.float32)])
+            y = np.concatenate([ds.y, ds.y[:1]])
+            parts = list(ds.parts)
+            parts[0] = np.concatenate([np.asarray(parts[0]),
+                                       np.arange(self.extra), [n]]).astype(np.int64)
+            self._cache[k] = dataclasses.replace(ds, x=x, y=y, parts=parts)
+            self.row = n
+        return self._cache[k]
+
+
+def phase_quarantine(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
+                     T: int = 20) -> None:
+    """Signature A with ``PoisonedProvider``: two cells in one launch, one
+    drawing the Inf row in its first T/2 iterations, one never: the first
+    is quarantined, the second equals its solo run on the card."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.fl import service
+
+    prov = PoisonedProvider()
+    spec = service_specs(m, dim, n_train, T)["A"]
+    ds = prov(spec)
+    hit = miss = None
+    for s in range(64):
+        idx = spec.batches(s, ds).stage(T)
+        per_step = (idx == prov.row).reshape(T, -1).any(1)
+        if hit is None and per_step[: T // 2].any():
+            hit = s
+        if miss is None and not per_step.any():
+            miss = s
+        if hit is not None and miss is not None:
+            break
+    check(hit is not None and miss is not None,
+          "quarantine: no poisoned and clean sampler streams among seeds 0..63")
+    spec = dataclasses.replace(spec, seeds=(hit, miss))
+    _reset_launches()
+    rep = api.serve([spec], provider=prov, max_cells=SERVICE_CELLS, device=dev)[0]
+    launches = _launches()
+    check(rep.ok, f"quarantine: the report failed: {rep.error}")
+    check({k: n for k, n in launches.items() if n} == {"trigger_sq": T, "mix": T},
+          f"quarantine: expected {T} trigger_sq and {T} mix launches, got {launches}")
+    check(rep.quarantined == (hit,) and set(rep.results) == {miss},
+          f"quarantine: expected seed {hit} quarantined and {miss} served, got "
+          f"{rep.quarantined} and {sorted(rep.results)}")
+    solo = service.solo_run(spec, seed=miss, provider=prov, device=dev)
+    used = _compare(rep.results[miss], {f: getattr(solo, f) for f in (
+        *INT_FIELDS, *FLOAT_FIELDS, "acc")}, "quarantine: the clean cell vs its solo run",
+        fields_float=(*FLOAT_FIELDS, "acc"))
+    bad = service.solo_run(spec, seed=hit, provider=prov, device=dev)
+    check(not np.isfinite(bad.loss).all(), "quarantine: the poisoned solo run stayed finite")
+    print(f"quarantine m={m} signature A: seed {hit} (draws the Inf row) quarantined, "
+          f"seed {miss} served beside it in one launch of {rep.launch_cells} cells; the "
+          f"clean cell against its solo run: integer channels equal, floats within "
+          f"rtol {RTOL} / atol {ATOL} ({used}); launches {launches}")
+
+
+class TokenProvider:
+    """Next-token windows (``seq`` tokens, the next one the label) over a
+    seeded numpy bigram chain of ``vocab`` tokens; each device holds a
+    contiguous stretch of the stream."""
+
+    def __init__(self, m: int, seq: int = 16, vocab: int = 64, n: int = 8192,
+                 seed: int = 0):
+        from repro_torch.fl.service import Dataset
+
+        rng = np.random.default_rng(seed)
+        succ = rng.integers(0, vocab, size=(vocab, 4))
+
+        def stream(length):
+            pick, jump = rng.integers(0, 4, length), rng.random(length) < 0.25
+            anew = rng.integers(0, vocab, length)
+            out, cur = np.empty(length, np.int32), 0
+            for i in range(length):
+                out[i] = cur
+                cur = anew[i] if jump[i] else succ[cur, pick[i]]
+            return out
+
+        def windows(tokens, stride):
+            starts = np.arange(0, len(tokens) - seq, stride)
+            return (np.stack([tokens[i:i + seq] for i in starts]),
+                    tokens[starts + seq].astype(np.int32))
+
+        x, y = windows(stream(2 * n + seq), 2)
+        xt, yt = windows(stream(800 * seq + seq), seq)
+        self.ds = Dataset(x, y, np.array_split(np.arange(len(y)), m), xt, yt)
+
+    def __call__(self, spec):
+        return self.ds
+
+
+DEEP_D = {"cnn": 26698, "mlp_blocks": 37824}
+
+
+class Fp64Mix:
+    """While active, the plain dense mix (``consensus.mix_dense``) runs its
+    product in fp64 and rounds it to fp32: a mix that differs from the
+    fp32 product only in rounding, by about as much as the kernel does."""
+
+    def __enter__(self):
+        from repro_torch.core import consensus
+        self._mod, self._real = consensus, consensus.mix_dense
+        consensus.mix_dense = lambda p, flat: (p.double() @ flat.double()).to(flat.dtype)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.mix_dense = self._real
+
+
+def _parting(a, b) -> str:
+    """Two whole runs side by side: the largest loss gap per iteration and
+    the first v flip."""
+    gap = np.abs(np.asarray(a.loss, np.float64) - b.loss).max(axis=1)
+    flips = np.argwhere(np.asarray(a.v) != np.asarray(b.v))
+    return (f"largest loss gap per iteration {[float(f'{g:.2g}') for g in gap]}, "
+            f"first v flip (iteration, device) {flips[:1].tolist()}")
+
+
+def _cnn_twin(spec, res, dev) -> None:
+    """The cnn's twins, held step by step (``StepTwin``: from the same
+    state, v, comm_count and deg equal, the mix kernel's output and the
+    step's loss and consensus error within RTOL / ATOL).  Its whole runs
+    under two mixes that differ in rounding part after a few iterations
+    (PERF.md §6): the whole ``dense`` run is printed beside the
+    kernel run, and beside it two plain runs, no kernel: ``delta`` (``w +
+    (P w - w)``, the same product, a difference in the last rounding) and
+    the dense mix in fp64 (``Fp64Mix``, a difference in the product's
+    rounding, as the kernel's), ungated."""
+    import dataclasses
+
+    from repro_torch import api
+
+    with StepTwin() as twin:
+        again = api.simulate(spec, device=dev)
+    check(twin.steps == spec.iters, f"cnn step twin: {twin.steps} steps twinned")
+    check(not twin.differ, f"cnn step twin: the kernel and plain (dense) steps "
+                           f"differ from the same state: (iteration, channels) "
+                           f"{twin.differ[:5]}")
+    check(all(np.array_equal(getattr(res, f), getattr(again, f)) for f in INT_FIELDS),
+          "cnn: the twinned kernel run differs from the first kernel run")
+    k_plain, k_exact, plain_exact = twin.mix_err
+    print(f"cnn kernel vs plain (dense) on the card, step by step from the same "
+          f"state: v, comm_count, deg equal, mix output within rtol {RTOL} / atol "
+          f"{ATOL} of the plain mix (max abs err {k_plain:.3g}) and within "
+          f"{MIX_FP64_ERR_VS_LIB} x the plain mix's error against fp64 or an ulp "
+          f"of the largest output (largest: kernel {k_exact:.3g}, plain "
+          f"{plain_exact:.3g}), loss and consensus error "
+          f"within rtol {RTOL} / atol {ATOL}, in all {twin.steps} iterations x "
+          f"{spec.m} devices; new models (ungated), largest gap and entries outside "
+          f"the tolerance per iteration "
+          f"{[(float(f'{g:.2g}'), n) for g, n in twin.w_gap]}")
+    plain = api.simulate(dataclasses.replace(spec, mix_impl="dense"), device=dev)
+    print(f"cnn whole runs, kernel vs plain (dense), ungated: {_parting(plain, res)}")
+    delta = api.simulate(dataclasses.replace(spec, mix_impl="delta"), device=dev)
+    print(f"cnn whole runs, plain (dense) vs plain (delta: w + (P w - w), the "
+          f"same product), no kernel, ungated: {_parting(plain, delta)}")
+    with Fp64Mix():
+        exact = api.simulate(dataclasses.replace(spec, mix_impl="dense"), device=dev)
+    print(f"cnn whole runs, plain (dense) vs plain (dense in fp64, rounded to "
+          f"fp32), no kernel, ungated: {_parting(plain, exact)}; final acc "
+          f"{plain.acc[-1]:.4f} / {exact.acc[-1]:.4f}")
+
+
+def phase_deep(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
+               T: int = 20, tm: int = 64, twin: bool = True) -> dict:
+    """``api.simulate`` of ``cnn`` and ``mlp_blocks`` at the paper cell's
+    size and of ``tiny_transformer`` at ``tm`` devices on ``TokenProvider``
+    windows, each under ``mix_impl="pallas"`` (exactly T ``trigger_sq`` +
+    T ``mix`` launches) and, with ``twin``, under ``mix_impl="dense"`` on
+    the card, integer channels required equal.  Returns the results by
+    model."""
+    import dataclasses
+
+    from repro_torch import api
+
+    out = {}
+    for model in ("cnn", "mlp_blocks", "tiny_transformer"):
+        if model == "tiny_transformer":
+            prov = TokenProvider(tm)
+            spec = api.ScenarioSpec(m=tm, model=model, dim=16, n_classes=64,
+                                    iters=T, eval_every=10, mix_impl="pallas",
+                                    trace="summary")
+        else:
+            prov = None
+            spec = api.ScenarioSpec(m=m, model=model, dim=dim, n_train=n_train,
+                                    iters=T, eval_every=10, mix_impl="pallas",
+                                    trace="summary")
+        t0 = time.perf_counter()
+        _reset_launches()
+        with TriggerLog() as log:
+            res = api.simulate(spec, provider=prov, device=dev)
+        launches = _launches()
+        wall = time.perf_counter() - t0
+        check({k: n for k, n in launches.items() if n} == {"trigger_sq": T, "mix": T},
+              f"{model} path: expected {T} trigger_sq and {T} mix launches, got "
+              f"{launches}")
+        check(res.model_dim == DEEP_D.get(model, res.model_dim), f"{model}: D={res.model_dim}")
+        _finite(res, f"{model} path")
+        print(f"{model} path m={spec.m} D={res.model_dim} pallas T={T}: launches "
+              f"{launches}; first step {res.timing['first_step_ms']:.2f} ms, "
+              f"{res.timing['ms_per_step']:.3f} ms/step after it; wall {wall:.2f} s "
+              f"with staging; final acc {res.acc[-1]:.4f}; trigger rate "
+              f"{res.v.mean():.4f}")
+        if twin and model == "cnn":
+            _cnn_twin(spec, res, dev)
+        elif twin:
+            with TriggerLog() as plain_log:
+                plain = api.simulate(dataclasses.replace(spec, mix_impl="dense"),
+                                     provider=prov, device=dev)
+            _twin(model, res, log, plain, plain_log, "dense")
+            del plain
+        out[model] = res
+    return out
+
+
+def phase_cpu(dev, m: int = 64, dim: int = 784, model: str = "svm",
+              T: int = 30) -> None:
+    from repro_torch import api
+
+    spec = api.ScenarioSpec(m=m, model=model, dim=dim, iters=T,
                             mix_impl="pallas", trace="full")
     gpu = api.simulate(spec, device=dev)
     cpu = api.simulate(spec, device="cpu")
     want = {f: getattr(cpu, f) for f in (*INT_FIELDS, *FLOAT_FIELDS, "acc")}
-    used = _compare(gpu, want, "card vs cpu", fields_float=(*FLOAT_FIELDS, "acc"))
+    label = f"card vs cpu {model}"
+    used = _compare(gpu, want, label, fields_float=(*FLOAT_FIELDS, "acc"))
     check(np.array_equal(gpu.comm, cpu.comm) and np.array_equal(gpu.adj, cpu.adj),
-          "card vs cpu: link matrices differ")
-    print(f"card vs cpu m={m} svm pallas T=30: integer channels and link "
-          f"matrices equal, float channels within rtol {RTOL} / atol {ATOL}; "
+          f"{label}: link matrices differ")
+    print(f"{label} m={m} D={gpu.model_dim} pallas T={T}: integer channels and "
+          f"link matrices equal, float channels within rtol {RTOL} / atol {ATOL}; "
           f"worst share of the allowance: {used}")
 
 
@@ -1614,22 +2076,55 @@ def _repo_counts(count: dict[str, int]) -> dict[str, int]:
     return seen
 
 
+def _service_a_launch(dev, T: int):
+    """One service launch of signature A (``SERVICE_WAVE``'s six A cells,
+    padded to 8) at horizon T; its first cell's result (the launch's
+    timing)."""
+    import dataclasses
+
+    from repro_torch import api
+
+    a = service_specs(T=T)["A"]
+    reps = api.serve([dataclasses.replace(a, policy=p, seeds=seeds)
+                      for sig, p, seeds in SERVICE_WAVE if sig == "A"],
+                     max_cells=SERVICE_CELLS, device=dev)
+    check(len({r.launch_id for r in reps}) == 1 and all(r.ok for r in reps),
+          "service A launch: expected one launch, every report ok")
+    return next(iter(reps[0].results.values()))
+
+
+def _deep_run(dev, model: str, T: int, m: int = 1024, dim: int = 784,
+              n_train: int = 8192):
+    from repro_torch import api
+
+    return api.simulate(api.ScenarioSpec(m=m, model=model, dim=dim, n_train=n_train,
+                                         iters=T, eval_every=10, mix_impl="pallas",
+                                         trace="summary"), device=dev)
+
+
 def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     """Per-iteration device activities, device busy time, idle share, the
     device time of the kernels that take the most and of each of the
     repo's kernels, of the paper, fleet, dense-fabric, paper-sweep and
-    fleet-sweep paths: each runs at T=4 and T=8 under the profiler, and
+    fleet-sweep paths, one service launch of signature A and the cnn
+    cell: each runs at T=4 and T=8 under the profiler, and
     the difference over 4 iterations cancels staging and init.  The idle
     share is 1 - busy / ``step_ms[cell]``, the ms per iteration of the
-    cell's run without the profiler."""
+    cell's main-path run without the profiler; for the cnn also 1 - busy
+    / the ms per iteration of a warm T=8 run without it (its first run in
+    the process is 2-3x slower than later ones)."""
     cells = {"paper": lambda T: phase_paper(dev, T=T)[1],
              "fleet": lambda T: phase_fleet(dev, T=T)[1],
              "dense fabric": lambda T: phase_fleet(
                  dev, m=1024, T=T, radius=0.4, routes=("mix_sparse_wide",))[1],
              "paper sweep": lambda T: phase_sweep(dev, T=T)[1],
-             "fleet sweep": lambda T: phase_fleet_sweep(dev, T=T)[1]}
+             "fleet sweep": lambda T: phase_fleet_sweep(dev, T=T)[1],
+             "service A launch": lambda T: _service_a_launch(dev, T),
+             "cnn": lambda T: _deep_run(dev, "cnn", T)}
     for name, cell in cells.items():
         cell(4)  # warm
+        # the cnn's first run is slower than its later ones: time a warm one
+        warm = cell(8).timing["ms_per_step"] if name == "cnn" else None
         n4, busy4, per4, _ = _device_activity(torch, lambda: cell(4))
         out = {}
         n8, busy8, per_name, _ = _device_activity(
@@ -1645,8 +2140,10 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
         top = sorted(per_it.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile {name}: {launches:.1f} device activities/iteration, "
               f"device busy {busy:.3f} ms/iteration of {step_ms[name]:.3f} ms "
-              f"without the profiler (idle share {1 - busy / step_ms[name]:.3f}); "
-              f"{out['res'].timing['ms_per_step']:.3f} ms/iteration under it")
+              f"without the profiler (idle share {1 - busy / step_ms[name]:.3f})"
+              + ("" if warm is None else f", of {warm:.3f} ms in a warm run "
+                                         f"(idle share {1 - busy / warm:.3f})")
+              + f"; {out['res'].timing['ms_per_step']:.3f} ms/iteration under it")
         for kname, ms in top:
             print(f"profile {name}:   {ms:8.4f} ms/iteration ({ms / busy:.3f} of "
                   f"busy)  {kname[:90]}")
@@ -1997,6 +2494,7 @@ def main() -> int:
         rows = phase_kernels(torch, dev, seed=0, variant_libs={
             name: lib for name, (_, lib) in variant_builds.items()})
         phase_golden(dev)
+        phase_golden(dev, "mlp_blocks")
         paper, paper_res = phase_paper(dev, twin=True)
         sweep, sweep_res = phase_sweep(dev, twin=True, solo=True)
         fleet, fleet_res = phase_fleet(dev, twin=True)
@@ -2012,14 +2510,23 @@ def main() -> int:
         launches["mix_sparse_direct"] = phase_fleet(
             dev, m=4096, T=3, twin=True, radius=0.4,
             routes=("mix_sparse_wide", "mix_sparse_direct"))[0]["mix_sparse_direct"]
+        service, service_res = phase_service(dev)
+        for name in ("trigger_sq", "mix", "mix_sparse_wide"):
+            rows[name]["service_launches"] = service[name]
+        phase_quarantine(dev)
+        deep = phase_deep(dev)
         phase_cpu(dev)
+        phase_cpu(dev, m=16, model="cnn", T=10)
         phase_profile(torch, dev, {
             name: res.timing["ms_per_step"] for name, res in (
                 ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res),
-                ("paper sweep", sweep_res), ("fleet sweep", fleet_sweep_res))})
+                ("paper sweep", sweep_res), ("fleet sweep", fleet_sweep_res),
+                ("service A launch", service_res), ("cnn", deep["cnn"]))})
         # the sweeps held ~17 GB of (8, 1024, 50890) tensors: hand the cached
         # blocks back before the serve phases load 32 GB of weights
-        del paper_res, sweep_res, fleet_res, fleet_sweep_res, dense_res
+        del paper_res, sweep_res, fleet_res, fleet_sweep_res, dense_res, service_res, deep
+        from repro_torch.fl import simulator
+        simulator._ENGINE_CACHE.clear()  # the engines keep their datasets on the card
         torch.cuda.empty_cache()
         launches["swa_attention_tc"], seen_bf16 = phase_serve(torch, dev)
         launches["swa_attention_tf32"], seen_fp32 = phase_serve(
@@ -2050,7 +2557,7 @@ def main() -> int:
                                    "bound_ms_fp32_units_s32768", "fp64_max_abs_err",
                                    "fp64_bias", "ms_rna_lo", "fp64_max_abs_err_rna_lo",
                                    "fp64_bias_rna_lo", "plan_build_ms", "ms_32_columns",
-                                   "sweep_launches", "ms_c8", "plain_ms_c8",
+                                   "sweep_launches", "service_launches", "ms_c8", "plain_ms_c8",
                                    "library_ms_c8", "bound_ms_c8",
                                    "ms_64_columns", "ms_m4096_r04",
                                    "plain_ms_m4096_r04", "bound_ms_m4096_r04",

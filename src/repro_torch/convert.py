@@ -1,9 +1,10 @@
 """Hand-over of parameters and EF-HC state between the JAX package and the
 port, as numpy arrays (the port never imports jax).
 
-``params_from_jax`` takes a stacked parameter dict whose leaves are numpy
-arrays (``jax.device_get`` of the reference's pytree) and returns the
-port's ``dict[str, Tensor]``; ``params_to_numpy`` goes back.
+``params_from_jax`` takes a stacked parameter tree (nested dicts and
+lists) whose leaves are numpy arrays (``jax.device_get`` of the
+reference's pytree) and returns the port's tree of tensors;
+``params_to_numpy`` goes back.
 ``state_from_jax`` does the same for an ``EFHCState``-like object, so a
 test can start both implementations from one state.
 ``arch_params_from_jax`` carries an architecture model's nested parameter
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import efhc
-from repro_torch.models.model import tree_map
+from repro_torch.tree import tree_map
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -27,13 +28,15 @@ def tensor_from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(np_tree: dict, device) -> dict[str, torch.Tensor]:
-    """{name: (m, ...) array} -> {name: tensor on ``device``} (copies)."""
-    return {k: tensor_from_numpy(v).to(device) for k, v in sorted(np_tree.items())}
+def params_from_jax(np_tree, device):
+    """A tree of (m, ...) arrays -> the same tree of tensors on ``device``
+    (copies)."""
+    return tree_map(lambda a: tensor_from_numpy(a).to(device), np_tree)
 
 
-def params_to_numpy(tree: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in sorted(tree.items())}
+def params_to_numpy(tree):
+    """A tree of tensors -> the same tree of host numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def arch_params_from_jax(np_tree, device, dtype=None):
@@ -53,7 +56,7 @@ def state_from_jax(state, device, *, opt_state=None) -> efhc.EFHCState:
     port's one-cell ``EFHCState`` on ``device`` (the per-cell fields gain
     a leading cell axis of 1; ``opt_state`` is passed as it is)."""
     def cell(tree):
-        return {k: v[None] for k, v in params_from_jax(tree, device).items()}
+        return tree_map(lambda t: t[None], params_from_jax(tree, device))
 
     return efhc.EFHCState(
         w=cell(state.w), w_hat=cell(state.w_hat),

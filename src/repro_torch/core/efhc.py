@@ -39,12 +39,15 @@ from repro_torch import prng
 from repro_torch.core import consensus, mixing, topology, triggers
 from repro_torch.kernels.mixing import ops as mixing_ops
 from repro_torch.kernels.trigger import ops as trigger_ops
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 MIX_IMPLS: tuple[str, ...] = ("dense", "delta", "pallas",
                               "sparse", "sparse_delta", "sparse_pallas")
 SPARSE_MIX_IMPLS: tuple[str, ...] = ("sparse", "sparse_delta", "sparse_pallas")
 
-Params = dict[str, torch.Tensor]
+# a parameter tree: nested dicts and lists of tensors (flat dicts for svm
+# and mlp), every leaf with the same leading axes
+Params = dict[str, Any]
 
 
 class EFHCState(NamedTuple):
@@ -70,18 +73,19 @@ def init_state(w_stack: Params, bandwidths: torch.Tensor,
                adjacency0: torch.Tensor, key: torch.Tensor,
                opt_state=None) -> EFHCState:
     return EFHCState(
-        w=w_stack, w_hat={n: t.clone() for n, t in w_stack.items()},
+        w=w_stack, w_hat=tree_map(torch.clone, w_stack),
         k=torch.zeros((), dtype=torch.int64, device=bandwidths.device),
         prev_adj=adjacency0, bandwidths=bandwidths, key=key,
         opt_state=opt_state)
 
 
 def flatten_stack(w_stack: Params, lead: int = 1) -> torch.Tensor:
-    """Canonical float32 rows: leaves concatenated in sorted-key order
-    (``jax.tree.leaves`` order of the reference) over the last axis, the
-    ``lead`` leading axes kept ((m, D) rows of (m, ...) leaves; (C, m, D)
-    of (C, m, ...) leaves with ``lead=2``)."""
-    leaves = [w_stack[n] for n in sorted(w_stack)]
+    """Canonical float32 rows: leaves concatenated in ``jax.tree.leaves``
+    order of the reference (``tree.tree_leaves``: dict keys sorted at each
+    level, list items by index) over the last axis, the ``lead`` leading
+    axes kept ((m, D) rows of (m, ...) leaves; (C, m, D) of (C, m, ...)
+    leaves with ``lead=2``)."""
+    leaves = tree_leaves(w_stack)
     shape = tuple(leaves[0].shape[:lead])
     return torch.cat([t.reshape(shape + (-1,)).float() for t in leaves], dim=-1)
 
@@ -90,13 +94,12 @@ def unflatten_stack(flat: torch.Tensor, like: Params) -> Params:
     """Inverse of ``flatten_stack``: slice the rows back into ``like``'s
     leaves, shapes and dtypes (views of ``flat`` for float32 leaves)."""
     lead = flat.dim() - 1
-    out, col = {}, 0
-    for n in sorted(like):
-        leaf = like[n]
+    out, col = [], 0
+    for leaf in tree_leaves(like):
         width = leaf.shape[lead:].numel()
-        out[n] = flat[..., col:col + width].reshape(leaf.shape).to(leaf.dtype)
+        out.append(flat[..., col:col + width].reshape(leaf.shape).to(leaf.dtype))
         col += width
-    return out
+    return tree_unflatten(like, out)
 
 
 def fold_cells(t: torch.Tensor) -> torch.Tensor:
@@ -219,21 +222,21 @@ def step(
 
     # w_hat update: broadcasting devices snapshot their pre-mix model
     # (Alg. 1 line 12: w_hat^(k+1) = w^(k))
-    w_hat_new = {}
-    for n, h in state.w_hat.items():
-        mask = v.reshape((C, m) + (1,) * (h.dim() - 2))
-        w_hat_new[n] = torch.where(mask, state.w[n], h)
+    def snapshot(h, w):
+        return torch.where(v.reshape((C, m) + (1,) * (h.dim() - 2)), w, h)
+
+    w_hat_new = tree_map(snapshot, state.w_hat, state.w)
 
     # ---- Event 4: local SGD on the parameter dict ------------------------
     # the cells fold into the device axis: one batched pass over C m devices
     w_mixed = unflatten_stack(w_mixed_flat, state.w)
-    loss, grads = loss_and_grad({n: fold_cells(t) for n, t in w_mixed.items()},
+    loss, grads = loss_and_grad(tree_map(fold_cells, w_mixed),
                                 tuple(fold_cells(t) for t in batch))
     loss = loss.reshape(C, m)
-    grads = {n: g.reshape(w_mixed[n].shape) for n, g in grads.items()}
+    grads = tree_map(lambda g, wm: g.reshape(wm.shape), grads, w_mixed)
     if opt_update is None:
-        w_new = {n: (wm.float() - alpha_k * grads[n].float()).to(wm.dtype)
-                 for n, wm in w_mixed.items()}
+        w_new = tree_map(lambda wm, g: (wm.float() - alpha_k * g.float()).to(wm.dtype),
+                         w_mixed, grads)
         opt_state_new = state.opt_state
     else:
         w_new, opt_state_new = opt_update(grads, state.opt_state, w_mixed, alpha_k)

@@ -24,6 +24,12 @@ a Python loop over ``efhc.step`` that stays on the device:
   syncs once per engine call, when the trajectories are copied back at
   the end.
 
+``run`` (and the sweep and the scenario service) take their engine from a
+small value-keyed LRU (``_cached_engine``, ``engine_cache_stats``): a hit
+skips the host-to-device copies of the dataset, the eval set and the
+neighbor table, which is what a run repeated with another seed or policy
+would redo.  Nothing is compiled, so a miss costs those copies alone.
+
 Resource dynamics, fault injection, the watchdog, the sharded engine and
 the python engine are not ported yet: a config that asks for one raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -45,6 +52,7 @@ from repro_torch.fl import trace as trace_mod
 from repro_torch.kernels.mixing import ops as mixing_ops
 from repro_torch.optim.optimizers import OPT_NAMES, init_opt
 from repro_torch.optim.schedules import paper_diminishing
+from repro_torch.tree import first_leaf, tree_map
 
 # every mix_impl a SimConfig may name, as in the reference
 SIM_MIX_IMPLS: tuple[str, ...] = efhc.MIX_IMPLS + ("sharded",)
@@ -134,11 +142,6 @@ class SimConfig:
                 f"densify (T, m, m) at fleet scale")
         triggers.check_sigma_n(self.sigma_n)
         # valid, but not in this port yet
-        if self.model not in modelspec_mod.PORTED_MODELS:
-            raise NotImplementedError(
-                f"model={self.model!r} is not ported yet (ROADMAP.md Queue 1 "
-                f"item 6, real models); the port runs "
-                f"{modelspec_mod.PORTED_MODELS}")
         if self.mix_impl == "sharded":
             raise NotImplementedError(
                 "mix_impl='sharded' is not ported yet (ROADMAP.md Queue 1 "
@@ -200,17 +203,26 @@ class SimResult:
         return np.cumsum(self.tx_time)
 
 
+def as_inputs(x) -> torch.Tensor:
+    """A dataset's inputs as a host tensor: float32 features, or int64
+    token ids where the array holds integers."""
+    a = np.asarray(x)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
 class EvalFn:
     """Mean test accuracy over devices, per cell, computed on the device.
 
-    ``device(w)`` takes the stacked parameter dict, leaves (C, m, ...), and
+    ``device(w)`` takes the stacked parameter tree, leaves (C, m, ...), and
     returns a (C,) float32 tensor without syncing; the test set moves to a
     device once and is cached there.  ``argmax`` ties resolve to the first
     maximum, as in jax."""
 
     def __init__(self, logits_fn, x_test: np.ndarray, y_test: np.ndarray):
         self._logits_fn = logits_fn
-        self.x_test = np.asarray(x_test, np.float32)
+        self.x_test = as_inputs(x_test).numpy()
         self.y_test = np.asarray(y_test)
         self._on: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -222,12 +234,12 @@ class EvalFn:
             self._on[str(device)] = hit
         return hit
 
-    def device(self, w_stack: dict[str, torch.Tensor]) -> torch.Tensor:
-        leaf = next(iter(w_stack.values()))
+    def device(self, w_stack) -> torch.Tensor:
+        leaf = first_leaf(w_stack)
         cells, m = leaf.shape[:2]
         x, y = self._data(leaf.device)
         # the cells as more devices: one batched forward over C m models
-        w = {n: efhc.fold_cells(t) for n, t in w_stack.items()}
+        w = tree_map(efhc.fold_cells, w_stack)
         pred = self._logits_fn(w, x).argmax(-1)  # (C m, n)
         return (pred == y).float().mean(-1).reshape(cells, m).mean(-1)
 
@@ -238,7 +250,8 @@ def model_spec(sim: SimConfig) -> modelspec_mod.ModelSpec:
 
 
 def make_eval_fn(sim: SimConfig, x_test: np.ndarray, y_test: np.ndarray) -> EvalFn:
-    return EvalFn(model_spec(sim).logits, x_test, y_test)
+    spec = model_spec(sim)
+    return EvalFn(spec.logits, x_test, y_test)
 
 
 def _efhc_cfg(sim: SimConfig) -> efhc.EFHCConfig:
@@ -386,7 +399,7 @@ def make_engine(
     model_dim = spec.flat_dim
     nl = (topology.StagedNeighbors.from_host(graph.neighbors(), dev)
           if sparse else None)
-    x_all = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    x_all = as_inputs(x).to(dev)
     y_all = torch.as_tensor(np.asarray(y), dtype=torch.int64).to(dev)
     dense_aux = trace != "summary"
 
@@ -398,7 +411,7 @@ def make_engine(
             bws.append(triggers.sample_bandwidths(k_bw, m, sim.b_mean, sim.sigma_n))
             w0s.append(spec.init_stack(k_init, m))
             keys.append(k_state)
-        w0 = {n: torch.stack([w[n] for w in w0s]) for n in w0s[0]}
+        w0 = tree_map(lambda *ts: torch.stack(ts), *w0s)
         bw, key = torch.stack(bws), torch.stack(keys)
         adj0 = graph.adjacency_ell(0, nl) if sparse else graph.adjacency(0, dev)
         return efhc.init_state(w0, bw, adj0, key, opt_state=opt.init(w0))
@@ -452,6 +465,132 @@ def make_engine(
     return engine, model_dim
 
 
+# The engine cache: ``run``, the sweep and the service take their engine
+# from this LRU, so sequential runs over policies and seeds (the service's
+# rounds, notebook loops, parity tests) stage the dataset, the eval set and
+# the neighbor table on the device once per (config, graph, data, eval,
+# device).  The graph enters the key by value (its fields and canonical
+# edge list), data and eval by identity; an entry keeps those referents
+# alive so a recycled id cannot alias it.
+
+
+@dataclasses.dataclass
+class EngineCacheStats:
+    """Point-in-time counters of the engine LRU, the reference's.
+
+    ``hits``/``misses``/``evictions`` are lifetime (they survive
+    ``clear()``, reset only by ``reset_stats=True``); ``entries`` and
+    ``key_bytes`` describe the current contents (``key_bytes``: the
+    edge-list bytes held in the keys)."""
+
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+    entries: int = 0
+    key_bytes: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+    def as_dict(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions, "entries": self.entries,
+                "key_bytes": self.key_bytes, "hit_rate": self.hit_rate}
+
+
+def _key_nbytes(key) -> int:
+    if isinstance(key, bytes):
+        return len(key)
+    if isinstance(key, tuple):
+        return sum(_key_nbytes(k) for k in key)
+    return 0
+
+
+class EngineCache:
+    """LRU of built (engine, model_dim, keepalive) entries with hit/miss
+    accounting; supports ``len()`` and ``clear()``."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._d: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def clear(self, *, reset_stats: bool = False) -> None:
+        self._d.clear()
+        if reset_stats:
+            self._hits = self._misses = self._evictions = 0
+
+    def get_or_build(self, key: tuple, build) -> tuple:
+        hit = self._d.get(key)
+        if hit is None:
+            self._misses += 1
+            hit = build()
+            self._d[key] = hit
+            while len(self._d) > self.size:
+                self._d.popitem(last=False)
+                self._evictions += 1
+        else:
+            self._hits += 1
+            self._d.move_to_end(key)
+        return hit
+
+    def stats(self) -> EngineCacheStats:
+        return EngineCacheStats(
+            hits=self._hits, misses=self._misses, evictions=self._evictions,
+            entries=len(self._d),
+            key_bytes=sum(_key_nbytes(k) for k in self._d))
+
+
+_ENGINE_CACHE = EngineCache(size=8)
+
+
+def engine_cache_stats() -> EngineCacheStats:
+    """Snapshot of the engine cache's counters (the scenario service
+    reports them per request)."""
+    return _ENGINE_CACHE.stats()
+
+
+def _graph_cache_key(graph: GraphProcess) -> tuple:
+    """Value key of a GraphProcess: every field that shapes its adjacency
+    stream, the fabric by its canonical (lexsorted) edge list, O(E)."""
+    return (graph.kind, float(graph.drop), int(graph.cycle_len),
+            int(graph.seed), graph.edges.m,
+            graph.edges.u.tobytes(), graph.edges.v.tobytes())
+
+
+def _cached_engine(sim: SimConfig, graph: GraphProcess, *, T: int,
+                   eval_every: int, x, y, eval_fn, device="cuda"):
+    """``make_engine``'s ``(engine, model_dim)`` from the engine cache: the
+    reference's key fields, and the device."""
+    dev = resolve_device(device)
+    key = (sim.m, sim.model, sim.n_classes, sim.dim, sim.batch, sim.r,
+           sim.b_mean, sim.sigma_n, sim.alpha0, sim.optimizer, sim.mix_impl,
+           sim.trace, int(sim.shards), T, max(1, int(eval_every)),
+           sim.churn_rate, sim.recover_rate, sim.straggle_rate, sim.bw_walk,
+           sim.budget_bytes,
+           sim.cluster_fail_rate, sim.cluster_recover_rate,
+           int(sim.partition_start), int(sim.partition_len),
+           sim.flap_rate, int(sim.flap_len), sim.crash_rate,
+           sim.rejoin_rate, bool(sim.warm_start),
+           int(sim.watchdog_window), int(sim.watchdog_nprop),
+           _graph_cache_key(graph), id(x), id(y), id(eval_fn), str(dev))
+
+    def build():
+        eng, model_dim = make_engine(sim, graph, T=T, eval_every=eval_every,
+                                     x=x, y=y, eval_fn=eval_fn, device=dev)
+        return (eng, model_dim, (graph, x, y, eval_fn))
+
+    hit = _ENGINE_CACHE.get_or_build(key, build)
+    return hit[0], hit[1]
+
+
 def run(
     sim: SimConfig,
     graph: GraphProcess,
@@ -463,7 +602,8 @@ def run(
     device="cuda",
 ) -> SimResult:
     """Simulates ``sim.iters`` universal iterations on ``device``; returns
-    ``SimResult``: the engine's one-cell call.  The run is deterministic
+    ``SimResult``: the one-cell call of the cached engine
+    (``_cached_engine``).  The run is deterministic
     given ``sim.seed``, the graph process and the batch sampler's seed, and
     realizes the reference's streams (bandwidths, init, graphs, gossip).
     ``SimResult.timing`` holds the first iteration's ms and the mean ms per
@@ -478,9 +618,9 @@ def run(
     if graph.m != sim.m or batches.m != sim.m:
         raise ValueError(f"sim.m={sim.m} but the graph has {graph.m} devices and "
                          f"the sampler {batches.m}")
-    eng, model_dim = make_engine(sim, graph, T=sim.iters, eval_every=eval_every,
-                                 x=batches.x, y=batches.y, eval_fn=eval_fn,
-                                 device=device)
+    eng, model_dim = _cached_engine(sim, graph, T=sim.iters, eval_every=eval_every,
+                                    x=batches.x, y=batches.y, eval_fn=eval_fn,
+                                    device=device)
     host, timing = eng([triggers.policy_index(sim.policy)], [sim.seed],
                        batches.stage(sim.iters)[None])
     res = result_of_cell(host, 0, model_dim, sim.trace)

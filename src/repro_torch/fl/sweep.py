@@ -149,7 +149,7 @@ def run_sweep(
                 "arrays; vary the *sampling* seed per seed, not the data.")
         staged.append(b.stage(T))
 
-    engine, model_dim = simulator.make_engine(
+    engine, model_dim = simulator._cached_engine(
         sim, graph, T=T, eval_every=eval_every, x=ref.x, y=ref.y,
         eval_fn=eval_fn, device=device)
     # cells in (seed, policy) order: cell s P + p

@@ -5,9 +5,11 @@ or raises; a CPU tensor runs the plain version in ``ref.py``.  Both
 kernels take a leading cell axis, C cells in one launch: ``mix`` with
 P (C, m, m) and W (C, m, D), ``mix_sparse`` with one shared neighbor table
 and per-cell weights and rows; unbatched inputs are one cell.  The
-gather-mix's row-group plan lives here (``prepare_plan``), one at a time,
-for the neighbor table it was built from, whatever the number of cells."""
+gather-mix's row-group plans live here (``prepare_plan``), a few, each for
+the neighbor table it was built from, whatever the number of cells."""
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import torch
 
@@ -18,11 +20,17 @@ from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref
 # launches of the CUDA kernels, counted where they are launched and
 # nowhere else
 LAUNCHES = {"mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0}
+# builds of a gather-mix plan (each a host sync), counted where they happen
+PLAN_BUILDS = 0
 
 _MAX_GRID_Y = 65535
 _MAX_CELLS = 65535  # the kernels' cell axis is a grid axis
 
-_plan: MixSparsePlan | None = None  # the gather-mix's plan of the last table
+# the gather-mix's plans of the last few tables, least recently used first,
+# keyed by the table's identity and version; each entry holds its table (in
+# ``plan.nbr_idx``), so a recycled id cannot alias another table
+_PLANS: "OrderedDict[tuple[int, int], MixSparsePlan]" = OrderedDict()
+PLAN_CACHE_SIZE = 8
 
 
 def _cells(w: torch.Tensor) -> int:
@@ -63,18 +71,26 @@ def mix(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def prepare_plan(nbr_idx: torch.Tensor) -> MixSparsePlan | None:
     """The row-group plan of ``nbr_idx`` that ``mix_sparse`` launches with
     on the card (``plan.build_plan``), built on the first call for this
-    tensor and kept until another table (or an in-place change of this
-    one) asks for a new plan.  The build copies the table to the host, a
-    device sync and ~0.1 s at m=4096 (``plan.build_ms``): a run calls this
-    once, before its loop.  None for a CPU tensor, whose path needs no
-    plan."""
-    global _plan
+    tensor (at its current version: an in-place change asks for a new
+    plan) and kept in a small LRU (``PLAN_CACHE_SIZE`` tables), so runs
+    that alternate fabrics build each plan once.  A build copies the table
+    to the host, a device sync and ~0.1 s at m=4096 (``plan.build_ms``),
+    and counts in ``PLAN_BUILDS``: a run calls this once, before its loop.
+    None for a CPU tensor, whose path needs no plan."""
+    global PLAN_BUILDS
     if nbr_idx.device.type == "cpu":
         return None
-    if _plan is None or _plan.nbr_idx is not nbr_idx \
-            or _plan.version != nbr_idx._version:
-        _plan = build_plan(nbr_idx)
-    return _plan
+    key = (id(nbr_idx), nbr_idx._version)
+    plan = _PLANS.get(key)
+    if plan is None or plan.nbr_idx is not nbr_idx:
+        plan = build_plan(nbr_idx)
+        PLAN_BUILDS += 1
+        _PLANS[key] = plan
+        while len(_PLANS) > PLAN_CACHE_SIZE:
+            _PLANS.popitem(last=False)
+    else:
+        _PLANS.move_to_end(key)
+    return plan
 
 
 def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,

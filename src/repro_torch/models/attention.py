@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, split_keys
 
 
 # ---------------------------------------------------------------------------
@@ -24,11 +24,12 @@ from repro_torch.models.layers import apply_rope, dense_init
 
 def init_attention(cfg: ArchConfig, gen, dtype, device="cpu"):
     d, h, g, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    ks = split_keys(gen, 4)
     p = {
-        "wq": dense_init(gen, (d, h, dh), d, dtype, device),
-        "wk": dense_init(gen, (d, g, dh), d, dtype, device),
-        "wv": dense_init(gen, (d, g, dh), d, dtype, device),
-        "wo": dense_init(gen, (h, dh, d), h * dh, dtype, device),
+        "wq": dense_init(ks[0], (d, h, dh), d, dtype, device),
+        "wk": dense_init(ks[1], (d, g, dh), d, dtype, device),
+        "wv": dense_init(ks[2], (d, g, dh), d, dtype, device),
+        "wo": dense_init(ks[3], (h, dh, d), h * dh, dtype, device),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((h, dh), dtype=dtype, device=device)

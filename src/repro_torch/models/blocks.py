@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp, init_norm,
+                                       split_keys)
 
 _NOT_PORTED = {
     "moe": "item 13 (MoE FFN)",
@@ -49,11 +50,12 @@ def block_window(cfg: ArchConfig, block_type: str) -> Optional[int]:
 
 def init_block(cfg: ArchConfig, block_type: str, gen, dtype, device="cpu") -> dict:
     _check_ported(block_type)
+    ks = split_keys(gen, 6)  # the reference's split; ks[0] attention, ks[2] ffn
     p: dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dtype, device),
-                         "attn": attn.init_attention(cfg, gen, dtype, device)}
+                         "attn": attn.init_attention(cfg, ks[0], dtype, device)}
     if cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
-        p["ffn"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, device)
+        p["ffn"] = init_mlp(cfg, ks[2], cfg.d_model, cfg.d_ff, dtype, device)
     return p
 
 

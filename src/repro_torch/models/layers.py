@@ -1,18 +1,24 @@
 """Shared layers: norms, activations, MLPs, RoPE, embeddings, init
 (port of ``repro/models/layers.py``).
 
-Initializers draw from an explicit ``torch.Generator``; they do not
-reproduce the JAX package's threefry init (tests carry the reference's
-weights across instead).  On the ``meta`` device they allocate nothing and
-draw nothing, which gives the parameter tree's shapes and dtypes alone.
+Initializers draw from an explicit ``torch.Generator``, or from a
+``repro_torch.prng`` key: with a key they reproduce the JAX package's
+threefry init bit for bit (the same ``split`` of the key at each level and
+the same ``normal`` draws), as the simulator's deep models need; with a
+Generator they draw their own stream (the serving path's tests carry the
+reference's weights across instead).  On the ``meta`` device they allocate
+nothing and draw nothing, which gives the parameter tree's shapes and
+dtypes alone.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.models.common import ArchConfig
 
 
@@ -24,24 +30,43 @@ def torch_dtype(name: str) -> torch.dtype:
 # initializers
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator | None, shape, device) -> torch.Tensor:
-    """Standard normal fp32 draw from ``gen`` (on the generator's device),
-    moved to ``device``; an empty tensor on the meta device."""
+def is_key(gen) -> bool:
+    """Whether ``gen`` is a ``repro_torch.prng`` key (else a Generator)."""
+    return isinstance(gen, torch.Tensor)
+
+
+def split_keys(gen, n: int) -> list:
+    """``n`` subkeys of a key, as ``jax.random.split``; a Generator (or
+    None) stands for all of them, drawing in call order."""
+    if is_key(gen):
+        return list(prng.split(gen, n).unbind(-2))
+    return [gen] * n
+
+
+def draw_normal(gen, shape, device) -> torch.Tensor:
+    """Standard normal fp32 draw from a key or from ``gen`` (on its own
+    device), moved to ``device``; an empty tensor on the meta device."""
     dev = torch.device(device)
     if dev.type == "meta":
         return torch.empty(shape, device=dev)
+    if is_key(gen):
+        return prng.normal(gen, tuple(shape)).to(dev)
     return torch.randn(shape, generator=gen, device=gen.device).to(dev)
 
 
 def dense_init(gen, shape, in_axis_size=None, dtype=torch.float32, device="cpu"):
-    """Scaled normal (LeCun-ish) initializer."""
+    """Scaled normal (LeCun-ish) initializer; with a key, the scale is the
+    reference's float32 ``1 / sqrt(fan_in)``."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
-    scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return (_normal(gen, shape, device) * scale).to(dtype)
+    if is_key(gen):
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(max(fan_in, 1))))
+    else:
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    return (draw_normal(gen, shape, device) * scale).to(dtype)
 
 
 def embed_init(gen, shape, dtype=torch.float32, device="cpu"):
-    return (_normal(gen, shape, device) * 0.02).to(dtype)
+    return (draw_normal(gen, shape, device) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -81,13 +106,14 @@ def act_fn(name: str, x):
 
 
 def init_mlp(cfg: ArchConfig, gen, d_in: int, d_ff: int, dtype, device="cpu"):
+    k1, k2, k3 = split_keys(gen, 3)
     gated = cfg.act in ("swiglu", "geglu")
     p = {
-        "w_in": dense_init(gen, (d_in, d_ff), d_in, dtype, device),
-        "w_out": dense_init(gen, (d_ff, d_in), d_ff, dtype, device),
+        "w_in": dense_init(k1, (d_in, d_ff), d_in, dtype, device),
+        "w_out": dense_init(k2, (d_ff, d_in), d_ff, dtype, device),
     }
     if gated:
-        p["w_gate"] = dense_init(gen, (d_in, d_ff), d_in, dtype, device)
+        p["w_gate"] = dense_init(k3, (d_in, d_ff), d_in, dtype, device)
     return p
 
 
@@ -128,9 +154,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 def init_embed(cfg: ArchConfig, gen, dtype, device="cpu"):
-    p = {"tok": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device)}
+    k1, k2 = split_keys(gen, 2)
+    p = {"tok": embed_init(k1, (cfg.vocab, cfg.d_model), dtype, device)}
     if cfg.frontend is not None:
-        p["frontend_proj"] = dense_init(gen, (cfg.frontend.dim, cfg.d_model),
+        p["frontend_proj"] = dense_init(k2, (cfg.frontend.dim, cfg.d_model),
                                         cfg.frontend.dim, dtype, device)
     return p
 

@@ -18,26 +18,17 @@ from typing import Any
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_head, apply_norm, embed_tokens,
                                        init_embed, init_head, init_norm,
-                                       torch_dtype)
+                                       is_key, split_keys, torch_dtype)
+from repro_torch.tree import tree_map
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts, lists and (named) tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        items = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
-        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-    return fn(tree, *rest)
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -58,8 +49,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     """Random parameters drawn from ``generator`` (on its own device) into
     tensors on ``device``.  A stage's stacked leaves are filled one layer
     slice at a time, so no draw is larger than one layer's biggest weight.
-    On the ``meta`` device nothing is drawn or allocated."""
+    On the ``meta`` device nothing is drawn or allocated.
+
+    ``generator`` may instead be a ``repro_torch.prng`` key: the draws are
+    then the reference's ``init_params(cfg, key)``, bit for bit."""
     _check_supported(cfg)
+    if generator is not None and is_key(generator):
+        return _init_params_key(cfg, generator, resolve_device(device))
     dtype = _dtype(cfg)
     meta = torch.device(device).type == "meta"
     if not meta:
@@ -83,6 +79,30 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 tree_map(lambda dst, src: dst[r].copy_(src), stacked, layer)
                 del layer
             stage[f"{bi}_{bt}"] = stacked
+        params["stages"].append(stage)
+    return params
+
+
+def _init_params_key(cfg: ArchConfig, key: torch.Tensor, device) -> dict:
+    """The reference's key stream: ``split(key, 4)`` into the embedding,
+    head, stage and MTP keys, and for block ``bi`` of stage ``si`` one key
+    per layer, ``split(fold_in(k_stage, si * 97 + bi), repeat)`` (the
+    reference vmaps the block init over them; layer by layer here)."""
+    dtype = _dtype(cfg)
+    k_embed, k_head, k_stage, _ = split_keys(key, 4)
+    params: dict[str, Any] = {
+        "embed": init_embed(cfg, k_embed, dtype, device),
+        "final_norm": init_norm(cfg, cfg.d_model, dtype, device),
+        "head": init_head(cfg, k_head, dtype, device),
+        "stages": [],
+    }
+    for si, (cycle, repeat) in enumerate(cfg.layer_plan):
+        stage = {}
+        for bi, bt in enumerate(cycle):
+            keys = prng.split(prng.fold_in(k_stage, si * 97 + bi), repeat)
+            layers = [blocks.init_block(cfg, bt, keys[r], dtype, device)
+                      for r in range(repeat)]
+            stage[f"{bi}_{bt}"] = tree_map(lambda *ts: torch.stack(ts), *layers)
         params["stages"].append(stage)
     return params
 

@@ -1,6 +1,6 @@
-"""Minimal functional optimizers on dicts of stacked (m, ...) tensors, or
-(C, m, ...) in a batched run (the updates are elementwise, so the cells
-are more devices).
+"""Minimal functional optimizers on parameter trees (nested dicts and
+lists) of stacked (m, ...) tensors, or (C, m, ...) in a batched run (the
+updates are elementwise, so the cells are more devices).
 
 Each optimizer is ``(init, update)``: ``init(params) -> state``,
 ``update(grads, state, params, lr) -> (new_params, new_state)``, the
@@ -13,14 +13,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.tree import first_leaf, tree_map
+
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], tuple[Any, Any]]
-
-
-def _tmap(f, *trees: dict) -> dict:
-    return {k: f(*(t[k] for t in trees)) for k in trees[0]}
 
 
 def sgd() -> Optimizer:
@@ -28,7 +26,7 @@ def sgd() -> Optimizer:
         return ()
 
     def update(grads, state, params, lr):
-        return _tmap(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+        return tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
                      params, grads), state
 
     return Optimizer(init, update)
@@ -36,11 +34,11 @@ def sgd() -> Optimizer:
 
 def momentum(beta: float = 0.9) -> Optimizer:
     def init(params):
-        return _tmap(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
     def update(grads, state, params, lr):
-        vel = _tmap(lambda v, g: beta * v + g.float(), state, grads)
-        new = _tmap(lambda p, v: (p.float() - lr * v).to(p.dtype), params, vel)
+        vel = tree_map(lambda v, g: beta * v + g.float(), state, grads)
+        new = tree_map(lambda p, v: (p.float() - lr * v).to(p.dtype), params, vel)
         return new, vel
 
     return Optimizer(init, update)
@@ -54,19 +52,19 @@ class AdamState(NamedTuple):
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
     def init(params):
-        z = _tmap(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-        dev = next(iter(params.values())).device
-        return AdamState(mu=z, nu=_tmap(torch.clone, z),
+        z = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        dev = first_leaf(params).device
+        return AdamState(mu=z, nu=tree_map(torch.clone, z),
                          count=torch.zeros((), dtype=torch.int32, device=dev))
 
     def update(grads, state, params, lr):
         count = state.count + 1
-        mu = _tmap(lambda m, g: b1 * m + (1 - b1) * g.float(), state.mu, grads)
-        nu = _tmap(lambda n, g: b2 * n + (1 - b2) * torch.square(g.float()),
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state.mu, grads)
+        nu = tree_map(lambda n, g: b2 * n + (1 - b2) * torch.square(g.float()),
                    state.nu, grads)
         bc1 = 1 - b1 ** count.float()
         bc2 = 1 - b2 ** count.float()
-        new = _tmap(lambda p, m, n: (p.float() - lr * (m / bc1)
+        new = tree_map(lambda p, m, n: (p.float() - lr * (m / bc1)
                                      / (torch.sqrt(n / bc2) + eps)).to(p.dtype),
                     params, mu, nu)
         return new, AdamState(mu, nu, count)

@@ -60,6 +60,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
         tapi.simulate(spec)  # the default device is the card
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.sweep(spec, seeds=(0, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.serve([spec])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.ScenarioService()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -79,8 +83,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     (dict(crash_rate=0.1), "item 7"),
     (dict(watchdog_window=4), "item 7"),
     (dict(mix_impl="sharded"), "item 9"),
-    (dict(model="cnn"), "item 6"),
-    (dict(model="tiny_transformer"), "item 6"),
+    (dict(flap_rate=0.1), "item 7"),
+    (dict(partition_start=0, partition_len=4), "item 7"),
 ])
 def test_unported_features_raise_not_implemented(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -95,8 +99,8 @@ def test_unported_entry_points_raise_not_implemented():
     grid = tapi.sweep(spec, seeds=(0,), device="cpu")  # item 5 is ported
     assert grid.v.shape == (1, 4, 2, 4) and grid.policies == ("efhc", "zero",
                                                              "global", "gossip")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.serve([spec])
+    reports = tapi.serve([spec], device="cpu")  # item 8 is ported
+    assert len(reports) == 1 and reports[0].ok and set(reports[0].results) == {0}
     with pytest.raises(NotImplementedError, match="python"):
         tsim.run(tsim.SimConfig(m=2), None, None, engine="python", device="cpu")
 
