@@ -70,12 +70,33 @@ error:
    step from the same state, ``StepTwin``: the decisions, the ``mix``
    kernel's output, the loss and the consensus error; its whole runs
    under ``dense``, ``delta`` and an fp64 dense mix printed, ungated);
-6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30, and m=16, cnn,
-   T=10, on the card and on the CPU (plain versions), channel by channel;
+   5e. paper dynamics: the paper cell with every scenario-dynamics
+   mechanism on (churn, stragglers, the bandwidth walk, a budget of 4
+   broadcasts, cluster outages, flapping links, crashes with warm start,
+   the scripted partition of iterations 8-11, a window-4 watchdog):
+   exactly 20 ``trigger_sq`` + 20 ``mix`` launches, each mechanism at
+   work, its ``dense`` twin equal on all nine integer channels; then its
+   seeds (0, 1) x four policies sweep (8 cells, each with its own
+   adjacency: 20 + 20 launches), every cell against its solo card run;
+   5f. fleet dynamics: the fleet cell with churn, flapping links, crashes
+   with warm start and a window-8 watchdog: exactly 20 ``mix_sparse``
+   launches (the warm start's neighbour sum is the plain ELL slot loop),
+   at most one plan build, its ``sparse`` twin equal on every integer
+   channel;
+   5g. resume: ``run_checkpointed`` of the 5e cell with Adam, a checkpoint
+   every 10 iterations (~0.84 GB each) in a temporary directory: halted
+   after one segment and resumed in a fresh Python process, bit-equal on
+   every channel to the uninterrupted run, and against ``run`` integer
+   channels equal, floats within RTOL / ATOL; each checkpoint's bytes and
+   save and restore seconds;
+6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30, the same with
+   5e's knobs (every dynamics channel too), and m=16, cnn, T=10, on the
+   card and on the CPU (plain versions), channel by channel;
 7. profile: device activities, device busy time, idle share and each of
    the repo's kernels' device time per iteration of the paper, fleet,
    dense-fabric, paper-sweep and fleet-sweep paths, one service launch of
-   signature A and the cnn path, under ``torch.profiler``;
+   signature A, the cnn path and the 5e and 5f paths, under
+   ``torch.profiler``, and one watchdog step at 5e's and 5f's shapes;
 8. serve: starcoder2-15b at full width and depth (40 layers, bf16,
    ``attn_impl="pallas_swa"``, random weights from a seeded generator):
    one prefill of 32768 tokens through the steps of
@@ -1330,14 +1351,15 @@ def _closest(mk: np.ndarray) -> float:
 
 
 def _twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
-          impl: str) -> None:
-    """The kernel run's integer channels against the run of the plain
-    ``impl`` on the card: equal, or the first flips with their margins."""
-    differ = [f for f in INT_FIELDS
+          impl: str, fields=INT_FIELDS) -> None:
+    """The kernel run's integer channels (``fields``) against the run of
+    the plain ``impl`` on the card: equal, or the first flips with their
+    margins."""
+    differ = [f for f in fields
               if not np.array_equal(getattr(res, f), getattr(plain, f))]
     mk = log.margins()[:, 0]  # a solo run is one cell
     if not differ:
-        print(f"{label} kernel vs plain ({impl}) on the card: v, comm_count, deg "
+        print(f"{label} kernel vs plain ({impl}) on the card: {', '.join(fields)} "
               f"equal over {mk.shape[0]} iterations x {mk.shape[1]} devices; "
               f"closest decision |dev / threshold - 1| {_closest(mk):.3g}")
         return
@@ -1431,15 +1453,15 @@ class StepTwin:
 
 
 def _sweep_twin(label: str, res, log: TriggerLog, plain, plain_log: TriggerLog,
-                impl: str) -> None:
+                impl: str, fields=INT_FIELDS) -> None:
     """``_twin`` for a sweep: every cell's integer channels against the
     same cell of the sweep of the plain ``impl`` on the card."""
-    differ = [f for f in INT_FIELDS
+    differ = [f for f in fields
               if not np.array_equal(getattr(res, f), getattr(plain, f))]
     mk = log.margins()  # (T, C, m), cells in (seed, policy) order
     S, P = len(res.seeds), len(res.policies)
     if not differ:
-        print(f"{label} kernel vs plain ({impl}) on the card: v, comm_count, deg "
+        print(f"{label} kernel vs plain ({impl}) on the card: {', '.join(fields)} "
               f"equal in all {S * P} cells over {mk.shape[0]} iterations x "
               f"{mk.shape[2]} devices; closest decision |dev / threshold - 1| "
               f"{_closest(mk):.3g}")
@@ -2019,17 +2041,306 @@ def phase_deep(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
     return out
 
 
-def phase_cpu(dev, m: int = 64, dim: int = 784, model: str = "svm",
-              T: int = 30) -> None:
+# ---------------------------------------------------------------------------
+# phases 5e-5g: scenario dynamics and resume
+# ---------------------------------------------------------------------------
+
+# the integer channels under scenario dynamics: the trigger channels and
+# the resource, fault and watchdog ones
+DYN_INT_FIELDS = INT_FIELDS + ("down_count", "exhausted_count", "fault_down_count",
+                               "stale_max", "window_connected", "window_needed")
+# the scripted bridge partition of the dynamics cell: [start, start + len)
+PARTITION = (8, 4)
+
+
+def dynamics_knobs(model_dim: int) -> dict:
+    """Every resource, fault and watchdog mechanism on: the budget holds 4
+    broadcasts of the model, so devices run out within 20 iterations."""
+    from repro_torch.core.accounting import model_bytes
+
+    return dict(churn_rate=0.05, straggle_rate=0.1, bw_walk=0.1,
+                budget_bytes=float(4 * model_bytes(model_dim)),
+                cluster_fail_rate=0.05, flap_rate=0.1, crash_rate=0.02,
+                warm_start=True, partition_start=PARTITION[0],
+                partition_len=PARTITION[1], watchdog_window=4)
+
+
+def dynamics_spec(m: int = 1024, dim: int = 784, n_train: int = 8192, T: int = 20,
+                  **kw):
+    """The paper cell (mlp, rgg r=0.4 with edge dropout 0.3, ``pallas``)
+    with ``dynamics_knobs``."""
     from repro_torch import api
 
-    spec = api.ScenarioSpec(m=m, model=model, dim=dim, iters=T,
-                            mix_impl="pallas", trace="full")
+    return api.ScenarioSpec(m=m, model="mlp", dim=dim, n_train=n_train, iters=T,
+                            eval_every=10, mix_impl="pallas", trace="summary",
+                            **dynamics_knobs((dim + 1) * 64 + 65 * 10), **kw)
+
+
+def _mechanisms(res, label: str, all_knobs: bool = True) -> str:
+    """Each mechanism at work at some iteration: a non-zero count of down
+    and fault-silenced devices and of staleness, and with ``all_knobs``
+    (the budget and the scripted partition on) of exhausted devices and
+    the watchdog flagging a window inside the partition."""
+    counts = {f: int(np.max(getattr(res, f))) for f in (
+        "down_count", "exhausted_count", "fault_down_count", "stale_max")}
+    want = counts if all_knobs else {k: v for k, v in counts.items()
+                                     if k != "exhausted_count"}
+    check(all(v > 0 for v in want.values()),
+          f"{label}: a dynamics mechanism never acted: largest counts {counts}")
+    inside = np.asarray(res.window_connected[PARTITION[0]:sum(PARTITION)])
+    if all_knobs:
+        check(not inside.all(), f"{label}: the watchdog flagged no window inside "
+                                f"the scripted partition {PARTITION}")
+    return (f"largest counts {counts}; window_connected "
+            f"{np.asarray(res.window_connected).astype(int).tolist()}; "
+            f"window_needed max {int(np.max(res.window_needed))}")
+
+
+def phase_dynamics(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
+                   T: int = 20, twin: bool = False, sweep: bool = False,
+                   checks: bool = True):
+    """5e: the paper cell with every dynamics mechanism on
+    (``dynamics_spec``) through ``api.simulate``: exactly T ``trigger_sq``
+    and T ``mix`` launches; with ``checks`` each mechanism at work; with
+    ``twin`` its plain ``dense`` twin with every integer channel equal;
+    with ``sweep`` the seeds (0, 1) x four policies grid in one batched run
+    (T launches of each kernel for the 8 cells, each cell's adjacency its
+    own), every cell against its solo card run."""
+    import dataclasses
+
+    from repro_torch import api
+
+    spec = dynamics_spec(m, dim, n_train, T)
+    t0 = time.perf_counter()
+    _reset_launches()
+    with TriggerLog() as log:
+        res = api.simulate(spec, device=dev)
+    launches = _launches()
+    wall = time.perf_counter() - t0
+    check({k: n for k, n in launches.items() if n} == {"trigger_sq": T, "mix": T},
+          f"paper dynamics: expected {T} trigger_sq and {T} mix launches, got "
+          f"{launches}")
+    _finite(res, "paper dynamics")
+    seen = _mechanisms(res, "paper dynamics") if checks else "not checked"
+    print(f"paper dynamics m={m} mlp D={res.model_dim} pallas T={T} (budget "
+          f"{spec.budget_bytes:.0f} bytes): launches {launches}; first step "
+          f"{res.timing['first_step_ms']:.2f} ms, {res.timing['ms_per_step']:.3f} "
+          f"ms/step after it; wall {wall:.2f} s with staging; final acc "
+          f"{res.acc[-1]:.4f}; trigger rate {res.v.mean():.4f}; {seen}")
+    if twin:
+        with TriggerLog() as plain_log:
+            plain = api.simulate(dataclasses.replace(spec, mix_impl="dense"),
+                                 device=dev)
+        _twin("paper dynamics", res, log, plain, plain_log, "dense",
+              fields=DYN_INT_FIELDS)
+        del plain
+    if sweep:
+        _reset_launches()
+        grid = api.sweep(spec, seeds=SWEEP_SEEDS, device=dev)
+        got = _launches()
+        cells = len(grid.seeds) * len(grid.policies)
+        check({k: n for k, n in got.items() if n} == {"trigger_sq": T, "mix": T},
+              f"paper dynamics sweep: expected {T} trigger_sq and {T} mix launches "
+              f"for {cells} cells, got {got}")
+        used = {}
+        for s in grid.seeds:
+            for pol in grid.policies:
+                one = api.simulate(dataclasses.replace(spec, policy=pol), seed=s,
+                                   device=dev)
+                used[(s, pol)] = _compare(
+                    grid.result(s, pol), {f: getattr(one, f) for f in (
+                        *DYN_INT_FIELDS, *FLOAT_FIELDS, "acc")},
+                    f"paper dynamics sweep cell (seed {s}, {pol}) vs its solo run",
+                    fields_int=DYN_INT_FIELDS, fields_float=(*FLOAT_FIELDS, "acc"))
+        print(f"paper dynamics sweep, seeds {grid.seeds} x policies {grid.policies} "
+              f"({cells} cells): launches {got}; {grid.timing['ms_per_step']:.3f} "
+              f"ms/iteration for all cells; largest exhausted count per policy "
+              f"{grid.exhausted_count.max(axis=(0, 2)).tolist()}; every cell against "
+              f"its solo api.simulate run on the card: integer channels equal, "
+              f"float channels within rtol {RTOL} / atol {ATOL}; worst shares of "
+              f"the allowance: " + "; ".join(f"{s}/{p}: {u}" for (s, p), u in used.items()))
+        del grid
+    return launches, res
+
+
+def phase_fleet_dynamics(dev, m: int = 4096, dim: int = 784, T: int = 20,
+                         twin: bool = False, checks: bool = True):
+    """5f: the fleet cell (svm, rgg at ``fleet_radius(m)``,
+    ``sparse_pallas``) with churn, flapping links, crashes with warm start
+    and the watchdog (window 8) through ``simulator.run``: exactly T
+    ``mix_sparse`` launches (the warm start's neighbor sum is the plain
+    ELL slot loop, not a second launch), at most one gather-mix plan built
+    (the shared table's: the per-cell masks change only its weights); with
+    ``twin`` the plain ``sparse`` twin, every integer channel equal."""
+    import dataclasses
+
+    from repro_torch.core.topology import fleet_radius, make_process
+    from repro_torch.data.loader import FederatedBatches
+    from repro_torch.data.partition import by_labels
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.fl.simulator import SimConfig, make_eval_fn, run
+    from repro_torch.kernels.mixing import ops as mixing_ops
+
+    x, y = image_dataset(max(4000, 4 * m), seed=0, dim=dim)
+    xt, yt = image_dataset(800, seed=1, dim=dim)
+    parts = by_labels(y, m, 3)
+    graph = make_process(m, "rgg", radius=fleet_radius(m),
+                         time_varying="edge_dropout", drop=0.3, seed=0)
+    sim = SimConfig(m=m, iters=T, dim=dim, r=50.0, trace="summary",
+                    mix_impl="sparse_pallas", churn_rate=0.05, flap_rate=0.1,
+                    crash_rate=0.02, warm_start=True, watchdog_window=8)
+    eval_fn = make_eval_fn(sim, xt, yt)
+    plans0 = mixing_ops.PLAN_BUILDS
+    t0 = time.perf_counter()
+    _reset_launches()
+    with TriggerLog() as log:
+        res = run(sim, graph, FederatedBatches(x, y, parts, sim.batch, seed=2),
+                  eval_fn, eval_every=20, device=dev)
+    launches = _launches()
+    wall = time.perf_counter() - t0
+    plans = mixing_ops.PLAN_BUILDS - plans0
+    check({k: n for k, n in launches.items() if n} == {"mix_sparse": T},
+          f"fleet dynamics: expected {T} mix_sparse launches, got {launches}")
+    check(plans <= 1, f"fleet dynamics: {plans} gather-mix plans built in one run")
+    _finite(res, "fleet dynamics")
+    seen = (_mechanisms(res, "fleet dynamics", all_knobs=False) if checks
+            else "not checked")
+    print(f"fleet dynamics m={m} svm D={res.model_dim} sparse_pallas T={T}: launches "
+          f"{launches} (one mix_sparse an iteration; the warm start's sum is the "
+          f"plain slot loop); {plans} plan build(s); first step "
+          f"{res.timing['first_step_ms']:.2f} ms, {res.timing['ms_per_step']:.3f} "
+          f"ms/step after it; wall {wall:.2f} s with staging; final acc "
+          f"{res.acc[-1]:.4f}; {seen}")
+    if twin:
+        with TriggerLog() as plain_log:
+            plain = run(dataclasses.replace(sim, mix_impl="sparse"), graph,
+                        FederatedBatches(x, y, parts, sim.batch, seed=2), eval_fn,
+                        eval_every=20, device=dev)
+        _twin("fleet dynamics", res, log, plain, plain_log, "sparse",
+              fields=DYN_INT_FIELDS)
+    return launches, res
+
+
+RESUME_FIELDS = DYN_INT_FIELDS + FLOAT_FIELDS + ("acc", "bandwidths")
+
+
+def _resume_setup(m: int, dim: int, n_train: int, T: int):
+    """The 5e cell with Adam, as ``run_checkpointed`` takes it: the config,
+    the graph, a fresh sampler maker and the eval fn (the service's own
+    staging, so every process builds the same)."""
+    import dataclasses
+
+    from repro_torch.fl import service
+
+    spec = dataclasses.replace(dynamics_spec(m, dim, n_train, T), optimizer="adam")
+    stager = service._Stager(None)
+    ds = stager.provider(spec)
+    return (spec.to_sim(), stager.graph(spec),
+            lambda: spec.batches(spec.seeds[0], ds), stager.eval_fn(spec, ds),
+            spec.eval_every)
+
+
+def resume_child(ckpt_dir: str, out: str, device: str, m: int, dim: int,
+                 n_train: int, T: int, every: int) -> None:
+    """The resuming process of phase 5g: ``run_checkpointed`` into the
+    directory a halted run left, its channels and timing saved to ``out``."""
+    import torch
+
+    from repro_torch.fl.simulator import run_checkpointed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sim, graph, batches, eval_fn, E = _resume_setup(m, dim, n_train, T)
+    res = run_checkpointed(sim, graph, batches(), eval_fn, ckpt_dir=ckpt_dir,
+                           checkpoint_every=every, eval_every=E, device=device)
+    np.savez(out, timing=json.dumps(res.timing),
+             **{f: np.asarray(getattr(res, f)) for f in RESUME_FIELDS})
+
+
+def phase_resume(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
+                 T: int = 20, every: int = 10) -> None:
+    """5g: ``run_checkpointed`` of the 5e cell with Adam, a checkpoint every
+    ``every`` iterations, into a temporary directory deleted afterwards:
+    the uninterrupted run; a run halted after one segment; its resume in a
+    fresh Python process (``resume_child``), bit-equal to the
+    uninterrupted run on every channel; and ``run`` of the same spec, its
+    integer channels equal and floats within RTOL / ATOL.  Prints each
+    checkpoint's bytes and its save and restore seconds."""
+    import shutil
+    import tempfile
+
+    from repro_torch.fl.simulator import CheckpointHalt, run, run_checkpointed
+
+    sim, graph, batches, eval_fn, E = _resume_setup(m, dim, n_train, T)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        full = run_checkpointed(sim, graph, batches(), eval_fn, ckpt_dir=str(tmp / "full"),
+                                checkpoint_every=every, eval_every=E, device=dev)
+        _finite(full, "resume: uninterrupted")
+        halted = False
+        try:
+            run_checkpointed(sim, graph, batches(), eval_fn, ckpt_dir=str(tmp / "crash"),
+                             checkpoint_every=every, eval_every=E, halt_after=1,
+                             device=dev)
+        except CheckpointHalt:
+            halted = True
+        check(halted, "resume: the run did not halt after its first segment")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--resume-child",
+             str(tmp / "crash"), str(tmp / "resumed.npz"),
+             *map(str, (dev, m, dim, n_train, T, every))],
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"resume: the resuming process failed:\n"
+                                     f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+        got = np.load(tmp / "resumed.npz")
+        differ = [f for f in RESUME_FIELDS
+                  if not np.array_equal(got[f], np.asarray(getattr(full, f)))]
+        check(not differ, f"resume: the resumed run differs from the uninterrupted "
+                          f"one in {differ}")
+        solo = run(sim, graph, batches(), eval_fn, eval_every=E, device=dev)
+        used = _compare(full, {f: getattr(solo, f) for f in RESUME_FIELDS},
+                        "resume: checkpointed vs run", fields_int=DYN_INT_FIELDS,
+                        fields_float=(*FLOAT_FIELDS, "acc", "bandwidths"))
+        resumed_t = json.loads(str(got["timing"]))
+        for seg in full.timing["segments"]:
+            print(f"resume: checkpoint step_{seg['end']} {seg['bytes']} bytes, saved "
+                  f"in {seg['save_s']:.3f} s; segment {seg['ms_per_step']:.3f} "
+                  f"ms/iteration")
+        print(f"resume m={m} mlp D={full.model_dim} Adam T={T}, a checkpoint every "
+              f"{every}: halted after one segment, resumed in a fresh process "
+              f"({child_s:.1f} s with start-up; restore {resumed_t['restore_s']:.3f} "
+              f"s, its save of step_{resumed_t['segments'][0]['end']} "
+              f"{resumed_t['segments'][0]['save_s']:.3f} s): every channel "
+              f"({', '.join(RESUME_FIELDS)}) bit-equal to the uninterrupted run; "
+              f"against run(): integer channels equal, worst share of the "
+              f"allowance {used}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cpu(dev, m: int = 64, dim: int = 784, model: str = "svm",
+              T: int = 30, dynamics: bool = False) -> None:
+    """``api.simulate`` on the card and on the CPU (plain versions),
+    channel by channel; with ``dynamics`` under ``dynamics_knobs`` (the
+    budget 4 broadcasts of this model), every dynamics channel too."""
+    from repro_torch import api
+    from repro_torch.fl.simulator import model_spec
+
+    kw = dict(m=m, model=model, dim=dim, iters=T, mix_impl="pallas", trace="full")
+    if dynamics:
+        kw.update(dynamics_knobs(model_spec(api.ScenarioSpec(**kw).to_sim()).flat_dim))
+    spec = api.ScenarioSpec(**kw)
     gpu = api.simulate(spec, device=dev)
     cpu = api.simulate(spec, device="cpu")
-    want = {f: getattr(cpu, f) for f in (*INT_FIELDS, *FLOAT_FIELDS, "acc")}
-    label = f"card vs cpu {model}"
-    used = _compare(gpu, want, label, fields_float=(*FLOAT_FIELDS, "acc"))
+    fields = DYN_INT_FIELDS if dynamics else INT_FIELDS
+    want = {f: getattr(cpu, f) for f in (*fields, *FLOAT_FIELDS, "acc")}
+    label = f"card vs cpu {model}" + (" dynamics" if dynamics else "")
+    used = _compare(gpu, want, label, fields_int=fields,
+                    fields_float=(*FLOAT_FIELDS, "acc"))
+    if dynamics:
+        print(f"{label}: {_mechanisms(cpu, label)}")
     check(np.array_equal(gpu.comm, cpu.comm) and np.array_equal(gpu.adj, cpu.adj),
           f"{label}: link matrices differ")
     print(f"{label} m={m} D={gpu.model_dim} pallas T={T}: integer channels and "
@@ -2102,6 +2413,42 @@ def _deep_run(dev, model: str, T: int, m: int = 1024, dim: int = 784,
                                          trace="summary"), device=dev)
 
 
+def _watchdog_profile(torch, dev) -> None:
+    """One ``flow.watchdog_step`` at the dynamics cells' shapes (the 5e
+    fabric, rgg r=0.4 at m=1024, for 1 and 8 cells; the 5f fleet fabric at
+    m=4096), on a random information-flow mask: its rounds, device
+    activities and device busy time per call under the profiler, and its
+    host wall time per call without it."""
+    from repro_torch.core import flow
+    from repro_torch.core.topology import StagedNeighbors, fleet_radius, make_process
+
+    for label, m, radius, cells in (("5e", 1024, 0.4, 1), ("5e sweep", 1024, 0.4, 8),
+                                    ("5f", 4096, fleet_radius(4096), 1)):
+        nl = StagedNeighbors.from_host(make_process(m, "rgg", radius=radius, seed=0)
+                                       .neighbors(), dev)
+        gen = torch.Generator(device=dev).manual_seed(m + cells)
+        comm = nl.mask & (torch.rand((cells,) + tuple(nl.idx.shape), generator=gen,
+                                     device=dev) < 0.3)
+        cfg = flow.WatchdogConfig(window=4)
+        age = flow.watchdog_init(m, nl.d_max, (cells,), dev).age
+
+        def call():
+            return flow.watchdog_step(cfg, nl.idx, comm, age)
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5 * 1e3
+        n, busy, _, _ = _device_activity(torch, call)
+        print(f"profile watchdog ({label}: m={m}, d_max {nl.d_max}, {cells} cell(s), "
+              f"{cfg.rounds(m)} rounds): {n} device activities a call, device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms host wall (idle share "
+              f"{1 - busy / wall:.3f})")
+
+
 def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     """Per-iteration device activities, device busy time, idle share, the
     device time of the kernels that take the most and of each of the
@@ -2112,7 +2459,8 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     share is 1 - busy / ``step_ms[cell]``, the ms per iteration of the
     cell's main-path run without the profiler; for the cnn also 1 - busy
     / the ms per iteration of a warm T=8 run without it (its first run in
-    the process is 2-3x slower than later ones)."""
+    the process is 2-3x slower than later ones).  The dynamics cells (5e,
+    5f) come with the watchdog's own share (``_watchdog_profile``)."""
     cells = {"paper": lambda T: phase_paper(dev, T=T)[1],
              "fleet": lambda T: phase_fleet(dev, T=T)[1],
              "dense fabric": lambda T: phase_fleet(
@@ -2120,7 +2468,10 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
              "paper sweep": lambda T: phase_sweep(dev, T=T)[1],
              "fleet sweep": lambda T: phase_fleet_sweep(dev, T=T)[1],
              "service A launch": lambda T: _service_a_launch(dev, T),
-             "cnn": lambda T: _deep_run(dev, "cnn", T)}
+             "cnn": lambda T: _deep_run(dev, "cnn", T),
+             "paper dynamics": lambda T: phase_dynamics(dev, T=T, checks=False)[1],
+             "fleet dynamics": lambda T: phase_fleet_dynamics(dev, T=T,
+                                                              checks=False)[1]}
     for name, cell in cells.items():
         cell(4)  # warm
         # the cnn's first run is slower than its later ones: time a warm one
@@ -2154,6 +2505,7 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
                     own[fn] = own.get(fn, 0.0) + sign * ms / 4
         print(f"profile {name}: the repo's kernels, device ms/iteration: " + (
             ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())) or "none seen"))
+    _watchdog_profile(torch, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2463,6 +2815,12 @@ KERNEL_SOURCES = {
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--resume-child":
+        # phase 5g's resuming process: no result line of its own
+        sys.path.insert(0, str(SRC))
+        ckpt_dir, out, device, *sizes = sys.argv[2:]
+        resume_child(ckpt_dir, out, device, *map(int, sizes))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch finds no CUDA device", file=sys.stderr)
         return 1
@@ -2515,16 +2873,25 @@ def main() -> int:
             rows[name]["service_launches"] = service[name]
         phase_quarantine(dev)
         deep = phase_deep(dev)
+        dyn, dyn_res = phase_dynamics(dev, twin=True, sweep=True)
+        fleet_dyn, fleet_dyn_res = phase_fleet_dynamics(dev, twin=True)
+        for name, counts in (("trigger_sq", dyn), ("mix", dyn),
+                             ("mix_sparse", fleet_dyn)):
+            rows[name]["dynamics_launches"] = counts[name]
+        phase_resume(dev)
         phase_cpu(dev)
         phase_cpu(dev, m=16, model="cnn", T=10)
+        phase_cpu(dev, dynamics=True)
         phase_profile(torch, dev, {
             name: res.timing["ms_per_step"] for name, res in (
                 ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res),
                 ("paper sweep", sweep_res), ("fleet sweep", fleet_sweep_res),
-                ("service A launch", service_res), ("cnn", deep["cnn"]))})
+                ("service A launch", service_res), ("cnn", deep["cnn"]),
+                ("paper dynamics", dyn_res), ("fleet dynamics", fleet_dyn_res))})
         # the sweeps held ~17 GB of (8, 1024, 50890) tensors: hand the cached
         # blocks back before the serve phases load 32 GB of weights
-        del paper_res, sweep_res, fleet_res, fleet_sweep_res, dense_res, service_res, deep
+        del (paper_res, sweep_res, fleet_res, fleet_sweep_res, dense_res, service_res,
+             deep, dyn_res, fleet_dyn_res)
         from repro_torch.fl import simulator
         simulator._ENGINE_CACHE.clear()  # the engines keep their datasets on the card
         torch.cuda.empty_cache()
@@ -2557,7 +2924,8 @@ def main() -> int:
                                    "bound_ms_fp32_units_s32768", "fp64_max_abs_err",
                                    "fp64_bias", "ms_rna_lo", "fp64_max_abs_err_rna_lo",
                                    "fp64_bias_rna_lo", "plan_build_ms", "ms_32_columns",
-                                   "sweep_launches", "service_launches", "ms_c8", "plain_ms_c8",
+                                   "sweep_launches", "service_launches",
+                                   "dynamics_launches", "ms_c8", "plain_ms_c8",
                                    "library_ms_c8", "bound_ms_c8",
                                    "ms_64_columns", "ms_m4096_r04",
                                    "plain_ms_m4096_r04", "bound_ms_m4096_r04",

@@ -51,6 +51,11 @@ class EdgeList(NamedTuple):
     def n_edges(self) -> int:
         return int(self.u.shape[0])
 
+    def eids(self) -> np.ndarray:
+        """(E,) int64 canonical edge ids ``u * m + v``, ascending (the
+        list is lexsorted), so ``np.searchsorted`` finds an edge's row."""
+        return self.u.astype(np.int64) * self.m + self.v.astype(np.int64)
+
 
 def _canonical_edges(u: np.ndarray, v: np.ndarray, m: int) -> EdgeList:
     """Normalize endpoint arrays into the EdgeList contract (u < v,
@@ -414,6 +419,19 @@ def clustered_edges(m: int, n_clusters: int = 0,
         vs.append(heads_arr[hd.argmin(axis=1)])
     return (_dedup_canonical(np.concatenate(us), np.concatenate(vs), m), pts,
             labels.astype(np.int32))
+
+
+def _morton_codes(coords: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Z-order (Morton) codes of (m, 2) unit-square points: the quantized
+    coordinate bits interleaved, so equal-count splits of the order are
+    spatially compact groups."""
+    q = np.clip((np.asarray(coords) * (1 << bits)).astype(np.uint64),
+                0, (1 << bits) - 1)
+    code = np.zeros(len(q), dtype=np.uint64)
+    for b in range(bits):
+        code |= ((q[:, 0] >> np.uint64(b)) & np.uint64(1)) << np.uint64(2 * b)
+        code |= ((q[:, 1] >> np.uint64(b)) & np.uint64(1)) << np.uint64(2 * b + 1)
+    return code
 
 
 def scatter_ell(nbr_idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:

@@ -93,13 +93,13 @@ class ScenarioSpec:
     alpha0: float = 0.1
     optimizer: str = "sgd"
     batch: int = 16
-    # --- resource dynamics (not ported: defaults only) ---------------------
+    # --- resource dynamics (shape the engine; defaults: disabled) ---------
     churn_rate: float = 0.0
     recover_rate: float = 0.5
     straggle_rate: float = 0.0
     bw_walk: float = 0.0
     budget_bytes: float = 0.0
-    # --- fault injection (not ported: defaults only) -----------------------
+    # --- fault injection (shape the engine; defaults: disabled) -----------
     cluster_fail_rate: float = 0.0
     cluster_recover_rate: float = 0.25
     partition_start: int = -1
@@ -109,7 +109,7 @@ class ScenarioSpec:
     crash_rate: float = 0.0
     rejoin_rate: float = 0.25
     warm_start: bool = False
-    # --- B-connectivity watchdog (not ported: defaults only) ---------------
+    # --- B-connectivity watchdog (shapes the engine; 0: disabled) ---------
     watchdog_window: int = 0
     watchdog_nprop: int = 0
     # --- engine ----------------------------------------------------------

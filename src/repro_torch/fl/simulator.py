@@ -30,21 +30,32 @@ skips the host-to-device copies of the dataset, the eval set and the
 neighbor table, which is what a run repeated with another seed or policy
 would redo.  Nothing is compiled, so a miss costs those copies alone.
 
-Resource dynamics, fault injection, the watchdog, the sharded engine and
-the python engine are not ported yet: a config that asks for one raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+Resource dynamics, fault injection and the B-connectivity watchdog
+(``SimConfig.resources()`` / ``.faults()`` / ``.watchdog()``) run inside
+the step, each cell on its own streams.  ``run_checkpointed`` cuts the
+horizon into segments that drive the same ``_EngineCore.span`` as ``run``
+and persists the whole carry between them (``checkpoint.msgpack_ckpt``),
+so a run killed between segments resumes bit for bit.  The sharded engine
+and the python engine are not ported yet: a config that asks for one
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
+it.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.core import efhc, topology, triggers
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import flow as flow_mod
+from repro_torch.core import resources as resources_mod
 from repro_torch.core.topology import GraphProcess
 from repro_torch.data.loader import FederatedBatches
 from repro_torch.fl import modelspec as modelspec_mod
@@ -57,22 +68,10 @@ from repro_torch.tree import first_leaf, tree_map
 # every mix_impl a SimConfig may name, as in the reference
 SIM_MIX_IMPLS: tuple[str, ...] = efhc.MIX_IMPLS + ("sharded",)
 
-# scenario-dynamics knobs at their disabled defaults; any other value asks
-# for a subsystem this port does not have yet
-_DYNAMICS_DEFAULTS = {
-    "churn_rate": 0.0, "recover_rate": 0.5, "straggle_rate": 0.0,
-    "bw_walk": 0.0, "budget_bytes": 0.0,
-    "cluster_fail_rate": 0.0, "cluster_recover_rate": 0.25,
-    "partition_start": -1, "partition_len": 0, "flap_rate": 0.0,
-    "flap_len": 8, "crash_rate": 0.0, "rejoin_rate": 0.25,
-    "warm_start": False, "watchdog_window": 0, "watchdog_nprop": 0,
-}
-
-
 @dataclasses.dataclass
 class SimConfig:
     """The reference's ``SimConfig``: same fields, defaults and validation
-    messages.  Valid values this port cannot run yet raise
+    messages.  ``mix_impl="sharded"`` (valid, not ported yet) raises
     ``NotImplementedError``."""
 
     m: int = 10
@@ -141,27 +140,56 @@ class SimConfig:
                 f"counts); got trace={self.trace!r} -- link matrices would "
                 f"densify (T, m, m) at fleet scale")
         triggers.check_sigma_n(self.sigma_n)
+        self.resources()  # ResourceConfig validates the knobs
+        self.faults()  # FaultConfig validates the knobs
+        self.watchdog()  # WatchdogConfig validates the knobs
         # valid, but not in this port yet
         if self.mix_impl == "sharded":
             raise NotImplementedError(
                 "mix_impl='sharded' is not ported yet (ROADMAP.md Queue 1 "
                 "item 9, sharded fleet engine)")
-        changed = [name for name, default in _DYNAMICS_DEFAULTS.items()
-                   if getattr(self, name) != default]
-        if changed:
-            raise NotImplementedError(
-                f"resource dynamics, fault injection and the watchdog are not "
-                f"ported yet (ROADMAP.md Queue 1 item 7, scenario dynamics); "
-                f"non-default knobs: {changed}")
+
+    def resources(self) -> resources_mod.ResourceConfig | None:
+        """The run's ``ResourceConfig``, or None when every knob is at its
+        disabled default.  Its ``seed`` stays 0: the stream derives from
+        each cell's root key ``PRNGKey(seed)``, so a batched cell realizes
+        its solo run's stream."""
+        rcfg = resources_mod.ResourceConfig(
+            churn_rate=self.churn_rate, recover_rate=self.recover_rate,
+            straggle_rate=self.straggle_rate, bw_walk=self.bw_walk,
+            budget_bytes=self.budget_bytes)
+        return rcfg if rcfg.enabled else None
+
+    def faults(self) -> faults_mod.FaultConfig | None:
+        """The run's ``FaultConfig``, or None when disabled (``seed`` 0, as
+        for the resources)."""
+        fcfg = faults_mod.FaultConfig(
+            cluster_fail_rate=self.cluster_fail_rate,
+            cluster_recover_rate=self.cluster_recover_rate,
+            partition_start=self.partition_start,
+            partition_len=self.partition_len,
+            flap_rate=self.flap_rate, flap_len=self.flap_len,
+            crash_rate=self.crash_rate, rejoin_rate=self.rejoin_rate,
+            warm_start=self.warm_start)
+        return fcfg if fcfg.enabled else None
+
+    def watchdog(self) -> flow_mod.WatchdogConfig | None:
+        """The run's ``WatchdogConfig``, or None when ``watchdog_window``
+        is 0."""
+        wcfg = flow_mod.WatchdogConfig(window=self.watchdog_window,
+                                       n_prop=self.watchdog_nprop)
+        return wcfg if wcfg.enabled else None
 
 
 @dataclasses.dataclass
 class SimResult:
     """Host-side trajectories, the reference's contract (numpy arrays).
 
-    ``comm``/``adj`` are accessors whose storage follows ``trace``; the
-    scenario-dynamics channels are all-zero (all-True for
-    ``window_connected``) because the port runs no such process yet."""
+    ``comm``/``adj`` are accessors whose storage follows ``trace``.  The
+    scenario-dynamics channels (``trace.RESOURCE_CHANNELS``,
+    ``FAULT_CHANNELS``, ``WATCHDOG_CHANNELS``) are (T,) per iteration:
+    all-zero (all-True for ``window_connected``) for a run without that
+    process."""
 
     loss: np.ndarray  # (T, m)
     acc: np.ndarray  # (T,)
@@ -258,14 +286,25 @@ def _efhc_cfg(sim: SimConfig) -> efhc.EFHCConfig:
     return efhc.EFHCConfig(
         trigger=triggers.TriggerConfig(policy=sim.policy, r=sim.r,
                                        b_mean=sim.b_mean),
-        mix_impl=sim.mix_impl)
+        mix_impl=sim.mix_impl, resources=sim.resources(), faults=sim.faults(),
+        watchdog=sim.watchdog())
+
+
+# the scenario-dynamics channels, (T, C) each, and their value while
+# their process is off
+_DYN_CHANNELS = {**{f: (torch.int32, 0) for f in trace_mod.RESOURCE_CHANNELS
+                    + trace_mod.FAULT_CHANNELS},
+                 "window_connected": (torch.bool, 1),
+                 "window_needed": (torch.int32, 0)}
 
 
 class _Buffers:
-    """Preallocated device trajectories for a T-iteration run of C cells;
-    the adjacency, shared by the cells, is kept once."""
+    """Preallocated device trajectories for a T-iteration span of C cells;
+    the adjacency is kept once when the cells share it (``adj_cells`` 1)
+    and per cell otherwise."""
 
-    def __init__(self, T: int, C: int, m: int, trace: str, device: torch.device):
+    def __init__(self, T: int, C: int, m: int, trace: str, device: torch.device,
+                 adj_cells: int = 1):
         f32, i32 = torch.float32, torch.int32
 
         def z(shape, dtype):
@@ -277,13 +316,15 @@ class _Buffers:
                    "consensus_err": z((T, C), f32),
                    "comm_count": z((T, C, m), i32), "deg": z((T, C, m), i32),
                    "acc": z((T, C), f32)}
+        for name, (dtype, fill) in _DYN_CHANNELS.items():
+            self.ys[name] = torch.full((T, C), fill, dtype=dtype, device=device)
         if trace == "full":
             self.ys["comm"] = z((T, C, m, m), torch.bool)
-            self.ys["adj"] = z((T, m, m), torch.bool)
+            self.ys["adj"] = z((T, adj_cells, m, m), torch.bool)
         elif trace == "packed":
             w = trace_mod.packed_words(m)
             self.ys["comm"] = z((T, C, m, w), torch.int64)
-            self.ys["adj"] = z((T, m, w), torch.int64)
+            self.ys["adj"] = z((T, adj_cells, m, w), torch.int64)
 
     def write(self, k: int, aux: efhc.StepAux) -> None:
         ys = self.ys
@@ -294,6 +335,10 @@ class _Buffers:
         ys["consensus_err"][k] = aux.consensus_err
         ys["comm_count"][k] = aux.comm_count
         ys["deg"][k] = aux.deg
+        for name in _DYN_CHANNELS:
+            val = getattr(aux, name)
+            if val is not None:
+                ys[name][k] = val
         if self.trace == "full":
             ys["comm"][k] = aux.comm
             ys["adj"][k] = aux.adj
@@ -325,32 +370,193 @@ class _Clock:
         return (self.marks[b] - self.marks[a]) * 1e3
 
 
-def _to_host(ys: dict, bw: torch.Tensor) -> dict[str, np.ndarray]:
-    """Copies the trajectories back, the engine call's single host sync:
-    per-cell channels (C, T, ...) (the shared adjacency stays (T, ...)),
-    and ``bandwidths`` (C, m)."""
-    host = {k: v.cpu().numpy() for k, v in ys.items()}
-    out = {k: (v if k == "adj" else np.ascontiguousarray(np.moveaxis(v, 1, 0)))
-           for k, v in host.items()}
-    out["bandwidths"] = bw.cpu().numpy()
+def _to_host(ys: dict) -> dict[str, np.ndarray]:
+    """Copies a span's trajectories back, the span's single host sync, as
+    (C, T, ...) per cell; ``adj`` is (C', T, ...) with C' = 1 where the
+    cells share it."""
+    return {k: np.ascontiguousarray(np.moveaxis(v.cpu().numpy(), 1, 0))
+            for k, v in ys.items()}
+
+
+def _cell_ys(host: dict, c: int, trace: str) -> dict[str, np.ndarray]:
+    """Cell ``c``'s (T, ...) trajectories of a span's host copy, the link
+    matrices in their stored dtype: the reference's per-run ys layout (what
+    a checkpoint segment keeps)."""
+    link = trace_mod.link_dtype(trace)
+    out = {}
+    for k, v in host.items():
+        if k == "bandwidths":
+            continue
+        if k == "adj":
+            out[k] = v[c if v.shape[0] > 1 else 0].astype(link)
+        elif k == "comm":
+            out[k] = v[c].astype(link)
+        else:
+            out[k] = v[c]
     return out
+
+
+def _result_of_ys(ys: dict, bandwidths: np.ndarray, model_dim: int,
+                  trace: str) -> SimResult:
+    return SimResult(
+        loss=ys["loss"], acc=ys["acc"], tx_time=ys["tx_time"], util=ys["util"],
+        v=ys["v"], comm_count=ys["comm_count"], deg=ys["deg"],
+        consensus_err=ys["consensus_err"], model_dim=model_dim,
+        bandwidths=bandwidths, trace=trace, _comm=ys.get("comm"),
+        _adj=ys.get("adj"), **{f: ys[f] for f in _DYN_CHANNELS})
 
 
 def result_of_cell(host: dict, c: int, model_dim: int, trace: str) -> SimResult:
     """Cell ``c`` of an engine call's host trajectories as a ``SimResult``."""
-    T = host["acc"].shape[1]
-    zeros = np.zeros(T, np.int32)
-    link = trace_mod.link_dtype(trace)
-    return SimResult(
-        loss=host["loss"][c], acc=host["acc"][c], tx_time=host["tx_time"][c],
-        util=host["util"][c], v=host["v"][c], comm_count=host["comm_count"][c],
-        deg=host["deg"][c], consensus_err=host["consensus_err"][c],
-        model_dim=model_dim, bandwidths=host["bandwidths"][c], trace=trace,
-        _comm=host["comm"][c].astype(link) if "comm" in host else None,
-        _adj=host["adj"].astype(link) if "adj" in host else None,
-        down_count=zeros, exhausted_count=zeros.copy(),
-        fault_down_count=zeros.copy(), stale_max=zeros.copy(),
-        window_connected=np.ones(T, bool), window_needed=zeros.copy())
+    return _result_of_ys(_cell_ys(host, c, trace), host["bandwidths"][c],
+                         model_dim, trace)
+
+
+class _Span(NamedTuple):
+    state: efhc.EFHCState
+    ys: dict  # device trajectories (T_span, C, ...)
+    clock: _Clock
+    steps: int
+
+    def timing(self) -> dict:
+        """The first iteration's ms (with its eval) and the mean ms of the
+        later ones; read after the span's host sync."""
+        return {"first_step_ms": self.clock.ms("start", "first"),
+                "ms_per_step": (self.clock.ms("first", "end") / (self.steps - 1)
+                                if self.steps > 1 else float("nan"))}
+
+
+class _EngineCore:
+    """Staging and the step loop behind ``make_engine`` and
+    ``run_checkpointed``, the reference's ``_EngineCore``: ``init`` builds
+    the cells' carry and ``span`` steps it over iterations [k0, k1).  A
+    whole run is ``init`` + one ``span``; a checkpointed run drives the
+    same ``span`` over consecutive segments, so it replays the
+    uninterrupted run's operations exactly."""
+
+    def __init__(self, sim: SimConfig, graph: GraphProcess, *, T: int,
+                 eval_every: int, x, y, eval_fn: EvalFn | None, device):
+        if eval_fn is not None and not isinstance(eval_fn, EvalFn):
+            raise NotImplementedError(
+                "host eval callables need the python engine, which is not "
+                "ported; pass an EvalFn (make_eval_fn) or None")
+        self.dev = dev = resolve_device(device)
+        self.sim, self.graph, self.T = sim, graph, T
+        self.m, self.E = sim.m, max(1, int(eval_every))
+        if graph.m != self.m:
+            raise ValueError(f"sim.m={self.m} but the graph has {graph.m} devices")
+        self.trace = trace_mod.check_trace_mode(sim.trace)
+        self.spec = model_spec(sim)
+        self.opt = init_opt(sim.optimizer)
+        self.cfg = cfg = _efhc_cfg(sim)
+        self.sparse = cfg.mix_impl in efhc.SPARSE_MIX_IMPLS
+        self.sched = paper_diminishing(sim.alpha0, gamma=1.0, theta=0.5)
+        self.model_dim = self.spec.flat_dim
+        self.eval_fn = eval_fn
+        # the watchdog reads the neighbor list under every impl
+        host_nl = (graph.neighbors()
+                   if self.sparse or cfg.watchdog_enabled() else None)
+        self.nl = (topology.StagedNeighbors.from_host(host_nl, dev)
+                   if host_nl is not None else None)
+        self.fab = self.ftabs = None
+        if cfg.faults_enabled():
+            self.fab = faults_mod.fault_fabric(graph, cfg.faults)
+            self.ftabs = (faults_mod.edge_tables_rows(
+                self.fab, graph.edges, host_nl.idx, host_nl.mask, device=dev)
+                if self.sparse else
+                faults_mod.edge_tables_dense(self.fab, graph.edges, device=dev))
+        self.x_all = as_inputs(x).to(dev)
+        self.y_all = torch.as_tensor(np.asarray(y), dtype=torch.int64).to(dev)
+        self.dense_aux = self.trace != "summary"
+
+    def init(self, seeds) -> efhc.EFHCState:
+        """The cells' initial carry: the reference's init stream, cell by
+        cell, with the resource and fault streams folded from each cell's
+        root key ``PRNGKey(seed)``."""
+        m, dev, cfg, sim = self.m, self.dev, self.cfg, self.sim
+        roots = torch.stack([prng.PRNGKey(int(s), dev) for s in seeds])
+        ks = prng.split(roots, 3)  # (C, 3, 2): k_bw, k_init, k_state
+        bw = torch.stack([triggers.sample_bandwidths(k, m, sim.b_mean, sim.sigma_n)
+                          for k in ks[:, 0]])
+        w0 = tree_map(lambda *ts: torch.stack(ts),
+                      *[self.spec.init_stack(k, m) for k in ks[:, 1]])
+        adj0 = (self.graph.adjacency_ell(0, self.nl) if self.sparse
+                else self.graph.adjacency(0, dev))
+        res0 = (resources_mod.init_state(
+                    cfg.resources, bw, resources_mod.resource_key(roots, cfg.resources))
+                if cfg.resources_enabled() else None)
+        f0 = (faults_mod.init_state(cfg.faults, self.fab,
+                                    faults_mod.fault_key(roots, cfg.faults))
+              if cfg.faults_enabled() else None)
+        wd0 = (flow_mod.watchdog_init(m, self.nl.d_max, (len(seeds),), dev)
+               if cfg.watchdog_enabled() else None)
+        return efhc.init_state(w0, bw, adj0, ks[:, 2].contiguous(),
+                               opt_state=self.opt.init(w0), resources=res0,
+                               faults=f0, watchdog=wd0)
+
+    def prepare(self) -> None:
+        """Per-call set-up before a loop: the gather-mix kernel's plan."""
+        if self.cfg.mix_impl == "sparse_pallas":
+            mixing_ops.prepare_plan(self.nl.idx)
+
+    def span(self, state: efhc.EFHCState, cells: triggers.CellPolicies,
+             idx: np.ndarray, k0: int, k1: int, *, final: bool) -> _Span:
+        """Steps ``state`` over iterations [k0, k1), ``idx`` (C, T, m,
+        batch) holding the staged rows of the whole horizon.  Eval runs
+        after the first step of each ``eval_every`` chunk (k0 is a chunk
+        boundary) and, with ``final``, once more after the last step (the
+        reference's k == T-1 overwrite)."""
+        C, T_span, E, dev = len(cells.names), k1 - k0, self.E, self.dev
+        # (T_span, C, m, batch): iteration k's rows of every cell are contiguous
+        ix_all = torch.as_tensor(np.ascontiguousarray(np.swapaxes(idx[:, k0:k1], 0, 1)),
+                                 dtype=torch.int64).to(dev)
+        alphas = self.sched(torch.arange(k0, k1, device=dev))
+        buf = _Buffers(T_span, C, self.m, self.trace, dev,
+                       adj_cells=C if self.cfg.cell_adjacency() else 1)
+
+        def eval_acc(st):
+            if self.eval_fn is None:
+                return torch.zeros(C, dtype=torch.float32, device=dev)
+            return self.eval_fn.device(st.w).float()
+
+        clock = _Clock(dev)
+        clock.mark("start")
+        for j in range(T_span):
+            ix = ix_all[j]
+            state, aux = efhc.step(
+                self.cfg, self.graph, state, loss_and_grad=self.spec.loss_and_grad,
+                batch=(self.x_all[ix], self.y_all[ix]), alpha_k=alphas[j],
+                model_dim=self.model_dim, cells=cells, nl=self.nl,
+                opt_update=self.opt.update, dense_aux=self.dense_aux,
+                ftabs=self.ftabs)
+            buf.write(j, aux)
+            if j % E == 0:
+                # eval after the chunk's first step covers the whole chunk
+                buf.ys["acc"][j:j + E] = eval_acc(state)
+            if j == 0:
+                clock.mark("first")
+        clock.mark("end")
+        if final:
+            buf.ys["acc"][T_span - 1] = eval_acc(state)
+        return _Span(state, buf.ys, clock, T_span)
+
+    def engine(self, policy_idx, seeds, idx):
+        """engine(policy_idx, seeds, idx) -> (host trajectories, timing):
+        ``make_engine``'s contract."""
+        idx = np.asarray(idx)
+        C, T, m = len(seeds), self.T, self.m
+        if len(policy_idx) != C or idx.shape[:3] != (C, T, m):
+            raise ValueError(
+                f"engine takes C policy indices, C seeds and idx (C, T={T}, "
+                f"m={m}, batch); got {len(policy_idx)}, {C}, {idx.shape}")
+        cells = triggers.CellPolicies.of(
+            [triggers.POLICIES[int(i)] for i in policy_idx], self.dev)
+        self.prepare()
+        state = self.init(seeds)
+        span = self.span(state, cells, idx, 0, T, final=True)
+        host = _to_host(span.ys)
+        host["bandwidths"] = state.bandwidths.cpu().numpy()
+        return host, span.timing()
 
 
 def make_engine(
@@ -373,96 +579,19 @@ def make_engine(
     ``policy_idx`` (C,) indexes ``triggers.POLICIES``, ``seeds`` (C,) are
     the cells' run seeds and ``idx`` (C, T, m, batch) their staged dataset
     rows (``FederatedBatches.stage``) into the shared ``x``/``y``.  The
-    trajectories are host numpy arrays with a leading cell axis (the
-    shared adjacency excepted) and ``bandwidths`` (C, m); cell ``c`` is
-    ``result_of_cell(out, c, model_dim, sim.trace)``.  ``timing`` holds the
-    first iteration's ms (with its eval) and the mean ms of the later ones
-    on the device's clock.  Returns ``(engine, model_dim)``.
+    trajectories are host numpy arrays with a leading cell axis (C, T,
+    ...) (``adj`` (1, T, ...) where the cells share it) and ``bandwidths``
+    (C, m); cell ``c`` is ``result_of_cell(out, c, model_dim, sim.trace)``.
+    ``timing`` holds the first iteration's ms (with its eval) and the mean
+    ms of the later ones on the device's clock.  Returns ``(engine,
+    model_dim)``.
 
     Set ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) for
     true-fp32 products on the card; TF32 breaks parity with the reference.
     """
-    if eval_fn is not None and not isinstance(eval_fn, EvalFn):
-        raise NotImplementedError(
-            "host eval callables need the python engine, which is not ported; "
-            "pass an EvalFn (make_eval_fn) or None")
-    dev = resolve_device(device)
-    m, E = sim.m, max(1, int(eval_every))
-    if graph.m != m:
-        raise ValueError(f"sim.m={m} but the graph has {graph.m} devices")
-    trace = trace_mod.check_trace_mode(sim.trace)
-    spec = model_spec(sim)
-    opt = init_opt(sim.optimizer)
-    cfg = _efhc_cfg(sim)
-    sparse = cfg.mix_impl in efhc.SPARSE_MIX_IMPLS
-    sched = paper_diminishing(sim.alpha0, gamma=1.0, theta=0.5)
-    model_dim = spec.flat_dim
-    nl = (topology.StagedNeighbors.from_host(graph.neighbors(), dev)
-          if sparse else None)
-    x_all = as_inputs(x).to(dev)
-    y_all = torch.as_tensor(np.asarray(y), dtype=torch.int64).to(dev)
-    dense_aux = trace != "summary"
-
-    def init(seeds):
-        # the reference's init stream (_EngineCore.init), cell by cell
-        bws, w0s, keys = [], [], []
-        for seed in seeds:
-            k_bw, k_init, k_state = prng.split(prng.PRNGKey(int(seed), dev), 3)
-            bws.append(triggers.sample_bandwidths(k_bw, m, sim.b_mean, sim.sigma_n))
-            w0s.append(spec.init_stack(k_init, m))
-            keys.append(k_state)
-        w0 = tree_map(lambda *ts: torch.stack(ts), *w0s)
-        bw, key = torch.stack(bws), torch.stack(keys)
-        adj0 = graph.adjacency_ell(0, nl) if sparse else graph.adjacency(0, dev)
-        return efhc.init_state(w0, bw, adj0, key, opt_state=opt.init(w0))
-
-    def engine(policy_idx, seeds, idx):
-        idx = np.asarray(idx)
-        C = len(seeds)
-        if len(policy_idx) != C or idx.shape[:3] != (C, T, m):
-            raise ValueError(
-                f"engine takes C policy indices, C seeds and idx (C, T={T}, "
-                f"m={m}, batch); got {len(policy_idx)}, {C}, {idx.shape}")
-        cells = triggers.CellPolicies.of(
-            [triggers.POLICIES[int(i)] for i in policy_idx], dev)
-        if cfg.mix_impl == "sparse_pallas":  # the gather-mix kernel's plan, before the loop
-            mixing_ops.prepare_plan(nl.idx)
-        # (T, C, m, batch): iteration k's rows of every cell are contiguous
-        ix_all = torch.as_tensor(np.ascontiguousarray(np.swapaxes(idx, 0, 1)),
-                                 dtype=torch.int64).to(dev)
-        alphas = sched(torch.arange(T, device=dev))
-        state = init(seeds)
-        bw = state.bandwidths
-        buf = _Buffers(T, C, m, trace, dev)
-
-        def eval_acc(st):
-            if eval_fn is None:
-                return torch.zeros(C, dtype=torch.float32, device=dev)
-            return eval_fn.device(st.w).float()
-
-        clock = _Clock(dev)
-        clock.mark("start")
-        for k in range(T):
-            ix = ix_all[k]
-            state, aux = efhc.step(cfg, graph, state, loss_and_grad=spec.loss_and_grad,
-                                   batch=(x_all[ix], y_all[ix]), alpha_k=alphas[k],
-                                   model_dim=model_dim, cells=cells, nl=nl,
-                                   opt_update=opt.update, dense_aux=dense_aux)
-            buf.write(k, aux)
-            if k % E == 0:
-                # eval after the chunk's first step covers the whole chunk
-                buf.ys["acc"][k:k + E] = eval_acc(state)
-            if k == 0:
-                clock.mark("first")
-        clock.mark("end")
-        buf.ys["acc"][T - 1] = eval_acc(state)  # the reference's k == T-1 eval
-        host = _to_host(buf.ys, bw)
-        timing = {"first_step_ms": clock.ms("start", "first"),
-                  "ms_per_step": (clock.ms("first", "end") / (T - 1)
-                                  if T > 1 else float("nan"))}
-        return host, timing
-
-    return engine, model_dim
+    core = _EngineCore(sim, graph, T=T, eval_every=eval_every, x=x, y=y,
+                       eval_fn=eval_fn, device=device)
+    return core.engine, core.model_dim
 
 
 # The engine cache: ``run``, the sweep and the service take their engine
@@ -509,7 +638,7 @@ def _key_nbytes(key) -> int:
 
 
 class EngineCache:
-    """LRU of built (engine, model_dim, keepalive) entries with hit/miss
+    """LRU of built (engine core, keepalive) entries with hit/miss
     accounting; supports ``len()`` and ``clear()``."""
 
     def __init__(self, size: int = 8):
@@ -565,10 +694,10 @@ def _graph_cache_key(graph: GraphProcess) -> tuple:
             graph.edges.u.tobytes(), graph.edges.v.tobytes())
 
 
-def _cached_engine(sim: SimConfig, graph: GraphProcess, *, T: int,
-                   eval_every: int, x, y, eval_fn, device="cuda"):
-    """``make_engine``'s ``(engine, model_dim)`` from the engine cache: the
-    reference's key fields, and the device."""
+def _cached_core(sim: SimConfig, graph: GraphProcess, *, T: int,
+                 eval_every: int, x, y, eval_fn, device="cuda") -> _EngineCore:
+    """The ``_EngineCore`` from the engine cache: the reference's key
+    fields, and the device."""
     dev = resolve_device(device)
     key = (sim.m, sim.model, sim.n_classes, sim.dim, sim.batch, sim.r,
            sim.b_mean, sim.sigma_n, sim.alpha0, sim.optimizer, sim.mix_impl,
@@ -583,12 +712,19 @@ def _cached_engine(sim: SimConfig, graph: GraphProcess, *, T: int,
            _graph_cache_key(graph), id(x), id(y), id(eval_fn), str(dev))
 
     def build():
-        eng, model_dim = make_engine(sim, graph, T=T, eval_every=eval_every,
-                                     x=x, y=y, eval_fn=eval_fn, device=dev)
-        return (eng, model_dim, (graph, x, y, eval_fn))
+        core = _EngineCore(sim, graph, T=T, eval_every=eval_every, x=x, y=y,
+                           eval_fn=eval_fn, device=dev)
+        return (core, (graph, x, y, eval_fn))
 
-    hit = _ENGINE_CACHE.get_or_build(key, build)
-    return hit[0], hit[1]
+    return _ENGINE_CACHE.get_or_build(key, build)[0]
+
+
+def _cached_engine(sim: SimConfig, graph: GraphProcess, *, T: int,
+                   eval_every: int, x, y, eval_fn, device="cuda"):
+    """``make_engine``'s ``(engine, model_dim)`` from the engine cache."""
+    core = _cached_core(sim, graph, T=T, eval_every=eval_every, x=x, y=y,
+                        eval_fn=eval_fn, device=device)
+    return core.engine, core.model_dim
 
 
 def run(
@@ -624,5 +760,130 @@ def run(
     host, timing = eng([triggers.policy_index(sim.policy)], [sim.seed],
                        batches.stage(sim.iters)[None])
     res = result_of_cell(host, 0, model_dim, sim.trace)
+    res.timing = timing
+    return res
+
+
+# ---------------------------------------------------------------------------
+# crash-safe checkpoint/resume
+# ---------------------------------------------------------------------------
+
+class CheckpointHalt(RuntimeError):
+    """Raised by ``run_checkpointed(halt_after=...)`` right after a segment
+    checkpoint lands: a deterministic stand-in for a crash between
+    segments."""
+
+
+def _on_device(tree, device):
+    """A restored tree's numpy leaves as tensors on ``device``."""
+    return tree_map(lambda a: None if a is None else torch.from_numpy(a).to(device),
+                    tree)
+
+
+def run_checkpointed(
+    sim: SimConfig,
+    graph: GraphProcess,
+    batches: FederatedBatches,
+    eval_fn: EvalFn | None = None,
+    *,
+    ckpt_dir: str,
+    checkpoint_every: int,
+    eval_every: int = 10,
+    resume: bool = True,
+    halt_after: int | None = None,
+    device="cuda",
+) -> SimResult:
+    """Whole-horizon simulation with crash-safe segment checkpoints, the
+    reference's contract and on-disk format.
+
+    The horizon is cut into segments of ``checkpoint_every`` iterations (a
+    multiple of ``eval_every``, so segments end on eval-chunk boundaries).
+    Each segment runs ``_EngineCore.span``, the loop ``run`` runs, then
+    persists the whole carry (``EFHCState`` with the optimizer, resource,
+    fault and watchdog state), the bandwidths and the segment's
+    trajectories as ``<ckpt_dir>/step_<end>.msgpack`` (atomic write, never
+    rotated).  With ``resume`` (the default) a later call restores the
+    newest carry and runs only the remaining segments; the result equals
+    the uninterrupted checkpointed run bit for bit on every channel.
+    ``halt_after=n`` raises ``CheckpointHalt`` after ``n`` segments.
+    ``FederatedBatches.stage`` draws from the sampler's construction
+    seed, so a fresh sampler in a resuming process stages the same rows.
+
+    ``SimResult.timing`` holds, per segment written by this call, its end,
+    bytes on disk, ms on the device's clock and save seconds, and the
+    restore seconds of a resume."""
+    from repro_torch.checkpoint import msgpack_ckpt
+
+    if sim.mix_impl == "sharded":
+        raise ValueError(
+            "run_checkpointed drives the single-device chunked engine; "
+            "mix_impl='sharded' is not checkpointable yet")
+    E = max(1, int(eval_every))
+    seg = int(checkpoint_every)
+    if seg < 1 or seg % E != 0:
+        raise ValueError(
+            f"checkpoint_every must be a positive multiple of eval_every "
+            f"(segment boundaries must fall on eval-chunk boundaries); got "
+            f"checkpoint_every={checkpoint_every}, eval_every={eval_every}")
+    T = sim.iters
+    core = _cached_core(sim, graph, T=T, eval_every=E, x=batches.x, y=batches.y,
+                        eval_fn=eval_fn, device=device)
+    idx = batches.stage(T)[None]
+    cells = triggers.CellPolicies.of([sim.policy], core.dev)
+    meta = {"sim": dataclasses.asdict(sim), "T": int(T), "eval_every": int(E),
+            "checkpoint_every": int(seg)}
+    timing: dict = {"segments": [], "restore_s": None}
+
+    done = 0
+    ys_parts: list[dict] = []
+    state = bw = None
+    if resume:
+        t0 = time.perf_counter()
+        ends = msgpack_ckpt._steps(ckpt_dir)
+        for end in ends:
+            payload = msgpack_ckpt.restore(ckpt_dir, end)
+            if payload.get("meta") != meta:
+                raise ValueError(
+                    f"checkpoint {ckpt_dir}/step_{end} was written by a "
+                    f"different scenario (sim/T/eval_every/checkpoint_every "
+                    f"mismatch); refusing to resume into it")
+            ys_parts.append(payload["ys"])
+            if end == ends[-1]:
+                state = _on_device(payload["state"], core.dev)
+                bw = np.asarray(payload["bandwidths"])
+                done = int(end)
+        if ends:
+            timing["restore_s"] = time.perf_counter() - t0
+    if state is None:
+        state = core.init([sim.seed])
+        bw = state.bandwidths[0].cpu().numpy()
+
+    core.prepare()
+    segments_run = 0
+    while done < T:
+        end = min(done + seg, T)
+        span = core.span(state, cells, idx, done, end, final=end == T)
+        state = span.state
+        ys_host = _cell_ys(_to_host(span.ys), 0, sim.trace)
+        ys_parts.append(ys_host)
+        t0 = time.perf_counter()
+        path = msgpack_ckpt.save(
+            ckpt_dir, end, {"meta": meta, "end": int(end), "state": state,
+                            "bandwidths": bw, "ys": ys_host},
+            keep=0)  # keep every segment: earlier ys are part of the result
+        timing["segments"].append({
+            "end": int(end), "bytes": os.path.getsize(path),
+            "save_s": time.perf_counter() - t0,
+            "ms_per_step": span.timing()["ms_per_step"]})
+        done = end
+        segments_run += 1
+        if halt_after is not None and segments_run >= halt_after and done < T:
+            raise CheckpointHalt(
+                f"halted after {segments_run} segment(s) at iteration {done} "
+                f"(checkpoint {ckpt_dir}/step_{done}.msgpack)")
+
+    out = {k: np.concatenate([np.asarray(p[k]) for p in ys_parts], axis=0)
+           for k in ys_parts[0]}
+    res = _result_of_ys(out, bw, core.model_dim, sim.trace)
     res.timing = timing
     return res

@@ -38,8 +38,9 @@ class SweepResult:
     Like ``SimResult``, the ``comm``/``adj`` link matrices are accessors
     over ``trace``-dependent storage (dense / bit-packed / absent); slicing
     via ``result()`` keeps the storage mode.  The adjacency is shared by
-    the cells (one graph realization per iteration), so ``_adj`` is one
-    (T, ...) trajectory broadcast to (S, P, T, ...).  ``timing`` is the
+    the cells (one graph realization per iteration) unless resources or
+    faults are on, so ``_adj`` is then one (T, ...) trajectory broadcast
+    to (S, P, T, ...).  ``timing`` is the
     engine call's (``simulator.make_engine``): ms of the first iteration
     and mean ms per later iteration, for all cells together.
     """
@@ -60,7 +61,7 @@ class SweepResult:
     _comm: np.ndarray | None = None  # (S,P,T,m,m) bool | (S,P,T,m,W) uint32
     _adj: np.ndarray | None = None
     # resource, fault and watchdog channels (S, P, T): all-zero (all-True
-    # for window_connected), as the port runs no such process yet
+    # for window_connected) without that process
     down_count: np.ndarray | None = None
     exhausted_count: np.ndarray | None = None
     fault_down_count: np.ndarray | None = None
@@ -163,11 +164,11 @@ def run_sweep(
 
     trace = sim.trace
     link = trace_mod.link_dtype(trace)
-    zeros = np.zeros((S, P, T), np.int32)
     adj = None
-    if "adj" in host:
+    if "adj" in host:  # (1, T, ...) when the cells share the adjacency
         adj = host["adj"].astype(link)
-        adj = np.broadcast_to(adj, (S, P) + adj.shape)
+        adj = (grid(adj) if adj.shape[0] == S * P
+               else np.broadcast_to(adj[0], (S, P) + adj.shape[1:]))
     return SweepResult(
         seeds=seeds, policies=policies,
         loss=grid(host["loss"]), acc=grid(host["acc"]),
@@ -177,9 +178,9 @@ def run_sweep(
         bandwidths=grid(host["bandwidths"]), model_dim=model_dim, trace=trace,
         _comm=grid(host["comm"]).astype(link) if "comm" in host else None,
         _adj=adj,
-        down_count=zeros, exhausted_count=zeros.copy(),
-        fault_down_count=zeros.copy(), stale_max=zeros.copy(),
-        window_connected=np.ones((S, P, T), bool), window_needed=zeros.copy(),
+        **{f: grid(host[f]) for f in (trace_mod.RESOURCE_CHANNELS
+                                      + trace_mod.FAULT_CHANNELS
+                                      + trace_mod.WATCHDOG_CHANNELS)},
         timing=timing)
 
 

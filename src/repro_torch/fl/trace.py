@@ -21,6 +21,16 @@ import torch
 TRACE_MODES: tuple[str, ...] = ("full", "packed", "summary")
 WORD = 32  # bits per packed word
 
+# scenario-dynamics channels, one value per iteration (per cell) in every
+# trace mode, like the row sums; all-zero (all-True for window_connected)
+# for a run without that process:
+# devices down by churn / out of broadcast budget
+RESOURCE_CHANNELS: tuple[str, ...] = ("down_count", "exhausted_count")
+# devices silenced by a crash or cluster outage / worst rejoin staleness
+FAULT_CHANNELS: tuple[str, ...] = ("fault_down_count", "stale_max")
+# the watchdog's union-window verdict / smallest connecting window
+WATCHDOG_CHANNELS: tuple[str, ...] = ("window_connected", "window_needed")
+
 
 def check_trace_mode(trace: str) -> str:
     if trace not in TRACE_MODES:

@@ -1,7 +1,9 @@
 """repro_torch stands alone: no module of it, and not chip_smoke.py,
-imports jax or the JAX package; importing it loads no jax; it never
-moves to the CPU on its own; and what it has not ported yet raises
-NotImplementedError while invalid values keep the reference's messages."""
+imports jax, the JAX package or msgpack (the checkpoints carry their own
+packer); importing it loads no jax; it never moves to the CPU on its own;
+what it has not ported yet raises NotImplementedError while invalid
+values keep the reference's messages; and every scenario-dynamics knob
+runs and gives the reference's channels."""
 import ast
 import pathlib
 import subprocess
@@ -11,6 +13,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import api as japi  # noqa: E402
 from repro.fl import service as jservice  # noqa: E402
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.fl import service as tservice  # noqa: E402
@@ -34,7 +40,7 @@ def _imports(path: pathlib.Path) -> list[str]:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [n for n in _imports(path)
-           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -78,13 +84,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(churn_rate=0.1), "item 7"),
-    (dict(budget_bytes=1e6), "item 7"),
-    (dict(crash_rate=0.1), "item 7"),
-    (dict(watchdog_window=4), "item 7"),
-    (dict(mix_impl="sharded"), "item 9"),
-    (dict(flap_rate=0.1), "item 7"),
-    (dict(partition_start=0, partition_len=4), "item 7"),
+    pytest.param(dict(mix_impl="sharded"), "item 9", id="kw4-item 9"),
 ])
 def test_unported_features_raise_not_implemented(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -92,6 +92,36 @@ def test_unported_features_raise_not_implemented(kw, item):
                                 if kw.get("mix_impl") == "sharded" else {}))
     with pytest.raises(NotImplementedError, match=item):
         tservice.ScenarioSpec(**kw)
+
+
+DYN_SPEC = dict(m=8, dim=16, n_train=320, n_test=80, iters=12, eval_every=4,
+                batch=8, trace="full", r=30.0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(churn_rate=0.1),
+    dict(budget_bytes=1e3),
+    dict(crash_rate=0.1),
+    dict(watchdog_window=4),
+    dict(flap_rate=0.1),
+    dict(partition_start=0, partition_len=4),
+])
+def test_dynamics_knobs_run_and_match_reference(kw):
+    """Each knob set that once raised NotImplementedError runs in the port
+    and gives the reference's channels: integers (the six dynamics
+    channels, v, counts, links) equal, floats within the golden
+    tolerances."""
+    spec = dict(DYN_SPEC, **kw)
+    with jax.threefry_partitionable(False):
+        want = japi.simulate(japi.ScenarioSpec(**spec))
+    got = tapi.simulate(tapi.ScenarioSpec(**spec), device="cpu")
+    for f in ("v", "comm_count", "deg", "down_count", "exhausted_count",
+              "fault_down_count", "stale_max", "window_connected", "window_needed"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert np.array_equal(got.comm, want.comm) and np.array_equal(got.adj, want.adj)
+    for f in ("loss", "acc", "tx_time", "util", "consensus_err"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f), rtol=2e-4,
+                                   atol=2e-5, err_msg=f)
 
 
 def test_unported_entry_points_raise_not_implemented():
@@ -112,6 +142,9 @@ def test_unported_entry_points_raise_not_implemented():
     dict(mix_impl="sharded", trace="full"), dict(topology="torus"),
     dict(time_varying="churn"), dict(partition="iid"), dict(n_train=0),
     dict(eval_every=0), dict(seeds=()), dict(deadline_s=-1.0),
+    dict(churn_rate=1.5), dict(bw_walk=-1), dict(budget_bytes=-1),
+    dict(flap_len=0), dict(partition_len=-1), dict(watchdog_window=-1),
+    dict(watchdog_nprop=-1),
 ])
 def test_validation_messages_match_reference(kw):
     with pytest.raises(ValueError) as want:
