@@ -25,7 +25,10 @@ error:
    the sweep's cell axis at C = 8 (``mix`` at m=1024, D=50890, against
    batched ``torch.matmul`` and the fp64 gates; ``mix_sparse`` on the
    fleet fabric, rgg r=0.4 at m=1024 and at m=4096, against CSR of the
-   block-diagonal P), each cell bit-equal to its solo launch;
+   block-diagonal P), each cell bit-equal to its solo launch; the
+   gather-mix over a rectangular source at phase 5h's large cell's shapes
+   (m=16384 on 8 shards, the stacked [own; halo] buffer of n_src rows)
+   against CSR of the same rectangular P;
    the dense mix's and the fp32 SWA kernel's tensor-core opcodes and
    registers (``cuobjdump``, TF32 ones required) and their error and bias
    against fp64, each within a stated limit;
@@ -83,6 +86,17 @@ error:
    launches (the warm start's neighbour sum is the plain ELL slot loop),
    at most one plan build, its ``sparse`` twin equal on every integer
    channel;
+   5h. sharded: the fleet cell through ``mix_impl="sharded"`` at S = 1, 2
+   and 8 in one process, each after the gather-mix wrapper on that S's
+   [own; halo] table held bit-exact against its plain version, and each
+   against phase 5's ``sparse_pallas`` run (integer channels equal, floats
+   within RTOL / ATOL, every channel but consensus_err bit-equal), then at
+   S = 8 under ``torch.distributed`` on NCCL at world size 1, bit-equal to
+   the one-process run; then m=16384 on 8 shards with 5f's knobs beside
+   its ``sparse_pallas`` twin (every integer channel equal, every channel
+   but consensus_err bit-equal), with the plan's
+   halo sizes, the halo bytes an iteration, device activities and the
+   idle share; every run exactly 20 ``mix_sparse`` launches;
    5g. resume: ``run_checkpointed`` of the 5e cell with Adam, a checkpoint
    every 10 iterations (~0.84 GB each) in a temporary directory: halted
    after one segment and resumed in a fresh Python process, bit-equal on
@@ -90,8 +104,9 @@ error:
    channels equal, floats within RTOL / ATOL; each checkpoint's bytes and
    save and restore seconds;
 6. cpu: m=64, svm, D=7850, ``mix_impl="pallas"``, T=30, the same with
-   5e's knobs (every dynamics channel too), and m=16, cnn, T=10, on the
-   card and on the CPU (plain versions), channel by channel;
+   5e's knobs (every dynamics channel too), the same sharded on 4 shards,
+   and m=16, cnn, T=10, on the card and on the CPU (plain versions),
+   channel by channel;
 7. profile: device activities, device busy time, idle share and each of
    the repo's kernels' device time per iteration of the paper, fleet,
    dense-fabric, paper-sweep and fleet-sweep paths, one service launch of
@@ -118,7 +133,9 @@ The SIMT SWA kernel has no wrapper route, so no counter: its launches are
 counted from the profiler's device activities in the prefills of 8-10,
 beside each prefill's counted launches of the kernel that serves it.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
+A line ``[t s] ... done`` after each group of phases gives the script's
+time so far.  The line before the last is one JSON object
+``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  It imports nothing of the
 JAX package.
 """
@@ -421,6 +438,8 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
                                                          ("mix_sparse_wide",)))
     rows["mix_sparse_direct"].update(_mix_sparse_cells_row(
         torch, dev, gen, 4096, 0.4, ("mix_sparse_wide", "mix_sparse_direct")))
+    # the sharded engine's rectangular source (phase 5h)
+    rows["mix_sparse"].update(_halo_row(torch, dev, gen))
     rows.update(_swa_fp32_rows(torch, dev, gen, res, variant_libs))
     rows.update(_swa_rows(torch, dev, gen, variant_libs["swa_attention_tc"]))
     return rows
@@ -621,6 +640,82 @@ def _wide_row(torch, dev, gen, m: int = 1024, n: int = 7850) -> dict:
             **{f"ms_{c}_columns": t for c, (_, t) in widths.items()}}
 
 
+HALO_M, HALO_SHARDS = 16384, 8  # phase 5h's large sharded cell
+
+
+def _halo_case(torch, dev, gen, m: int, shards: int, n: int = 7850):
+    """The sharded engine's gather-mix at m devices on ``shards`` shards:
+    the fleet fabric (rgg at ``fleet_radius(m)``, edge dropout 0.3) cut by
+    ``shard_plan``, the table of all shards over the stacked [own rows ;
+    halo rows] buffer (``ShardCtx.nbr_loc``, n_src = m + S H_max rows) and
+    a P of half the devices broadcasting.  The wrapper must launch the
+    128-column route once and give the plain version's bits.  Returns
+    (plan, ctx, gather-mix plan, p_diag, p_off, w, abs_err)."""
+    from repro_torch.core import efhc, topology
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    radius = topology.fleet_radius(m)
+    g = topology.make_process(m, "rgg", radius=radius, time_varying="edge_dropout",
+                              drop=0.3, seed=0)
+    plan = topology.shard_plan(g.edges, shards, coords=g.coords)
+    ctx = efhc.ShardCtx.of(plan, range(shards), dev)
+    # the fleet's P, its rows in the shards' order (their slots are the
+    # global table's: plan.nbr_gid = idx[owned])
+    _, p_diag, p_off = _ell_p(torch, dev, gen, m, radius)
+    p_diag, p_off = p_diag[ctx.owned].contiguous(), p_off[ctx.owned].contiguous()
+    n_src = m + shards * plan.h_max
+    w = torch.randn((n_src, n), generator=gen, device=dev)
+    pl = mixing_ops.prepare_plan(ctx.nbr_loc)
+    check(not pl.wide and pl.n_direct == 0 and pl.n_src <= n_src,
+          f"halo table m={m} S={shards}: expected the 128-column tier, got chunk "
+          f"{pl.chunk}, {pl.n_direct} direct rows, n_src {pl.n_src} of {n_src}")
+    nl = topology.StagedNeighbors(idx=ctx.nbr_loc, mask=ctx.mask)
+    ref = mix_sparse_ref(ctx.nbr_loc, p_diag, p_off, w)
+    abs_err = _wrapper_check(torch, nl, p_diag, p_off, w, ref, ("mix_sparse",),
+                             f"the [own; halo] buffer at m={m}, S={shards}")
+    del ref
+    return plan, ctx, pl, p_diag, p_off, w, abs_err
+
+
+def _halo_row(torch, dev, gen, m: int = HALO_M, shards: int = HALO_SHARDS,
+              n: int = 7850) -> dict:
+    """The gather-mix over a rectangular source at phase 5h's large cell's
+    shapes (``_halo_case`` at m=16384 on 8 shards): bit-equal to the plain
+    version, timed against the plain slot loop, CSR ``torch.sparse.mm`` of
+    the same rectangular (m, n_src) P, and the bound of the rows it reads."""
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_sparse_ref
+
+    plan, ctx, pl, p_diag, p_off, w, abs_err = _halo_case(torch, dev, gen, m, shards, n)
+    n_src = w.shape[0]
+    ms = time_ms(torch, lambda: mixing_ops.mix_sparse(ctx.nbr_loc, p_diag, p_off, w))
+    plain = time_ms(torch, lambda: mix_sparse_ref(ctx.nbr_loc, p_diag, p_off, w), reps=5)
+    nz = p_off != 0
+    r = torch.arange(m, device=dev)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([r[:, None].expand_as(ctx.nbr_loc)[nz], r]),
+                     torch.cat([ctx.nbr_loc[nz], r])]),
+        torch.cat([p_off[nz], p_diag]), (m, n_src)).coalesce().to_sparse_csr()
+    lib = time_ms(torch, lambda: torch.sparse.mm(csr, w))
+    nnz = int(nz.sum())
+    # the source rows this P reads: every own row (its self term) and the
+    # halo rows of its weighted slots
+    reads = int(torch.unique(torch.cat([r, ctx.nbr_loc[nz]])).numel())
+    b_ms, b_by = _sparse_bound(nnz, m, reads, plan.d_max, n)
+    print(f"kernel mix_sparse over a halo buffer m={m} n_src={n_src} ({shards} shards, "
+          f"B_max {plan.b_max}, H_max {plan.h_max}, boundary_frac "
+          f"{plan.boundary_frac:.4f}) D={n} d_max={plan.d_max} nnz_off={nnz}: max abs "
+          f"err {abs_err:.3g} (tol exact); kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+          f"library_ms {lib:.4f} (torch.sparse.mm, CSR, the rectangular P) bound_ms "
+          f"{b_ms:.4f} ({b_by}, {reads} source rows read); plan: built in "
+          f"{pl.build_ms:.1f} ms, {pl.n_groups} groups, {pl.mean_union:.1f} union rows "
+          f"per group, largest union {pl.max_union} rows / group {pl.max_rows} rows")
+    del csr, w
+    return {"ms_halo": ms, "plain_ms_halo": plain, "library_ms_halo": lib,
+            "bound_ms_halo": b_ms, "bound_by_halo": b_by, "max_abs_err_halo": abs_err}
+
+
 def _wrapper_check(torch, nl, p_diag, p_off, w, ref, routes, label) -> float:
     """One wrapper call: it must launch each gather-mix route of
     ``routes`` once and no other, and give the plain version's bits."""
@@ -660,14 +755,14 @@ def _launcher(torch, plan, p_diag, p_off, w, routes=("wide", "direct")):
                 p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(), out.data_ptr(),
                 plan.rows.data_ptr(), plan.row_ptr.data_ptr(), plan.union.data_ptr(),
                 plan.union_ptr.data_ptr(), plan.slot_pos.data_ptr(),
-                plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(), 1, m,
+                plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(), 1, m, m,
                 plan.n_groups, n_rows, d_max, stride, n, plan.max_union, plan.chunk,
                 stream), "mix_sparse_wide")
         if "direct" in routes and plan.n_direct:
             build.check(lib.repro_mix_sparse_direct_f32(
                 idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
                 out.data_ptr(), plan.direct.data_ptr(), finite.data_ptr(), 1,
-                plan.n_direct, m, d_max, n, stream), "mix_sparse_direct")
+                plan.n_direct, m, m, d_max, n, stream), "mix_sparse_direct")
         return out
     return run
 
@@ -1512,6 +1607,23 @@ def phase_paper(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
 
 
 GATHER_ROUTES = ("mix_sparse", "mix_sparse_wide", "mix_sparse_direct")
+# 5f's dynamics knobs (the fleet dynamics cell and 5h's large sharded cell)
+FLEET_DYNAMICS = dict(churn_rate=0.05, flap_rate=0.1, crash_rate=0.02, warm_start=True,
+                      watchdog_window=8)
+
+
+def _fleet_inputs(m: int, dim: int, radius: float | None = None):
+    """Phase 5's data, eval set and rgg fabric at m devices (radius
+    ``fleet_radius(m)`` unless given), edge dropout 0.3."""
+    from repro_torch.core.topology import fleet_radius, make_process
+    from repro_torch.data.partition import by_labels
+    from repro_torch.data.synthetic import image_dataset
+
+    x, y = image_dataset(max(4000, 4 * m), seed=0, dim=dim)
+    xt, yt = image_dataset(800, seed=1, dim=dim)
+    graph = make_process(m, "rgg", radius=radius or fleet_radius(m),
+                         time_varying="edge_dropout", drop=0.3, seed=0)
+    return x, y, by_labels(y, m, 3), xt, yt, graph
 
 
 def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20,
@@ -1525,17 +1637,10 @@ def phase_fleet(dev, m: int = 4096, dim: int = 784, T: int = 20,
     the kernels' arithmetic), its integer channels required equal."""
     import dataclasses
 
-    from repro_torch.core.topology import fleet_radius, make_process
     from repro_torch.data.loader import FederatedBatches
-    from repro_torch.data.partition import by_labels
-    from repro_torch.data.synthetic import image_dataset
     from repro_torch.fl.simulator import SimConfig, make_eval_fn, run
 
-    x, y = image_dataset(max(4000, 4 * m), seed=0, dim=dim)
-    xt, yt = image_dataset(800, seed=1, dim=dim)
-    parts = by_labels(y, m, 3)
-    graph = make_process(m, "rgg", radius=radius or fleet_radius(m),
-                         time_varying="edge_dropout", drop=0.3, seed=0)
+    x, y, parts, xt, yt, graph = _fleet_inputs(m, dim, radius)
     label = "fleet" if radius is None else f"dense fabric (rgg r={radius})"
     sim = SimConfig(m=m, iters=T, dim=dim, r=50.0, trace="summary",
                     mix_impl="sparse_pallas")
@@ -2174,21 +2279,13 @@ def phase_fleet_dynamics(dev, m: int = 4096, dim: int = 784, T: int = 20,
     ``twin`` the plain ``sparse`` twin, every integer channel equal."""
     import dataclasses
 
-    from repro_torch.core.topology import fleet_radius, make_process
     from repro_torch.data.loader import FederatedBatches
-    from repro_torch.data.partition import by_labels
-    from repro_torch.data.synthetic import image_dataset
     from repro_torch.fl.simulator import SimConfig, make_eval_fn, run
     from repro_torch.kernels.mixing import ops as mixing_ops
 
-    x, y = image_dataset(max(4000, 4 * m), seed=0, dim=dim)
-    xt, yt = image_dataset(800, seed=1, dim=dim)
-    parts = by_labels(y, m, 3)
-    graph = make_process(m, "rgg", radius=fleet_radius(m),
-                         time_varying="edge_dropout", drop=0.3, seed=0)
+    x, y, parts, xt, yt, graph = _fleet_inputs(m, dim)
     sim = SimConfig(m=m, iters=T, dim=dim, r=50.0, trace="summary",
-                    mix_impl="sparse_pallas", churn_rate=0.05, flap_rate=0.1,
-                    crash_rate=0.02, warm_start=True, watchdog_window=8)
+                    mix_impl="sparse_pallas", **FLEET_DYNAMICS)
     eval_fn = make_eval_fn(sim, xt, yt)
     plans0 = mixing_ops.PLAN_BUILDS
     t0 = time.perf_counter()
@@ -2220,6 +2317,213 @@ def phase_fleet_dynamics(dev, m: int = 4096, dim: int = 784, T: int = 20,
               fields=DYN_INT_FIELDS)
     return launches, res
 
+
+SHARDS_5H = (1, 2, 8)  # the fleet cell's shard counts in one process
+EXACT_FIELDS = INT_FIELDS + ("loss", "acc", "tx_time", "util", "bandwidths")
+
+
+def _sharded_run(dev, sim, data, label: str, T: int):
+    """``simulator.run`` of a sharded ``sim``: exactly T ``mix_sparse``
+    launches (one an iteration for all local shards, over the [own; halo]
+    buffer) and no other gather-mix route; finite channels."""
+    from repro_torch.data.loader import FederatedBatches
+    from repro_torch.fl.simulator import make_eval_fn, run
+
+    x, y, parts, xt, yt, graph = data
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = run(sim, graph, FederatedBatches(x, y, parts, sim.batch, seed=2),
+              make_eval_fn(sim, xt, yt), eval_every=20, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _launches().items() if n}
+    check(launches == {"mix_sparse": T},
+          f"{label}: expected {T} mix_sparse launches and no other, got {launches}")
+    _finite(res, label)
+    return res, launches, wall
+
+
+def _bit_equal(res, want, label: str, fields=EXACT_FIELDS) -> None:
+    """Every channel of ``fields`` of ``res`` bit-equal to ``want``'s."""
+    differ = [f for f in fields if not np.array_equal(getattr(res, f), getattr(want, f))]
+    check(not differ, f"{label}: differs in bits on {differ}")
+
+
+def _sharded_entry_points(dev, m: int = 64, shards: int = 4, T: int = 10) -> dict:
+    """``api.sweep`` and ``api.serve`` of a sharded spec on the card: the
+    cells run one after another, each exactly T ``mix_sparse`` launches;
+    a grid cell and a served cell bit-equal to the solo ``api.simulate``
+    of their (seed, policy)."""
+    import dataclasses
+
+    from repro_torch import api
+
+    spec = api.ScenarioSpec(m=m, iters=T, eval_every=5, mix_impl="sharded",
+                            shards=shards)
+    solo = api.simulate(dataclasses.replace(spec, policy="gossip", seeds=(1,)),
+                        device=dev)
+    _reset_launches()
+    grid = api.sweep(spec, seeds=(0, 1), device=dev)
+    sweep = {k: n for k, n in _launches().items() if n}
+    cells = len(grid.seeds) * len(grid.policies)
+    _reset_launches()
+    reports = api.serve([dataclasses.replace(spec, policy=p, seeds=(0, 1))
+                         for p in ("efhc", "gossip")], device=dev)
+    served = {k: n for k, n in _launches().items() if n}
+    check(sweep == {"mix_sparse": cells * T} and served == {"mix_sparse": 4 * T},
+          f"sharded sweep / serve: expected {cells * T} / {4 * T} mix_sparse launches "
+          f"and no other, got {sweep} / {served}")
+    check(all(r.ok for r in reports), "sharded serve: a report is not ok")
+    for label, res in (("sweep cell", grid.result(1, "gossip")),
+                       ("served cell", reports[1].results[1])):
+        _bit_equal(res, solo, f"sharded {label} (seed 1, gossip) against its solo run",
+                   (*EXACT_FIELDS, "consensus_err", *DYN_INT_FIELDS))
+    print(f"sharded entry points m={m} S={shards} T={T}: api.sweep of {cells} cells "
+          f"({sweep}) and api.serve of 4 cells in {len({r.launch_id for r in reports})} "
+          f"launch ({served}), cells one after another; the (1, gossip) cell of each "
+          f"bit-equal to its solo api.simulate on the card")
+    return {f"api.sweep {cells} cells": sweep.get("mix_sparse", 0),
+            "api.serve 4 cells": served.get("mix_sparse", 0)}
+
+
+def phase_sharded(dev, fleet_res, m: int = 4096, dim: int = 784, T: int = 20,
+                  shards=SHARDS_5H, backend: str | None = "nccl", big_m: int = HALO_M,
+                  big_shards: int = HALO_SHARDS) -> dict:
+    """5h: the sharded fleet engine (``mix_impl="sharded"``).
+
+    1. The fleet cell at each of ``shards`` in one process: first the
+       gather-mix wrapper on that S's [own; halo] table (``_halo_case``),
+       bit-equal to its plain version; then the run, against phase 5's
+       ``sparse_pallas`` run ``fleet_res``: integer channels equal, floats
+       within RTOL / ATOL, and every channel but consensus_err bit-equal.
+    2. With a ``backend`` (NCCL on the card; gloo rehearses it on the CPU):
+       the same at S=8 under ``torch.distributed`` at world size 1 (a file
+       store in a temporary directory), every exchange through the process
+       group: bit-equal on every channel to the one-process S=8 run.
+    3. ``api.sweep`` and ``api.serve`` of a small sharded spec
+       (``_sharded_entry_points``).
+    4. The fleet at ``big_m`` on ``big_shards`` shards with 5f's dynamics
+       knobs: against its ``sparse_pallas`` twin every integer channel
+       equal and every channel but consensus_err bit-equal; ms/iteration, device activities, busy time
+       and idle share, the plan's B_max / H_max / boundary share and the
+       halo bytes an iteration.
+    Each run launches ``mix_sparse`` exactly T times.  Returns the
+    launches of each run."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.topology import shard_plan
+    from repro_torch.fl.simulator import SimConfig
+
+    data = _fleet_inputs(m, dim)
+    base = SimConfig(m=m, iters=T, dim=dim, r=50.0, trace="summary", mix_impl="sharded")
+    want = {f: getattr(fleet_res, f) for f in (*INT_FIELDS, *FLOAT_FIELDS, "acc")}
+    out: dict = {}
+    one = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for S in shards:
+        label = f"sharded fleet S={S}"
+        hp, _, _, _, _, hw, abs_err = _halo_case(torch, dev, gen, m, S, n=(dim + 1) * 10)
+        print(f"kernel mix_sparse over the halo buffer of {label} m={m} n_src="
+              f"{hw.shape[0]} (H_max {hp.h_max}): the wrapper launched the 128-column "
+              f"route once, max abs err {abs_err:.3g} against the plain version (tol "
+              f"exact)")
+        del hw
+        res, launches, wall = _sharded_run(dev, dataclasses.replace(base, shards=S),
+                                           data, label, T)
+        used = _compare(res, want, label, fields_float=(*FLOAT_FIELDS, "acc"))
+        plan = shard_plan(data[5].edges, S, coords=data[5].coords)
+        one[S] = res
+        out[f"S={S}"] = launches.get("mix_sparse", 0)
+        print(f"{label} m={m} svm D={res.model_dim} T={T} (one process, {S} shards; "
+              f"B_max {plan.b_max}, H_max {plan.h_max}, boundary_frac "
+              f"{plan.boundary_frac:.4f}): launches {launches}; first step "
+              f"{res.timing['first_step_ms']:.2f} ms, {res.timing['ms_per_step']:.3f} "
+              f"ms/step after it (sparse_pallas {fleet_res.timing['ms_per_step']:.3f}); "
+              f"wall {wall:.2f} s with staging; against the sparse_pallas run: integer "
+              f"channels equal, worst share of the allowance {used}; every channel but "
+              f"consensus_err bit-equal")
+        _bit_equal(res, fleet_res, f"{label} against the sparse_pallas run")
+    if 8 in one:
+        seen = _per_iteration(torch, lambda t: _sharded_run(
+            dev, dataclasses.replace(base, shards=8, iters=t), data, "profile", t)[0])
+        if seen is None:
+            print("profile sharded fleet S=8: the profiler saw no device activity")
+        else:
+            n_act, busy, _, _ = seen
+            ms = one[8].timing["ms_per_step"]
+            print(f"profile sharded fleet S=8: {n_act:.1f} device activities/iteration, "
+                  f"device busy {busy:.3f} ms/iteration of {ms:.3f} ms (idle share "
+                  f"{1 - busy / ms:.3f})")
+    if backend:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                    world_size=1, rank=0)
+            try:
+                label = f"sharded fleet S=8 on {backend}, world size 1"
+                res, launches, wall = _sharded_run(
+                    dev, dataclasses.replace(base, shards=8), data, label, T)
+            finally:
+                dist.destroy_process_group()
+        _bit_equal(res, one[8], f"{label} against the one-process S=8 run",
+                   (*EXACT_FIELDS, "consensus_err", *DYN_INT_FIELDS))
+        out[f"S=8 on {backend}"] = launches.get("mix_sparse", 0)
+        print(f"{label}: launches {launches}; {res.timing['ms_per_step']:.3f} ms/step "
+              f"after the first; wall {wall:.2f} s; every channel bit-equal to the "
+              f"one-process S=8 run")
+
+    out.update(_sharded_entry_points(dev))
+
+    # the large cell with 5f's dynamics
+    big = _fleet_inputs(big_m, dim)
+    plan = shard_plan(big[5].edges, big_shards, coords=big[5].coords)
+    bsim = SimConfig(m=big_m, iters=T, dim=dim, r=50.0, trace="summary",
+                     mix_impl="sharded", shards=big_shards, **FLEET_DYNAMICS)
+    label = f"sharded fleet dynamics m={big_m} S={big_shards}"
+    res, launches, wall = _sharded_run(dev, bsim, big, label, T)
+    out[f"m={big_m} S={big_shards}"] = launches.get("mix_sparse", 0)
+    rounds = bsim.watchdog().rounds(big_m)
+    D = res.model_dim
+    # per iteration: the w rows, v, deg, up and f_up of the boundary, and the
+    # watchdog's int32 distances once a round; the payload all_gather moves
+    # is S B_max rows of each
+    per_row = D * 4 + 1 + 4 + 1 + 1 + rounds * 4
+    print(f"{label} svm D={D} T={T} ({bsim.watchdog_window}-window watchdog, {rounds} "
+          f"rounds a step): launches {launches}; first step "
+          f"{res.timing['first_step_ms']:.2f} ms, {res.timing['ms_per_step']:.3f} "
+          f"ms/step after it; wall {wall:.2f} s with staging; {_mechanisms(res, label, all_knobs=False)}")
+    print(f"{label} plan: B_max {plan.b_max}, H_max {plan.h_max}, boundary_frac "
+          f"{plan.boundary_frac:.4f} ({int(plan.n_send.sum())} boundary rows); halo "
+          f"bytes an iteration: {int(plan.n_send.sum()) * D * 4} of w over the real "
+          f"boundary rows, {big_shards * plan.b_max * per_row} gathered in all "
+          f"(padded to B_max, with v, deg, liveness and the watchdog's distances)")
+    seen = _per_iteration(torch, lambda t: _sharded_run(
+        dev, dataclasses.replace(bsim, iters=t), big, "profile", t)[0])
+    if seen is None:
+        print(f"profile {label}: the profiler saw no device activity; busy share not "
+              f"measured")
+    else:
+        n_act, busy, per_it, _ = seen
+        ms = res.timing["ms_per_step"]
+        print(f"profile {label}: {n_act:.1f} device activities/iteration, device busy "
+              f"{busy:.3f} ms/iteration of {ms:.3f} ms (idle share {1 - busy / ms:.3f})")
+        for kname, kms in sorted(per_it.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"profile {label}:   {kms:8.4f} ms/iteration  {kname[:90]}")
+    plain, _, pwall = _sharded_run(dev, dataclasses.replace(
+        bsim, mix_impl="sparse_pallas", shards=1), big, f"{label} sparse_pallas", T)
+    used = _compare(res, {f: getattr(plain, f) for f in (*DYN_INT_FIELDS,
+                                                         *FLOAT_FIELDS, "acc")},
+                    label, fields_int=DYN_INT_FIELDS, fields_float=(*FLOAT_FIELDS, "acc"))
+    _bit_equal(res, plain, f"{label} against its sparse_pallas twin")
+    print(f"{label} against sparse_pallas on the card "
+          f"({plain.timing['ms_per_step']:.3f} ms/step, wall {pwall:.2f} s): "
+          f"{', '.join(DYN_INT_FIELDS)} equal; worst share of the allowance {used}; "
+          f"every channel but consensus_err bit-equal")
+    return out
 
 RESUME_FIELDS = DYN_INT_FIELDS + FLOAT_FIELDS + ("acc", "bandwidths")
 
@@ -2321,14 +2625,17 @@ def phase_resume(dev, m: int = 1024, dim: int = 784, n_train: int = 8192,
 
 
 def phase_cpu(dev, m: int = 64, dim: int = 784, model: str = "svm",
-              T: int = 30, dynamics: bool = False) -> None:
+              T: int = 30, dynamics: bool = False, shards: int = 0) -> None:
     """``api.simulate`` on the card and on the CPU (plain versions),
     channel by channel; with ``dynamics`` under ``dynamics_knobs`` (the
-    budget 4 broadcasts of this model), every dynamics channel too."""
+    budget 4 broadcasts of this model), every dynamics channel too; with
+    ``shards`` the sharded engine on that many shards (summary trace)."""
     from repro_torch import api
     from repro_torch.fl.simulator import model_spec
 
     kw = dict(m=m, model=model, dim=dim, iters=T, mix_impl="pallas", trace="full")
+    if shards:
+        kw.update(mix_impl="sharded", shards=shards, trace="summary")
     if dynamics:
         kw.update(dynamics_knobs(model_spec(api.ScenarioSpec(**kw).to_sim()).flat_dim))
     spec = api.ScenarioSpec(**kw)
@@ -2336,16 +2643,18 @@ def phase_cpu(dev, m: int = 64, dim: int = 784, model: str = "svm",
     cpu = api.simulate(spec, device="cpu")
     fields = DYN_INT_FIELDS if dynamics else INT_FIELDS
     want = {f: getattr(cpu, f) for f in (*fields, *FLOAT_FIELDS, "acc")}
-    label = f"card vs cpu {model}" + (" dynamics" if dynamics else "")
+    label = (f"card vs cpu {model}" + (" dynamics" if dynamics else "")
+             + (f" sharded S={shards}" if shards else ""))
     used = _compare(gpu, want, label, fields_int=fields,
                     fields_float=(*FLOAT_FIELDS, "acc"))
     if dynamics:
         print(f"{label}: {_mechanisms(cpu, label)}")
-    check(np.array_equal(gpu.comm, cpu.comm) and np.array_equal(gpu.adj, cpu.adj),
-          f"{label}: link matrices differ")
-    print(f"{label} m={m} D={gpu.model_dim} pallas T={T}: integer channels and "
-          f"link matrices equal, float channels within rtol {RTOL} / atol {ATOL}; "
-          f"worst share of the allowance: {used}")
+    if not shards:
+        check(np.array_equal(gpu.comm, cpu.comm) and np.array_equal(gpu.adj, cpu.adj),
+              f"{label}: link matrices differ")
+    print(f"{label} m={m} D={gpu.model_dim} {kw['mix_impl']} T={T}: integer channels"
+          f"{'' if shards else ' and link matrices'} equal, float channels within rtol "
+          f"{RTOL} / atol {ATOL}; worst share of the allowance: {used}")
 
 
 def _device_activity(torch, run
@@ -2449,6 +2758,20 @@ def _watchdog_profile(torch, dev) -> None:
               f"{1 - busy / wall:.3f})")
 
 
+def _per_iteration(torch, cell):
+    """``cell(T)`` at T=4 and T=8 under the profiler; the difference over 4
+    iterations, which cancels staging and init: (device activities, device
+    busy ms, device ms by kernel name, each per iteration; the T=8
+    result), or None when the profiler sees no device activity."""
+    n4, busy4, per4, _ = _device_activity(torch, lambda: cell(4))
+    out = {}
+    n8, busy8, per8, _ = _device_activity(torch, lambda: out.setdefault("res", cell(8)))
+    if not n8:
+        return None
+    per_it = {k: (ms - per4.get(k, 0.0)) / 4 for k, ms in per8.items()}
+    return (n8 - n4) / 4, (busy8 - busy4) / 4, per_it, out["res"]
+
+
 def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     """Per-iteration device activities, device busy time, idle share, the
     device time of the kernels that take the most and of each of the
@@ -2476,33 +2799,26 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
         cell(4)  # warm
         # the cnn's first run is slower than its later ones: time a warm one
         warm = cell(8).timing["ms_per_step"] if name == "cnn" else None
-        n4, busy4, per4, _ = _device_activity(torch, lambda: cell(4))
-        out = {}
-        n8, busy8, per_name, _ = _device_activity(
-            torch, lambda: out.setdefault("res", cell(8)))
-        if not n8:
+        seen = _per_iteration(torch, cell)
+        if seen is None:
             print(f"profile {name}: the profiler saw no device activity; "
                   f"busy share not measured")
             continue
-        launches = (n8 - n4) / 4
-        busy = (busy8 - busy4) / 4
-        # device time per iteration by kernel name: the same difference
-        per_it = {k: (ms - per4.get(k, 0.0)) / 4 for k, ms in per_name.items()}
+        launches, busy, per_it, res8 = seen
         top = sorted(per_it.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile {name}: {launches:.1f} device activities/iteration, "
               f"device busy {busy:.3f} ms/iteration of {step_ms[name]:.3f} ms "
               f"without the profiler (idle share {1 - busy / step_ms[name]:.3f})"
               + ("" if warm is None else f", of {warm:.3f} ms in a warm run "
                                          f"(idle share {1 - busy / warm:.3f})")
-              + f"; {out['res'].timing['ms_per_step']:.3f} ms/iteration under it")
+              + f"; {res8.timing['ms_per_step']:.3f} ms/iteration under it")
         for kname, ms in top:
             print(f"profile {name}:   {ms:8.4f} ms/iteration ({ms / busy:.3f} of "
                   f"busy)  {kname[:90]}")
         own: dict[str, float] = {}
-        for per, sign in ((per_name, 1), (per4, -1)):
-            for kname, ms in per.items():
-                if fn := _repo_kernel(kname):
-                    own[fn] = own.get(fn, 0.0) + sign * ms / 4
+        for kname, ms in per_it.items():
+            if fn := _repo_kernel(kname):
+                own[fn] = own.get(fn, 0.0) + ms
         print(f"profile {name}: the repo's kernels, device ms/iteration: " + (
             ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())) or "none seen"))
     _watchdog_profile(torch, dev)
@@ -2833,12 +3149,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    t0 = time.perf_counter()
+
+    def lap(done: str) -> None:  # the script's time so far, against its limit
+        print(f"[{time.perf_counter() - t0:.1f} s] {done} done", flush=True)
+
     try:
         print(card_line())
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}")
         from repro_torch.kernels import build
-        t0 = time.perf_counter()
         variant_builds = start_variant_builds()  # beside the kernels'
         try:
             build.library()
@@ -2851,6 +3171,7 @@ def main() -> int:
 
         rows = phase_kernels(torch, dev, seed=0, variant_libs={
             name: lib for name, (_, lib) in variant_builds.items()})
+        lap("phase 2")
         phase_golden(dev)
         phase_golden(dev, "mlp_blocks")
         paper, paper_res = phase_paper(dev, twin=True)
@@ -2868,26 +3189,34 @@ def main() -> int:
         launches["mix_sparse_direct"] = phase_fleet(
             dev, m=4096, T=3, twin=True, radius=0.4,
             routes=("mix_sparse_wide", "mix_sparse_direct"))[0]["mix_sparse_direct"]
+        lap("phases 3-5b")
         service, service_res = phase_service(dev)
         for name in ("trigger_sq", "mix", "mix_sparse_wide"):
             rows[name]["service_launches"] = service[name]
         phase_quarantine(dev)
         deep = phase_deep(dev)
+        lap("phases 5c-5d")
         dyn, dyn_res = phase_dynamics(dev, twin=True, sweep=True)
         fleet_dyn, fleet_dyn_res = phase_fleet_dynamics(dev, twin=True)
         for name, counts in (("trigger_sq", dyn), ("mix", dyn),
                              ("mix_sparse", fleet_dyn)):
             rows[name]["dynamics_launches"] = counts[name]
+        lap("phases 5e-5f")
+        rows["mix_sparse"]["sharded_launches"] = phase_sharded(dev, fleet_res)
+        lap("phase 5h")
         phase_resume(dev)
         phase_cpu(dev)
         phase_cpu(dev, m=16, model="cnn", T=10)
         phase_cpu(dev, dynamics=True)
+        phase_cpu(dev, shards=4)
+        lap("phases 5g, 6")
         phase_profile(torch, dev, {
             name: res.timing["ms_per_step"] for name, res in (
                 ("paper", paper_res), ("fleet", fleet_res), ("dense fabric", dense_res),
                 ("paper sweep", sweep_res), ("fleet sweep", fleet_sweep_res),
                 ("service A launch", service_res), ("cnn", deep["cnn"]),
                 ("paper dynamics", dyn_res), ("fleet dynamics", fleet_dyn_res))})
+        lap("phase 7")
         # the sweeps held ~17 GB of (8, 1024, 50890) tensors: hand the cached
         # blocks back before the serve phases load 32 GB of weights
         del (paper_res, sweep_res, fleet_res, fleet_sweep_res, dense_res, service_res,
@@ -2896,9 +3225,12 @@ def main() -> int:
         simulator._ENGINE_CACHE.clear()  # the engines keep their datasets on the card
         torch.cuda.empty_cache()
         launches["swa_attention_tc"], seen_bf16 = phase_serve(torch, dev)
+        lap("phase 8")
         launches["swa_attention_tf32"], seen_fp32 = phase_serve(
             torch, dev, cfg=starcoder2_fp32(), seq=8192, twin="chunked")
+        lap("phase 9")
         smoke, seen_smoke = phase_serve_cpu(torch, dev)
+        lap("phase 10")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
@@ -2925,7 +3257,9 @@ def main() -> int:
                                    "fp64_bias", "ms_rna_lo", "fp64_max_abs_err_rna_lo",
                                    "fp64_bias_rna_lo", "plan_build_ms", "ms_32_columns",
                                    "sweep_launches", "service_launches",
-                                   "dynamics_launches", "ms_c8", "plain_ms_c8",
+                                   "dynamics_launches", "sharded_launches", "ms_halo",
+                                   "plain_ms_halo", "library_ms_halo", "bound_ms_halo",
+                                   "ms_c8", "plain_ms_c8",
                                    "library_ms_c8", "bound_ms_c8",
                                    "ms_64_columns", "ms_m4096_r04",
                                    "plain_ms_m4096_r04", "bound_ms_m4096_r04",

@@ -9,7 +9,9 @@ matrix product (TF32 off on the card, as the caller sets it).
 A batched run gives ``flat`` and the weights a leading cell axis,
 (C, m, D) rows under P (C, m, m) or ``p_diag`` (C, m) / ``p_off``
 (C, m, d_max); the neighbor table (m, d_max) is shared.  Each cell's
-rows are those its solo call gives.
+rows are those its solo call gives.  A shard of the sharded engine mixes
+its rows from the ``[own; halo]`` buffer (``mix_sparse_halo``), a source
+with more rows than the table.
 """
 from __future__ import annotations
 
@@ -38,10 +40,28 @@ def _sparse_mix_flat(nbr_idx: torch.Tensor, p_off: torch.Tensor,
 def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
                p_off: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     """p_ii w_i + sum_{j in N(i)} p_ij w_j over the neighbor list; p_diag
-    (..., m) or (..., m, 1)."""
+    (..., m) or (..., m, 1).  ``flat`` may hold more rows than the table
+    (a shard's ``[own; halo]`` buffer): row i's self term is source row i,
+    and the slots index all of them."""
     flat = flat.float()
     p_diag = p_diag.float().reshape(p_off.shape[:-1] + (1,))
-    return _sparse_mix_flat(nbr_idx, p_off, flat, p_diag * flat)
+    return _sparse_mix_flat(nbr_idx, p_off, flat,
+                            p_diag * flat[..., :nbr_idx.shape[0], :])
+
+
+def mix_sparse_halo(nbr_loc: torch.Tensor, p_diag: torch.Tensor,
+                    p_off: torch.Tensor, w_local: torch.Tensor,
+                    w_halo: torch.Tensor) -> torch.Tensor:
+    """``mix_sparse`` for a shard of a partitioned fleet: the source is the
+    ``[own rows ; halo rows]`` buffer and ``nbr_loc`` indexes it.  The
+    gather-mix kernel (``kernels.mixing.ops.mix_sparse``) takes it on the
+    card, the plain slot loop on the CPU: both sum the slots in order over
+    bit-identical row values, so the mixed rows are the single-device
+    engine's bit for bit."""
+    from repro_torch.kernels.mixing import ops  # its plain version imports this module
+
+    return ops.mix_sparse(nbr_loc, p_diag, p_off,
+                          torch.cat([w_local.float(), w_halo.float()], dim=-2))
 
 
 def mix_delta_sparse(nbr_idx: torch.Tensor, p_off: torch.Tensor,

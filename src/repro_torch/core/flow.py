@@ -1,8 +1,7 @@
 """Information-flow graph analysis (paper Prop. 1, Appendix A) and the
 B-connectivity watchdog.
 
-Port of ``repro.core.flow`` (its sharded ``watchdog_step_halo`` comes
-with the sharded engine).  The information-flow graph G'^(k) holds the
+Port of ``repro.core.flow``.  The information-flow graph G'^(k) holds the
 links used for parameter exchange at iteration k.  Prop. 1: under
 Assumption 8, G'^(k) is B-connected with B = (l~ + 2) B_1 where
 l~ B_1 <= B_2 <= (l~ + 1) B_1 - 1.
@@ -21,12 +20,14 @@ l~ B_1 <= B_2 <= (l~ + 1) B_1 - 1.
 
   after which ``max_i d[i] + 1`` is the smallest window whose union graph
   is connected (``window_needed``; ``window_connected`` = needed <=
-  window).  The rounds run over all cells at once, in plain torch.
+  window).  The rounds run over all cells at once, in plain torch.  The
+  sharded engine's twin, ``watchdog_step_halo``, relaxes a shard's rows
+  and takes its neighbors' distances over the halo exchange each round.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -191,6 +192,26 @@ def watchdog_step(cfg: WatchdogConfig, nbr_idx: torch.Tensor,
         cand = torch.maximum(d[..., nbr_idx], age_new)  # pad slots: max with INF
         d = torch.minimum(d, cand.amin(dim=-1))
     needed = torch.clamp(d.amax(dim=-1), max=AGE_INF - 1) + 1
+    return age_new, needed <= cfg.window, needed
+
+
+def watchdog_step_halo(cfg: WatchdogConfig, m: int, nbr_loc: torch.Tensor,
+                       owned: torch.Tensor, comm_ell: torch.Tensor,
+                       age: torch.Tensor, buf: Callable[[torch.Tensor], torch.Tensor],
+                       fleet_max: Callable[[torch.Tensor], torch.Tensor]):
+    """The sharded twin of ``watchdog_step`` over the local rows ``owned``
+    (n,) of an m-device fleet: ``nbr_loc`` (n, d_max) indexes the ``[own;
+    halo]`` buffer that ``buf(x)`` builds for a per-row x through the
+    engine's halo exchange (one exchange a round, as the mixing payload),
+    and ``fleet_max`` takes the max over every shard.  The slot arithmetic
+    is ``watchdog_step``'s, so ``window_needed`` is the single-device
+    engine's bit for bit."""
+    age_new = _age_update(comm_ell, age)
+    d = torch.where(owned == 0, 0, AGE_INF).to(torch.int32)
+    for _ in range(cfg.rounds(m)):
+        cand = torch.maximum(buf(d)[nbr_loc], age_new)
+        d = torch.minimum(d, cand.amin(dim=-1))
+    needed = torch.clamp(fleet_max(d), max=AGE_INF - 1) + 1
     return age_new, needed <= cfg.window, needed
 
 

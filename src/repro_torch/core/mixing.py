@@ -52,6 +52,25 @@ def build_p_ell(nbr_idx: torch.Tensor, adj_ell: torch.Tensor,
     return transition_ell(metropolis_weights_ell(nbr_idx, adj_ell), comm_ell)
 
 
+def metropolis_weights_ell_halo(nbr_loc: torch.Tensor, adj_ell: torch.Tensor,
+                                deg_buf: torch.Tensor) -> torch.Tensor:
+    """``metropolis_weights_ell`` for a shard's rows: ``nbr_loc`` (ms,
+    d_max) indexes the ``[own rows ; halo rows]`` buffer and ``deg_buf``
+    holds that buffer's int degrees (the halo's computed on their owners,
+    as here).  ``1/(1+deg)`` and the slot-wise min are elementwise, so
+    beta is bit-equal to the single-device rows."""
+    inv = 1.0 / (1.0 + deg_buf.float())
+    ms = adj_ell.shape[0]
+    return torch.minimum(inv[:ms, None], inv[nbr_loc]) * adj_ell.float()
+
+
+def build_p_ell_halo(nbr_loc: torch.Tensor, adj_ell: torch.Tensor,
+                     comm_ell: torch.Tensor, deg_buf: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    return transition_ell(metropolis_weights_ell_halo(nbr_loc, adj_ell, deg_buf),
+                          comm_ell)
+
+
 def assert_doubly_stochastic(p, atol: float = 1e-6) -> None:
     p = np.asarray(torch.as_tensor(p).cpu())
     assert np.all(p >= -atol), f"negative entries: min {p.min()}"

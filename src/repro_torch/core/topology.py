@@ -543,19 +543,30 @@ class GraphProcess:
 
     def adjacency_ell(self, k, nl: "StagedNeighbors") -> torch.Tensor:
         """G^(k) as a (m, d_max) bool slot mask over the static neighbor
-        list, realization-exact vs ``adjacency``."""
+        list, realization-exact vs ``adjacency``: the all-rows call of
+        ``adjacency_ell_rows``."""
+        return self.adjacency_ell_rows(
+            k, nl.idx, nl.mask, torch.arange(self.m, device=nl.idx.device))
+
+    def adjacency_ell_rows(self, k, idx: torch.Tensor, mask: torch.Tensor,
+                           rows: torch.Tensor) -> torch.Tensor:
+        """``adjacency_ell`` for an arbitrary row subset: ``idx``/``mask``
+        are the (R, d_max) neighbor-list rows of the global devices
+        ``rows`` (R,), and the slot mask equals those rows of the full
+        ``adjacency_ell``.  The per-edge draw is keyed on the canonical
+        global edge id, never on array position, so a shard that realizes
+        only its own rows draws the single-device engine's G^(k)."""
         if self.kind == "static":
-            return nl.mask
-        idx = nl.idx
-        i = torch.arange(self.m, device=idx.device)[:, None]
+            return mask
+        i = rows.to(idx.dtype)[:, None]
         if self.kind == "partition_cycle":
             phase = torch.remainder(torch.as_tensor(k, device=idx.device),
                                     self.cycle_len)
-            return torch.logical_and(nl.mask, (i + idx) % self.cycle_len == phase)
+            return torch.logical_and(mask, (i + idx) % self.cycle_len == phase)
         st = self.staged(idx.device)
         keep = _edge_uniforms_uv(prng.fold_in(st.key, k), torch.minimum(i, idx),
                                  torch.maximum(i, idx), self.m) >= self.drop
-        return torch.logical_and(nl.mask, keep)
+        return torch.logical_and(mask, keep)
 
 
 class StagedNeighbors(NamedTuple):
@@ -573,6 +584,130 @@ class StagedNeighbors(NamedTuple):
     @property
     def d_max(self) -> int:
         return int(self.idx.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Sharded-fleet partition: the m devices split into equal shards, and the
+# halo-exchange tables of the sharded engine.  Host numpy, set-up time,
+# O(E log E); the reference's tables entry for entry.
+# ---------------------------------------------------------------------------
+
+class ShardPlan(NamedTuple):
+    """Static fleet partition and halo-exchange tables for ``n_shards``
+    shards.
+
+    Shard ``s`` owns the ``ms = m / n_shards`` devices ``owned[s]`` (global
+    ids: Morton order when the graph has coordinates, contiguous id blocks
+    otherwise).  Each owned row's slots are remapped into the shard's
+    buffer ``[own rows ; halo rows]`` (``nbr_loc``), so one gather serves
+    local and cross-shard neighbors.  The halo comes from one all-gather of
+    each shard's boundary rows (rows with a cross-shard edge): shard ``s``
+    sends ``payload[send_idx[s]]`` (padded to ``B_max``) and reads its halo
+    out of the gathered (S, B_max) rows at the flat positions
+    ``recv_src[s]`` (padded to ``H_max``).  Pads point at local row 0 /
+    flat position 0; every consumer masks or zero-weights them."""
+
+    n_shards: int
+    ms: int  # devices per shard (m = n_shards * ms)
+    d_max: int
+    owned: np.ndarray  # (S, ms) int32 global ids owned by each shard
+    inv_perm: np.ndarray  # (m,) int32 global id -> row in shard-major order
+    nbr_gid: np.ndarray  # (S, ms, d_max) int32 global neighbor ids
+    nbr_loc: np.ndarray  # (S, ms, d_max) int32 index into [own; halo]
+    mask: np.ndarray  # (S, ms, d_max) bool real-neighbor slots
+    send_idx: np.ndarray  # (S, B_max) int32 local rows sent to the exchange
+    recv_src: np.ndarray  # (S, H_max) int32 flat (S * B_max) positions
+    n_send: np.ndarray  # (S,) int32 real boundary rows
+    n_halo: np.ndarray  # (S,) int32 real halo rows
+
+    @property
+    def m(self) -> int:
+        return self.n_shards * self.ms
+
+    @property
+    def b_max(self) -> int:
+        return int(self.send_idx.shape[1])
+
+    @property
+    def h_max(self) -> int:
+        return int(self.recv_src.shape[1])
+
+    @property
+    def boundary_frac(self) -> float:
+        """The share of the fleet exchanged each iteration: the halo
+        exchange's volume against a whole-fleet all-gather."""
+        return float(self.n_send.sum()) / max(1, self.m)
+
+
+def shard_plan(edges: EdgeList, n_shards: int, *,
+               coords: np.ndarray | None = None) -> ShardPlan:
+    """Partitions the fleet into ``n_shards`` equal shards and builds the
+    halo-exchange tables: Morton-order blocks with ``coords`` (spatially
+    compact, so a thin boundary crosses shards), contiguous id blocks
+    without (a ring's best, a fallback elsewhere).  Nothing densifies an
+    (m, m) matrix."""
+    m = edges.m
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1; got {n_shards}")
+    if m % n_shards:
+        raise ValueError(
+            f"sharded fleet needs m divisible by n_shards; got m={m}, "
+            f"n_shards={n_shards}")
+    ms = m // n_shards
+    if coords is not None and n_shards > 1:
+        perm = np.argsort(_morton_codes(coords), kind="stable").astype(np.int32)
+    else:
+        perm = np.arange(m, dtype=np.int32)
+    owned = perm.reshape(n_shards, ms)
+    inv_perm = np.empty(m, np.int32)
+    inv_perm[perm] = np.arange(m, dtype=np.int32)
+    shard_of = inv_perm // ms  # global id -> owning shard
+    loc_of = inv_perm % ms  # global id -> local row in its shard
+
+    nl = neighbor_list_from_edges(edges)
+    nbr_gid = nl.idx[owned]  # (S, ms, d_max)
+    mask = nl.mask[owned]
+
+    # each shard's halo: the sorted remote endpoints of its real slots
+    halos: list[np.ndarray] = []
+    for s in range(n_shards):
+        j = nbr_gid[s][mask[s]]
+        halos.append(np.unique(j[shard_of[j] != s]).astype(np.int32))
+    # each shard's sends: every owned row another shard needs, sorted by
+    # global id so receivers find their positions by binary search
+    all_halo = (np.concatenate(halos) if any(h.size for h in halos)
+                else np.empty(0, np.int32))
+    sends = [np.unique(all_halo[shard_of[all_halo] == t]).astype(np.int32)
+             for t in range(n_shards)]
+
+    b_max = max(1, max((s.size for s in sends), default=0))
+    h_max = max(1, max((h.size for h in halos), default=0))
+    send_idx = np.zeros((n_shards, b_max), np.int32)
+    recv_src = np.zeros((n_shards, h_max), np.int32)
+    nbr_loc = np.empty_like(nbr_gid)
+    for s in range(n_shards):
+        send_idx[s, : sends[s].size] = loc_of[sends[s]]
+        # halo row h sits at flat position t * b_max + (rank of h in send_t)
+        t = shard_of[halos[s]]
+        pos = np.empty(halos[s].size, np.int64)
+        for tt in np.unique(t):
+            sel = t == tt
+            pos[sel] = np.searchsorted(sends[tt], halos[s][sel])
+        recv_src[s, : halos[s].size] = (t.astype(np.int64) * b_max + pos).astype(np.int32)
+        # slots: own rows -> local index, remote rows -> ms + halo rank
+        j = nbr_gid[s]
+        local = shard_of[j] == s
+        nbr_loc[s] = np.where(
+            local, loc_of[j],
+            ms + np.searchsorted(halos[s], j).astype(np.int32)).astype(np.int32)
+
+    return ShardPlan(
+        n_shards=n_shards, ms=ms, d_max=nl.d_max, owned=owned.astype(np.int32),
+        inv_perm=inv_perm, nbr_gid=nbr_gid, nbr_loc=nbr_loc, mask=mask,
+        send_idx=send_idx, recv_src=recv_src,
+        n_send=np.asarray([s.size for s in sends], np.int32),
+        n_halo=np.asarray([h.size for h in halos], np.int32),
+    )
 
 
 def fleet_radius(m: int) -> float:

@@ -91,6 +91,20 @@ def policy_branches(cfg: TriggerConfig):
     return (_threshold_policy("efhc"), zero, _threshold_policy("global"), gossip)
 
 
+def policy_branches_rows(cfg: TriggerConfig, m: int, rows: torch.Tensor):
+    """``policy_branches`` for the rows ``rows`` of an m-device fleet (a
+    shard's owned devices): the threshold policies are elementwise, and
+    gossip draws the whole fleet's (m,) uniform and takes the owned
+    positions, so v is the single-device engine's at every shard count."""
+    efhc, zero, glob, _ = policy_branches(cfg)
+
+    def gossip(dev, bandwidths, gamma_k, key):
+        p = cfg.gossip_p if cfg.gossip_p is not None else 1.0 / m
+        return prng.uniform(key, (m,))[rows] < p
+
+    return (efhc, zero, glob, gossip)
+
+
 class CellPolicies(NamedTuple):
     """The trigger policy of each cell of a batched run: the names on the
     host and their ``POLICIES`` indices as a (C,) tensor on the run's

@@ -56,13 +56,35 @@ class ModelSpec:
     """One model family: ``init_stack(key, m)`` stacked params,
     ``logits(w, x)`` for x (m, batch, ...) or a shared (n, ...),
     ``loss_fn(logits, y) -> (m,)`` per-device mean loss, and ``flat_dim``
-    the parameter count D of the flat view."""
+    the parameter count D of the flat view.  Exactly one of ``init_keys``
+    (per-device keys (n, 2) -> the n devices' params: svm, mlp) and
+    ``init_one`` (one device's params from a key: the deep models) is
+    set."""
 
     name: str
     flat_dim: int
-    init_stack: Callable[[torch.Tensor, int], Params]
     logits: Callable[[Params, torch.Tensor], torch.Tensor]
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    init_keys: Callable[[torch.Tensor], Params] | None = None
+    init_one: Callable[[torch.Tensor], Params] | None = None
+
+    def init_stack(self, key: torch.Tensor, m: int) -> Params:
+        """The m devices' params: one subkey per device (``split(key,
+        m)``), or for a deep model ONE ``init_one(key)`` draw copied to
+        every device (the reference's ``shared_init``: the average of m
+        independent deep-net inits has its per-layer scale shrunk, and the
+        fleet would sit at chance)."""
+        if self.init_keys is not None:
+            return self.init_keys(prng.split(key, m))
+        return _copies(self.init_one(key), m)
+
+    def init_rows(self, key: torch.Tensor, m: int, rows: torch.Tensor) -> Params:
+        """The rows ``rows`` (n,) of ``init_stack(key, m)``, without the
+        whole stack: a shard initializes only the devices it owns, as the
+        single-device engine does them."""
+        if self.init_keys is not None:
+            return self.init_keys(prng.split(key, m)[rows])
+        return _copies(self.init_one(key), int(rows.shape[0]))
 
     def loss_and_grad(self, w: Params, batch) -> tuple[torch.Tensor, Params]:
         """Per-device (loss (m,), grads) on the batch (x (m, B, ...), y (m, B))."""
@@ -118,16 +140,9 @@ def _flat_dim(tree) -> int:
     return sum(t.numel() for t in tree_leaves(tree))
 
 
-def _shared(init_one: Callable[[torch.Tensor], Params]) -> Callable:
-    """``init_stack`` of a deep model: ONE ``init_one(key)`` draw copied to
-    every device (the reference's ``shared_init``: the average of m
-    independent deep-net inits has its per-layer scale shrunk, and the
-    fleet would sit at chance)."""
-    def init_stack(key, m):
-        return tree_map(lambda t: t[None].expand((m,) + tuple(t.shape)).contiguous(),
-                        init_one(key))
-
-    return init_stack
+def _copies(one: Params, n: int) -> Params:
+    """n copies of one device's params, stacked on a leading axis."""
+    return tree_map(lambda t: t[None].expand((n,) + tuple(t.shape)).contiguous(), one)
 
 
 # ---------------------------------------------------------------------------
@@ -321,18 +336,16 @@ def make_model_spec(name: str, *, dim: int, n_classes: int, **hp) -> ModelSpec:
     if name not in MODEL_NAMES:
         raise ValueError(f"unknown model {name!r}; known: {MODEL_NAMES}")
     if name == "svm":
-        def init_stack(key, m):
-            keys = prng.split(key, m)
+        def init_keys(keys):
             return {"b": _zeros(keys, n_classes),
                     "w": prng.normal(keys, (dim, n_classes)) * 0.01}
 
-        return ModelSpec(name, (dim + 1) * n_classes, init_stack, svm_logits,
-                         multi_margin_loss)
+        return ModelSpec(name, (dim + 1) * n_classes, svm_logits, multi_margin_loss,
+                         init_keys=init_keys)
     if name == "mlp":
         hidden = hp.get("hidden", 64)
 
-        def init_stack(key, m):
-            keys = prng.split(key, m)
+        def init_keys(keys):
             k12 = prng.split(keys, 2)
             return {
                 "b1": _zeros(keys, hidden),
@@ -342,7 +355,7 @@ def make_model_spec(name: str, *, dim: int, n_classes: int, **hp) -> ModelSpec:
             }
 
         return ModelSpec(name, (dim + 1) * hidden + (hidden + 1) * n_classes,
-                         init_stack, mlp_logits, xent_loss)
+                         mlp_logits, xent_loss, init_keys=init_keys)
     if name == "cnn":
         def init_one(key, device=None):
             return init_cnn(key, dim, n_classes, device=device, **hp)
@@ -352,5 +365,5 @@ def make_model_spec(name: str, *, dim: int, n_classes: int, **hp) -> ModelSpec:
         init_one, logits_fn = make_mlp_blocks(dim, n_classes, **hp)
     else:
         init_one, logits_fn = make_tiny_transformer(n_classes, **hp)
-    return ModelSpec(name, _flat_dim(init_one(None, device="meta")),
-                     _shared(init_one), logits_fn, xent_loss)
+    return ModelSpec(name, _flat_dim(init_one(None, device="meta")), logits_fn,
+                     xent_loss, init_one=init_one)

@@ -410,8 +410,9 @@ class ScenarioService:
     with exponential backoff before the error report goes out; a request
     still queued past its ``deadline_s`` is expired without launching; a
     cell whose trajectory diverged to NaN/Inf is quarantined out of the
-    report.  ``mix_impl="sharded"`` is ROADMAP.md Queue 1 item 9 and
-    raises where the spec is built.
+    report.  ``mix_impl="sharded"`` requests are taken, and a launch runs
+    their cells one after another through ``simulator.run`` on the one
+    cached sharded engine, as in the reference.
     """
 
     def __init__(self, provider=None, *, max_cells: int = 16,
@@ -541,6 +542,9 @@ class ScenarioService:
         eval_fn = self._stager.eval_fn(spec0, ds)
         cells = [(p, s) for p in group for s in p.spec.seeds]
         self._stats.cells += len(cells)
+        if spec0.mix_impl == "sharded":
+            return self._launch_serial(group, cells, ds, graph, eval_fn, t_start,
+                                       launch_id)
 
         before = simulator.engine_cache_stats()
         eng, model_dim = simulator._cached_engine(
@@ -580,6 +584,19 @@ class ScenarioService:
                              stage_s=t_staged - t_start,
                              run_s=t_done - t_staged, launch_id=launch_id,
                              engine_hit=engine_hit, program_hit=program_hit)
+
+    def _launch_serial(self, group, cells, ds, graph, eval_fn, t_start,
+                       launch_id) -> list[ScenarioReport]:
+        """A sharded group's cells, one ``simulator.run`` each."""
+        before = simulator.engine_cache_stats()
+        results = [simulator.run(p.spec.to_sim(seed=s), graph, p.spec.batches(s, ds),
+                                 eval_fn, eval_every=p.spec.eval_every, device=self.device)
+                   for p, s in cells]
+        after = simulator.engine_cache_stats()
+        return self._reports(group, cells, results, t_start=t_start, stage_s=0.0,
+                             run_s=time.perf_counter() - t_start, launch_id=launch_id,
+                             engine_hit=after.hits > before.hits,
+                             program_hit=after.misses == before.misses)
 
     @staticmethod
     def _diverged(res: SimResult) -> bool:

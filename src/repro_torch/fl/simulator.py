@@ -35,8 +35,12 @@ Resource dynamics, fault injection and the B-connectivity watchdog
 the step, each cell on its own streams.  ``run_checkpointed`` cuts the
 horizon into segments that drive the same ``_EngineCore.span`` as ``run``
 and persists the whole carry between them (``checkpoint.msgpack_ckpt``),
-so a run killed between segments resumes bit for bit.  The sharded engine
-and the python engine are not ported yet: a config that asks for one
+so a run killed between segments resumes bit for bit.
+
+``mix_impl="sharded"`` routes to the sharded fleet engine
+(``fl/sharded.py``: the fleet partitioned into ``shards`` shards with a
+halo exchange, in one process or across ``torch.distributed`` ranks),
+through the same cache.  The python engine is not ported: asking for it
 raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
 it.
 """
@@ -59,8 +63,10 @@ from repro_torch.core import resources as resources_mod
 from repro_torch.core.topology import GraphProcess
 from repro_torch.data.loader import FederatedBatches
 from repro_torch.fl import modelspec as modelspec_mod
+from repro_torch.fl import sharded as sharded_mod
 from repro_torch.fl import trace as trace_mod
 from repro_torch.kernels.mixing import ops as mixing_ops
+from repro_torch.launch.mesh import make_fleet_group
 from repro_torch.optim.optimizers import OPT_NAMES, init_opt
 from repro_torch.optim.schedules import paper_diminishing
 from repro_torch.tree import first_leaf, tree_map
@@ -71,8 +77,8 @@ SIM_MIX_IMPLS: tuple[str, ...] = efhc.MIX_IMPLS + ("sharded",)
 @dataclasses.dataclass
 class SimConfig:
     """The reference's ``SimConfig``: same fields, defaults and validation
-    messages.  ``mix_impl="sharded"`` (valid, not ported yet) raises
-    ``NotImplementedError``."""
+    messages.  ``mix_impl="sharded"`` runs the sharded fleet engine over
+    ``shards`` shards (m divisible by it, summary traces only)."""
 
     m: int = 10
     model: str = "svm"
@@ -143,11 +149,6 @@ class SimConfig:
         self.resources()  # ResourceConfig validates the knobs
         self.faults()  # FaultConfig validates the knobs
         self.watchdog()  # WatchdogConfig validates the knobs
-        # valid, but not in this port yet
-        if self.mix_impl == "sharded":
-            raise NotImplementedError(
-                "mix_impl='sharded' is not ported yet (ROADMAP.md Queue 1 "
-                "item 9, sharded fleet engine)")
 
     def resources(self) -> resources_mod.ResourceConfig | None:
         """The run's ``ResourceConfig``, or None when every knob is at its
@@ -262,14 +263,18 @@ class EvalFn:
             self._on[str(device)] = hit
         return hit
 
-    def device(self, w_stack) -> torch.Tensor:
+    def per_device(self, w_stack) -> torch.Tensor:
+        """Each device's test accuracy, (C, m) for leaves (C, m, ...)."""
         leaf = first_leaf(w_stack)
         cells, m = leaf.shape[:2]
         x, y = self._data(leaf.device)
         # the cells as more devices: one batched forward over C m models
         w = tree_map(efhc.fold_cells, w_stack)
         pred = self._logits_fn(w, x).argmax(-1)  # (C m, n)
-        return (pred == y).float().mean(-1).reshape(cells, m).mean(-1)
+        return (pred == y).float().mean(-1).reshape(cells, m)
+
+    def device(self, w_stack) -> torch.Tensor:
+        return self.per_device(w_stack).mean(-1)
 
 
 def model_spec(sim: SimConfig) -> modelspec_mod.ModelSpec:
@@ -588,7 +593,15 @@ def make_engine(
 
     Set ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) for
     true-fp32 products on the card; TF32 breaks parity with the reference.
+
+    ``mix_impl="sharded"`` builds the sharded engine
+    (``fl.sharded.make_sharded_engine``), one cell a call.
     """
+    if sim.mix_impl == "sharded":
+        eng, model_dim, _plan = sharded_mod.make_sharded_engine(
+            sim, graph, T=T, eval_every=eval_every, x=x, y=y, eval_fn=eval_fn,
+            device=device)
+        return eng, model_dim
     core = _EngineCore(sim, graph, T=T, eval_every=eval_every, x=x, y=y,
                        eval_fn=eval_fn, device=device)
     return core.engine, core.model_dim
@@ -695,10 +708,13 @@ def _graph_cache_key(graph: GraphProcess) -> tuple:
 
 
 def _cached_core(sim: SimConfig, graph: GraphProcess, *, T: int,
-                 eval_every: int, x, y, eval_fn, device="cuda") -> _EngineCore:
-    """The ``_EngineCore`` from the engine cache: the reference's key
-    fields, and the device."""
+                 eval_every: int, x, y, eval_fn, device="cuda"):
+    """The ``_EngineCore`` (``fl.sharded.ShardedCore`` under
+    ``mix_impl="sharded"``) from the engine cache: the reference's key
+    fields, the device, and a sharded engine's process group."""
     dev = resolve_device(device)
+    sharded = sim.mix_impl == "sharded"
+
     key = (sim.m, sim.model, sim.n_classes, sim.dim, sim.batch, sim.r,
            sim.b_mean, sim.sigma_n, sim.alpha0, sim.optimizer, sim.mix_impl,
            sim.trace, int(sim.shards), T, max(1, int(eval_every)),
@@ -710,10 +726,13 @@ def _cached_core(sim: SimConfig, graph: GraphProcess, *, T: int,
            sim.rejoin_rate, bool(sim.warm_start),
            int(sim.watchdog_window), int(sim.watchdog_nprop),
            _graph_cache_key(graph), id(x), id(y), id(eval_fn), str(dev))
+    if sharded:
+        key += (make_fleet_group(int(sim.shards)).key(),)
 
     def build():
-        core = _EngineCore(sim, graph, T=T, eval_every=eval_every, x=x, y=y,
-                           eval_fn=eval_fn, device=dev)
+        make = sharded_mod.ShardedCore if sharded else _EngineCore
+        core = make(sim, graph, T=T, eval_every=eval_every, x=x, y=y,
+                    eval_fn=eval_fn, device=dev)
         return (core, (graph, x, y, eval_fn))
 
     return _ENGINE_CACHE.get_or_build(key, build)[0]
@@ -743,8 +762,15 @@ def run(
     given ``sim.seed``, the graph process and the batch sampler's seed, and
     realizes the reference's streams (bandwidths, init, graphs, gossip).
     ``SimResult.timing`` holds the first iteration's ms and the mean ms per
-    later iteration on the device's clock.
+    later iteration on the device's clock.  ``mix_impl="sharded"`` runs the
+    sharded engine (``fl/sharded.py``) from the same cache.
     """
+    if sim.mix_impl == "sharded" and (
+            engine != "scan" or (eval_fn is not None and not isinstance(eval_fn, EvalFn))):
+        raise ValueError(
+            "mix_impl='sharded' runs only under engine='scan' with an EvalFn "
+            "(or None): the sharded engine cannot call back into a host loop "
+            "or a host eval callable")
     if engine == "python":
         raise NotImplementedError(
             "engine='python' is not ported (ROADMAP.md Queue 1 item 4 keeps "

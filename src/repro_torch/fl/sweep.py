@@ -11,8 +11,9 @@ batches, so it gives what its solo run gives.
 
 ``run_sweep`` returns a ``SweepResult`` holding the (S, P, T, ...) metric
 stack; ``SweepResult.result(seed, policy)`` slices out a standard
-``SimResult``.  ``mix_impl="sharded"`` is ROADMAP.md Queue 1 item 9 and
-raises ``NotImplementedError`` where the config is built.
+``SimResult``.  Under ``mix_impl="sharded"`` the cells run one after
+another through ``simulator.run`` (``_run_sweep_sharded``), as in the
+reference, every cell on the one cached sharded engine.
 """
 from __future__ import annotations
 
@@ -135,6 +136,10 @@ def run_sweep(
             "callables need the python engine, which is not ported.")
     seeds = tuple(int(s) for s in seeds)
     policies = tuple(policies)
+    if sim.mix_impl == "sharded":
+        return _run_sweep_sharded(sim, graph, batches_factory, eval_fn, seeds=seeds,
+                                  policies=policies, eval_every=eval_every,
+                                  device=device)
     policy_idx = [triggers.policy_index(p) for p in policies]
     T = sim.iters
 
@@ -182,6 +187,37 @@ def run_sweep(
                                       + trace_mod.FAULT_CHANNELS
                                       + trace_mod.WATCHDOG_CHANNELS)},
         timing=timing)
+
+
+def _run_sweep_sharded(sim, graph, batches_factory, eval_fn, *, seeds, policies,
+                       eval_every, device) -> SweepResult:
+    """The grid over the sharded fleet engine: the cells run one after
+    another through ``simulator.run``, which takes the one sharded engine
+    from the cache for all of them (at the fleet sizes that want
+    sharding a batched grid would not fit anyway)."""
+    cells = [[simulator.run(dataclasses.replace(sim, seed=s, policy=p), graph,
+                            batches_factory(s), eval_fn, eval_every=eval_every,
+                            device=device)
+              for p in policies] for s in seeds]
+
+    def stack(f, dt):
+        return np.stack([[np.asarray(getattr(c, f), dt) for c in row] for row in cells])
+
+    return SweepResult(
+        seeds=seeds, policies=policies,
+        loss=stack("loss", np.float32), acc=stack("acc", np.float32),
+        tx_time=stack("tx_time", np.float32), util=stack("util", np.float32),
+        v=stack("v", bool), comm_count=stack("comm_count", np.int32),
+        deg=stack("deg", np.int32),
+        consensus_err=stack("consensus_err", np.float32),
+        bandwidths=stack("bandwidths", np.float32),
+        model_dim=cells[0][0].model_dim, trace=trace_mod.check_trace_mode(sim.trace),
+        down_count=stack("down_count", np.int32),
+        exhausted_count=stack("exhausted_count", np.int32),
+        fault_down_count=stack("fault_down_count", np.int32),
+        stale_max=stack("stale_max", np.int32),
+        window_connected=stack("window_connected", bool),
+        window_needed=stack("window_needed", np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,9 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {
     "repro_trigger_sq_f32": (_P, _P, _P, _I64, _I64, _P),
     "repro_mix_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
-    "repro_mix_sparse_f32": (*(_P,) * 11, *(_I64,) * 7, _P),
-    "repro_mix_sparse_wide_f32": (*(_P,) * 12, *(_I64,) * 9, _P),
-    "repro_mix_sparse_direct_f32": (*(_P,) * 7, *(_I64,) * 5, _P),
+    "repro_mix_sparse_f32": (*(_P,) * 11, *(_I64,) * 8, _P),
+    "repro_mix_sparse_wide_f32": (*(_P,) * 12, *(_I64,) * 10, _P),
+    "repro_mix_sparse_direct_f32": (*(_P,) * 7, *(_I64,) * 6, _P),
     "repro_swa_attention_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tc_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),

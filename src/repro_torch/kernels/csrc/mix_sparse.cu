@@ -88,6 +88,10 @@
 // n_kept (C, n_rows), finite (C, m)).  A cell's blocks do the solo launch's
 // arithmetic on its slices, so each cell's output is bit-equal to a launch
 // on that cell alone, and the plan does not depend on C.
+// Rectangular source: W may hold n_src >= m rows per cell (a shard's
+// [own rows ; halo rows] buffer in the sharded engine); output row i's self
+// term is W row i and the table indexes [0, n_src).  Only W's cell stride
+// and the finite flags (C, n_src) see n_src; a square call passes n_src = m.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,13 +148,13 @@ mix_sparse_kernel(const int64_t* __restrict__ idx, const float* __restrict__ p_d
                   float* __restrict__ out, const int* __restrict__ rows,
                   const int* __restrict__ row_ptr, const int* __restrict__ uni,
                   const int* __restrict__ uni_ptr, const int* __restrict__ slot_pos,
-                  const int* __restrict__ self_pos, int m, int d_max, long long D, int umax,
-                  int rmax, int n_chunks) {
+                  const int* __restrict__ self_pos, int m, int n_src, int d_max, long long D,
+                  int umax, int rmax, int n_chunks) {
   // this block's cell: its slices of the weights, W and OUT
   const long long cell = blockIdx.z;
   p_diag += cell * m;
   p_off += cell * m * d_max;
-  w += cell * m * D;
+  w += cell * n_src * D;
   out += cell * m * D;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_rows[ROWS_MAX], s_self[ROWS_MAX], s_uni[UNION_MAX];
@@ -312,13 +316,14 @@ mix_sparse_wide_kernel(const float* __restrict__ p_diag, const float* __restrict
                        const int* __restrict__ uni, const int* __restrict__ uni_ptr,
                        const int* __restrict__ slot_pos, const int* __restrict__ self_pos,
                        const int2* __restrict__ kept, const int* __restrict__ n_kept, int m,
-                       int n_rows, int d_max, int stride, long long D, int n_chunks) {
+                       int n_src, int n_rows, int d_max, int stride, long long D,
+                       int n_chunks) {
   constexpr int CH = 32 * L, PER_ROW = CH / V;
   // this block's cell: its slices of the weights, W, OUT and the scratch
   const long long cell = blockIdx.z;
   p_diag += cell * m;
   p_off += cell * m * d_max;
-  w += cell * m * D;
+  w += cell * n_src * D;
   out += cell * m * D;
   kept += cell * n_rows * stride;
   n_kept += cell * n_rows;
@@ -405,14 +410,14 @@ mix_sparse_wide_kernel(const float* __restrict__ p_diag, const float* __restrict
   }
 }
 
-// one flag a row of w: are all its values finite?
+// one flag a row of w (n_src rows a cell): are all its values finite?
 constexpr int FINITE_NT = 256;
 
 __global__ void __launch_bounds__(FINITE_NT)
-row_finite_kernel(const float* __restrict__ w, int m, long long D,
+row_finite_kernel(const float* __restrict__ w, int n_src, long long D,
                   unsigned char* __restrict__ finite) {
   // row blockIdx.x of cell blockIdx.y
-  const long long at = (long long)blockIdx.y * m + blockIdx.x;
+  const long long at = (long long)blockIdx.y * n_src + blockIdx.x;
   finite += at;
   const float* row = w + at * D;
   bool bad = false;
@@ -428,15 +433,15 @@ __global__ void __launch_bounds__(DIRECT_NT)
 mix_sparse_direct_kernel(const int64_t* __restrict__ idx, const float* __restrict__ p_diag,
                          const float* __restrict__ p_off, const float* __restrict__ w,
                          float* __restrict__ out, const int* __restrict__ rows,
-                         const unsigned char* __restrict__ finite, int m, int n_rows,
-                         int d_max, long long D) {
+                         const unsigned char* __restrict__ finite, int m, int n_src,
+                         int n_rows, int d_max, long long D) {
   // this block's cell: its slices of the weights, W, OUT and the flags
   const long long cell = blockIdx.z;
   p_diag += cell * m;
   p_off += cell * m * d_max;
-  w += cell * m * D;
+  w += cell * n_src * D;
   out += cell * m * D;
-  finite += cell * m;
+  finite += cell * n_src;
   // the slots of the current 256 that are taken, in order, and the count
   // each warp keeps of them
   __shared__ float s_p[DIRECT_NT];
@@ -504,9 +509,10 @@ mix_sparse_direct_kernel(const int64_t* __restrict__ idx, const float* __restric
 
 }  // namespace
 
-// idx: (m, d_max) int64, shared by the cells; p_diag: (cells, m) fp32,
-// p_off: (cells, m, d_max) fp32, w and out: (cells, m, D) fp32, all
-// row-major, 1 <= cells <= 65535; the plan's int32 tables (rows, row_ptr,
+// idx: (m, d_max) int64 into [0, n_src), shared by the cells; p_diag:
+// (cells, m) fp32, p_off: (cells, m, d_max) fp32, w: (cells, n_src, D) fp32
+// with n_src >= m, out: (cells, m, D) fp32, all row-major,
+// 1 <= cells <= 65535; the plan's int32 tables (rows, row_ptr,
 // uni, uni_ptr, slot_pos, self_pos) from kernels/mixing/plan.py with
 // n_groups staged groups, the largest union umax rows and the largest group
 // rmax rows.  Launches on `stream` and returns the CUDA error of the launch
@@ -516,9 +522,10 @@ extern "C" int repro_mix_sparse_f32(const int64_t* idx, const float* p_diag,
                                     const int* rows, const int* row_ptr, const int* uni,
                                     const int* uni_ptr, const int* slot_pos,
                                     const int* self_pos, long long cells, long long m,
-                                    long long n_groups, long long d_max, long long D,
-                                    long long umax, long long rmax, void* stream) {
-  if (umax > UNION_MAX || rmax > ROWS_MAX || cells < 1 || cells > 65535)
+                                    long long n_src, long long n_groups, long long d_max,
+                                    long long D, long long umax, long long rmax,
+                                    void* stream) {
+  if (umax > UNION_MAX || rmax > ROWS_MAX || cells < 1 || cells > 65535 || n_src < m)
     return (int)cudaErrorInvalidValue;
   const long long list = rmax * d_max;
   const size_t smem = 4 * ((umax * CHUNK > 2 * list ? umax * CHUNK : 2 * list) + 2 * list + rmax);
@@ -533,7 +540,8 @@ extern "C" int repro_mix_sparse_f32(const int64_t* idx, const float* p_diag,
             (unsigned int)cells);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(idx, p_diag, p_off, w, out, rows, row_ptr,
                                                   uni, uni_ptr, slot_pos, self_pos, (int)m,
-                                                  (int)d_max, D, (int)umax, (int)rmax, n_chunks);
+                                                  (int)n_src, (int)d_max, D, (int)umax, (int)rmax,
+                                                  n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -547,12 +555,12 @@ extern "C" int repro_mix_sparse_wide_f32(const float* p_diag, const float* p_off
                                          const int* row_ptr, const int* uni,
                                          const int* uni_ptr, const int* slot_pos,
                                          const int* self_pos, void* kept, int* n_kept,
-                                         long long cells, long long m, long long n_groups,
-                                         long long n_rows, long long d_max, long long stride,
-                                         long long D, long long umax, long long chunk,
-                                         void* stream) {
+                                         long long cells, long long m, long long n_src,
+                                         long long n_groups, long long n_rows, long long d_max,
+                                         long long stride, long long D, long long umax,
+                                         long long chunk, void* stream) {
   if ((chunk != 32 && chunk != 64) || umax * chunk * 4 > WIDE_SMEM_MAX || stride % 2 ||
-      stride < d_max || (uintptr_t)kept % 16 || cells < 1 || cells > 65535)
+      stride < d_max || (uintptr_t)kept % 16 || cells < 1 || cells > 65535 || n_src < m)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   dim3 compact_grid((unsigned int)((n_rows + COMPACT_NT / 32 - 1) / (COMPACT_NT / 32)),
@@ -573,27 +581,29 @@ extern "C" int repro_mix_sparse_wide_f32(const float* p_diag, const float* p_off
             (unsigned int)cells);
   kernel<<<grid, WIDE_NT, smem, st>>>(p_diag, p_off, w, out, rows, row_ptr, uni, uni_ptr,
                                       slot_pos, self_pos, (const int2*)kept, n_kept, (int)m,
-                                      (int)n_rows, (int)d_max, (int)stride, D, (int)n_chunks);
+                                      (int)n_src, (int)n_rows, (int)d_max, (int)stride, D,
+                                      (int)n_chunks);
   return (int)cudaGetLastError();
 }
 
 // The rows of W listed in rows (n_rows int32 ids) that no slab holds,
 // mixed from device memory, after a pass that flags the finite rows of w
-// (cells x m rows) in finite (cells x m bytes, scratch); other arguments
-// as above.
+// (cells x n_src rows) in finite (cells x n_src bytes, scratch); other
+// arguments as above.
 extern "C" int repro_mix_sparse_direct_f32(const int64_t* idx, const float* p_diag,
                                            const float* p_off, const float* w, float* out,
                                            const int* rows, unsigned char* finite,
                                            long long cells, long long n_rows, long long m,
-                                           long long d_max, long long D, void* stream) {
-  if (cells < 1 || cells > 65535) return (int)cudaErrorInvalidValue;
-  row_finite_kernel<<<dim3((unsigned int)m, (unsigned int)cells), FINITE_NT, 0,
-                      (cudaStream_t)stream>>>(w, (int)m, D, finite);
+                                           long long n_src, long long d_max, long long D,
+                                           void* stream) {
+  if (cells < 1 || cells > 65535 || n_src < m) return (int)cudaErrorInvalidValue;
+  row_finite_kernel<<<dim3((unsigned int)n_src, (unsigned int)cells), FINITE_NT, 0,
+                      (cudaStream_t)stream>>>(w, (int)n_src, D, finite);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned int)((n_rows + DIRECT_ROWS - 1) / DIRECT_ROWS),
             (unsigned int)((D + DIRECT_CHUNK - 1) / DIRECT_CHUNK), (unsigned int)cells);
   mix_sparse_direct_kernel<<<grid, DIRECT_NT, 0, (cudaStream_t)stream>>>(
-      idx, p_diag, p_off, w, out, rows, finite, (int)m, (int)n_rows, (int)d_max, D);
+      idx, p_diag, p_off, w, out, rows, finite, (int)m, (int)n_src, (int)n_rows, (int)d_max, D);
   return (int)cudaGetLastError();
 }

@@ -99,6 +99,9 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
     p_off (C, m, d_max), p_diag (C, m), w (C, m, D) -> p_diag * w +
     sum_s p_off[..., s] * w[..., nbr_idx[:, s], :] (C, m, D); unbatched
     p_off (m, d_max), p_diag (m,) or (m, 1) and w (m, D) are one cell.
+    ``w`` may hold n_src > m rows (C, n_src, D), a shard's ``[own rows ;
+    halo rows]`` buffer: output row i takes its self term from source row
+    i, ``nbr_idx`` indexes [0, n_src), and the output has m rows.
 
     On the card the rows follow ``prepare_plan(nbr_idx)`` (built on the
     first call for a table, a host sync; one plan serves any number of
@@ -118,30 +121,33 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
     counts under its own key.  All give the plain version's bits, cell by
     cell; the CPU path runs that directly."""
     lead = tuple(w.shape[:-2])
-    if w.dim() not in (2, 3) or nbr_idx.dim() != 2 or nbr_idx.shape[0] != w.shape[-2] \
+    if w.dim() not in (2, 3) or nbr_idx.dim() != 2 or nbr_idx.shape[0] > w.shape[-2] \
             or tuple(p_off.shape) != lead + tuple(nbr_idx.shape) \
-            or p_diag.numel() != w.shape[:-1].numel():
+            or p_diag.numel() != p_off.shape[:-1].numel():
         raise ValueError(
             f"mix_sparse takes nbr_idx (m, d_max) and p_off (m, d_max), p_diag "
-            f"(m,), w (m, D), or p_off (C, m, d_max), p_diag (C, m), w (C, m, D);"
-            f" got {tuple(nbr_idx.shape)}, {tuple(p_off.shape)}, "
+            f"(m,), w (n_src >= m, D), or p_off (C, m, d_max), p_diag (C, m), w "
+            f"(C, n_src, D); got {tuple(nbr_idx.shape)}, {tuple(p_off.shape)}, "
             f"{tuple(p_diag.shape)}, {tuple(w.shape)}")
     if on_cpu(nbr_idx, p_diag, p_off, w):
         return mix_sparse_ref(nbr_idx, p_diag, p_off, w)
     cells = _cells(w)
-    m, n = w.shape[-2:]
-    d_max = nbr_idx.shape[1]
+    m, d_max = nbr_idx.shape
+    n_src, n = w.shape[-2:]
     check_cuda_input("nbr_idx", nbr_idx, torch.int64, (m, d_max))
     check_cuda_input("p_off", p_off, torch.float32, lead + (m, d_max))
     p_diag = p_diag.reshape(lead + (m,))
     check_cuda_input("p_diag", p_diag, torch.float32, lead + (m,))
-    check_cuda_input("w", w, torch.float32, lead + (m, n))
+    check_cuda_input("w", w, torch.float32, lead + (n_src, n))
     if -(-n // CHUNK) > _MAX_GRID_Y:
         raise ValueError(f"mix_sparse kernel takes D <= {_MAX_GRID_Y * CHUNK}; got {n}")
-    out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    out = torch.empty(lead + (m, n), dtype=torch.float32, device=w.device)
     if m == 0 or n == 0 or out.numel() == 0:
         return out
     plan = prepare_plan(nbr_idx)
+    if plan.n_src > n_src:
+        raise ValueError(f"mix_sparse: nbr_idx reads {plan.n_src} rows of w, which "
+                         f"has {n_src}")
     lib, stream = build.library(), stream_handle(w.device)
     if plan.n_groups and plan.wide:
         # scratch: each staged row's nonzero slots, compacted once a call,
@@ -153,7 +159,7 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
             p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(), out.data_ptr(),
             plan.rows.data_ptr(), plan.row_ptr.data_ptr(), plan.union.data_ptr(),
             plan.union_ptr.data_ptr(), plan.slot_pos.data_ptr(),
-            plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(), cells, m,
+            plan.self_pos.data_ptr(), kept.data_ptr(), n_kept.data_ptr(), cells, m, n_src,
             plan.n_groups, n_rows, d_max, stride, n, plan.max_union, plan.chunk, stream)
         build.check(err, "mix_sparse_wide")
         LAUNCHES["mix_sparse_wide"] += 1
@@ -162,16 +168,16 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
             nbr_idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
             out.data_ptr(), plan.rows.data_ptr(), plan.row_ptr.data_ptr(),
             plan.union.data_ptr(), plan.union_ptr.data_ptr(), plan.slot_pos.data_ptr(),
-            plan.self_pos.data_ptr(), cells, m, plan.n_groups, d_max, n, plan.max_union,
-            plan.max_rows, stream)
+            plan.self_pos.data_ptr(), cells, m, n_src, plan.n_groups, d_max, n,
+            plan.max_union, plan.max_rows, stream)
         build.check(err, "mix_sparse")
         LAUNCHES["mix_sparse"] += 1
     if plan.n_direct:
-        finite = torch.empty((cells, m), dtype=torch.uint8, device=w.device)
+        finite = torch.empty((cells, n_src), dtype=torch.uint8, device=w.device)
         err = lib.repro_mix_sparse_direct_f32(
             nbr_idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
             out.data_ptr(), plan.direct.data_ptr(), finite.data_ptr(), cells,
-            plan.n_direct, m, d_max, n, stream)
+            plan.n_direct, m, n_src, d_max, n, stream)
         build.check(err, "mix_sparse_direct")
         LAUNCHES["mix_sparse_direct"] += 1
     return out

@@ -35,6 +35,11 @@ reads exceed the cap is listed apart (``direct``): the third kernel of the
 file, ``mix_sparse_direct_kernel``, mixes those rows straight from device
 memory.  Only the wide tier has such rows (a row reads at most d_max + 1
 rows, which the 128-column tier's cap exceeds wherever it is chosen).
+
+A table may read more rows than it has (a shard's table over its ``[own;
+halo]`` buffer, ``n_src`` source rows): row i's self term is source row i,
+groups grow over the output rows only, and unions hold any source rows.
+A square table's plan is the same as before.
 """
 from __future__ import annotations
 
@@ -70,7 +75,8 @@ class MixSparsePlan(NamedTuple):
     position of ``nbr_idx[i, s]`` and of ``i`` in that group's union.
     ``direct`` int32 lists the rows that fit no group.  ``nbr_idx`` is the
     tensor the plan was built for and ``version`` its version counter then
-    (an in-place change of the table makes the plan stale)."""
+    (an in-place change of the table makes the plan stale); ``n_src`` the
+    source rows it reads (m, or more for a table over a halo buffer)."""
 
     nbr_idx: torch.Tensor
     version: int
@@ -84,6 +90,7 @@ class MixSparsePlan(NamedTuple):
     direct: torch.Tensor
     max_union: int  # rows of the largest union
     max_rows: int  # rows of the largest group
+    n_src: int  # max(m, largest index read + 1)
     build_ms: float  # host time of the build, the copy to the device included
 
     @property
@@ -178,15 +185,21 @@ def _neighbours(idx: np.ndarray) -> list[list[int]]:
     return [r.tolist() for r in np.split(s[keep], np.cumsum(keep.sum(1))[:-1])]
 
 
-def _read_bits(idx: np.ndarray, block: int = 256) -> list[int]:
+def _n_src(idx: np.ndarray) -> int:
+    """Source rows a (m, d_max) table reads: m, or more over a halo
+    buffer."""
+    return max(idx.shape[0], int(idx.max()) + 1 if idx.size else 0)
+
+
+def _read_bits(idx: np.ndarray, n_src: int, block: int = 256) -> list[int]:
     """The rows each row of a (m, d_max) table reads, itself included, as a
-    Python int used as a bit set (bit j: row j), built ``block`` rows at a
-    time (m / 8 bytes a row)."""
+    Python int used as a bit set (bit j: source row j), built ``block``
+    rows at a time (n_src / 8 bytes a row)."""
     m = idx.shape[0]
     sets: list[int] = []
     for lo in range(0, m, block):
         hi = min(m, lo + block)
-        mask = np.zeros((hi - lo, m), bool)
+        mask = np.zeros((hi - lo, n_src), bool)
         mask[np.arange(hi - lo)[:, None], idx[lo:hi]] = True
         mask[np.arange(hi - lo), np.arange(lo, hi)] = True
         sets.extend(int.from_bytes(row.tobytes(), "little")
@@ -200,11 +213,16 @@ def group_rows(idx: np.ndarray, rows_cap: int, union_cap: int
     group, rows that fit no group) of a (m, d_max) table, with groups of
     at most ``rows_cap`` rows and unions of at most ``union_cap``.  Row
     sets are bit sets (``_read_bits``), so a candidate's new rows cost a
-    few machine words per 64 rows of the table."""
+    few machine words per 64 rows of the table.  Groups grow over the
+    table's own rows; a table over a halo buffer reads source rows past
+    them, which count in the unions only."""
     m = idx.shape[0]
+    n_src = _n_src(idx)
     nbrs = _neighbours(idx)
-    sets = _read_bits(idx)
+    sets = _read_bits(idx, n_src)
     sizes = [len(r) + 1 for r in nbrs]
+    if n_src > m:  # grow over output rows only
+        nbrs = [[j for j in r if j < m] for r in nbrs]
     direct = [n > union_cap for n in sizes]
     assigned = list(direct)
     groups: list[list[int]] = []
@@ -230,8 +248,8 @@ def group_rows(idx: np.ndarray, rows_cap: int, union_cap: int
                 if len(grp) == rows_cap:
                     break
         groups.append(grp)
-        raw = np.frombuffer(uni.to_bytes((m + 7) // 8, "little"), np.uint8)
-        unions.append(np.flatnonzero(np.unpackbits(raw, bitorder="little")[:m]).tolist())
+        raw = np.frombuffer(uni.to_bytes((n_src + 7) // 8, "little"), np.uint8)
+        unions.append(np.flatnonzero(np.unpackbits(raw, bitorder="little")[:n_src]).tolist())
     return groups, unions, [i for i in range(m) if direct[i]]
 
 
@@ -291,5 +309,5 @@ def plan_of(nbr_idx: torch.Tensor, chunk: int, cut, t0: float | None = None
     return MixSparsePlan(
         nbr_idx=nbr_idx, version=nbr_idx._version, chunk=chunk, **plan,
         max_union=int(sizes.max()) if sizes.size else 0,
-        max_rows=max([len(g) for g in groups], default=0),
+        max_rows=max([len(g) for g in groups], default=0), n_src=_n_src(idx),
         build_ms=(time.perf_counter() - t0) * 1e3)

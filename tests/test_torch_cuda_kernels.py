@@ -171,6 +171,52 @@ def test_mix_sparse_kernel_nan_for_nan(cuda, m, radius):
 
 
 @pytest.mark.gpu
+# a shard table over the stacked [own; halo] buffer (the sharded engine's
+# layout): the fleet fabric at S = 8 (128-column tier, odd width too) and
+# S = 1 (one junk halo row), rgg r=0.4 at m=1024 on 4 shards (wide tier),
+# at m=4096 on 8 (wide and direct), and two cells a launch
+@pytest.mark.parametrize("m,radius,S,n,cells", [
+    (4096, None, 8, 7850, None), (4096, None, 8, 7851, None), (4096, None, 1, 1000, None),
+    (1024, 0.4, 4, 7850, None), (4096, 0.4, 8, 1000, None), (4096, None, 8, 1000, 2)])
+def test_mix_sparse_kernel_rectangular_source_bit_equal(cuda, m, radius, S, n, cells):
+    """Output rows m, source rows n_src = m + S H_max: every route gives the
+    plain version's bits, and the plan's inf/NaN rule holds on a halo row
+    that its readers weight zero."""
+    from repro_torch.core import efhc as tefhc
+
+    nl, p_diag, p_off = _fabric_p(cuda, m, radius or ttopo.fleet_radius(m), cells=cells)
+    g = ttopo.make_process(m, "rgg", radius=radius or ttopo.fleet_radius(m),
+                           time_varying="edge_dropout", drop=0.3, seed=0)
+    plan = ttopo.shard_plan(g.edges, S, coords=g.coords)
+    ctx = tefhc.ShardCtx.of(plan, range(S), cuda)
+    own = ctx.owned
+    p_diag, p_off = p_diag[..., own].contiguous(), p_off[..., own, :].contiguous()
+    n_src = m + S * plan.h_max
+    lead = () if cells is None else (cells,)
+    w = torch.randn(lead + (n_src, n), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda)
+    pl = tmix.prepare_plan(ctx.nbr_loc)
+    assert pl.n_src == int(ctx.nbr_loc.max()) + 1 <= n_src
+    before = dict(tmix.LAUNCHES)
+    got = tmix.mix_sparse(ctx.nbr_loc, p_diag, p_off, w)
+    staged = "mix_sparse_wide" if pl.wide else "mix_sparse"
+    assert {k: tmix.LAUNCHES[k] - before[k] for k in before} == {
+        "mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+        staged: 1, **({"mix_sparse_direct": 1} if pl.n_direct else {})}
+    assert tuple(got.shape) == lead + (m, n)
+    assert torch.equal(got, mix_sparse_ref(ctx.nbr_loc, p_diag, p_off, w))
+    if S > 1:
+        halo = int(ctx.nbr_loc[ctx.nbr_loc >= m][0])  # a halo row some slot reads
+        p_off = torch.where(ctx.nbr_loc == halo, 0.0, p_off)
+        w[..., halo, 3] = float("inf")
+        w[..., halo, 7:9] = float("nan")
+        want = mix_sparse_ref(ctx.nbr_loc, p_diag, p_off, w)
+        assert not torch.isfinite(want).all()
+        torch.testing.assert_close(tmix.mix_sparse(ctx.nbr_loc, p_diag, p_off, w), want,
+                                   atol=0, rtol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
 def test_mix_sparse_plan_follows_the_table(cuda):
     """The wrapper's plan is rebuilt for another table and after an
     in-place change of the same one."""

@@ -237,8 +237,10 @@ def test_refuses_foreign_checkpoints_and_validates_segments(tmp_path):
     assert fresh.loss.shape == (T, M) and fresh.timing["restore_s"] is None
     with pytest.raises(ValueError, match="multiple of eval_every"):
         _checkpointed(sim, graph, batches(), tmp_path / "x", checkpoint_every=7)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dataclasses.replace(sim, mix_impl="sharded", shards=1)
+    # the sharded engine runs, but its runs are not checkpointable
+    with pytest.raises(ValueError, match="not checkpointable"):
+        _checkpointed(dataclasses.replace(sim, mix_impl="sharded", shards=1), graph,
+                      batches(), tmp_path / "sharded", checkpoint_every=5)
 
 
 def test_tail_segment_and_packed_trace(tmp_path):

@@ -1,7 +1,8 @@
 """repro_torch stands alone: no module of it, and not chip_smoke.py,
 imports jax, the JAX package or msgpack (the checkpoints carry their own
-packer); importing it loads no jax; it never moves to the CPU on its own;
-what it has not ported yet raises NotImplementedError while invalid
+packer); importing it loads no jax (the sharded engine and its shard
+group included); it never moves to the CPU on its own; what it has not
+ported yet (the python engine) raises NotImplementedError while invalid
 values keep the reference's messages; and every scenario-dynamics knob
 runs and gives the reference's channels."""
 import ast
@@ -47,7 +48,8 @@ def test_no_jax_or_reference_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.api, "
             "repro_torch.convert, repro_torch.kernels.build, "
-            "repro_torch.configs, repro_torch.launch.steps; "
+            "repro_torch.configs, repro_torch.launch.steps, "
+            "repro_torch.fl.sharded, repro_torch.launch.mesh; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro loaded'")
@@ -81,17 +83,6 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
-
-
-@pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(mix_impl="sharded"), "item 9", id="kw4-item 9"),
-])
-def test_unported_features_raise_not_implemented(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tsim.SimConfig(**kw, **({"trace": "summary"}
-                                if kw.get("mix_impl") == "sharded" else {}))
-    with pytest.raises(NotImplementedError, match=item):
-        tservice.ScenarioSpec(**kw)
 
 
 DYN_SPEC = dict(m=8, dim=16, n_train=320, n_test=80, iters=12, eval_every=4,
