@@ -127,7 +127,20 @@ error:
    ``attn_impl="chunked"`` within atol=rtol 1e-4, then decode as in 8;
 10. serve_cpu: the starcoder2 smoke configuration (fp32, S=128) on the
    card (the split-TF32 SWA kernel) and on the CPU (plain versions),
-   logits within atol=rtol 1e-4.
+   logits within atol=rtol 1e-4;
+11. train: EF-HC training of starcoder2-15b at full width in bf16, its
+   depth cut to 2 layers (``starcoder2_train``), through
+   ``repro_torch.launch.train.train``: m=4 replicas on a ring with 2 pods,
+   global batch 8 at S=2048, 4 dense steps with a checkpoint (~22 GB),
+   then 2 neighbor steps in memory; exactly leaves x steps launches of
+   ``trigger_sq_bf16`` and of ``mix_bf16`` / ``mix_sparse_bf16`` by
+   schedule; ms/step, tokens/s and peak memory; a run resumed from the
+   checkpoint bit-equal to the in-memory one; the three bf16 entries
+   against their plain versions at the largest leaf (4 x 3.0e8: the
+   trigger within rtol 1e-5, both mixes bit for bit) with their times,
+   library calls and bounds; one profiled dense step (busy and idle
+   time, the entries' share); the smoke configuration in bf16 on the
+   card and on the CPU, v equal at every step.
 
 The SIMT SWA kernel has no wrapper route, so no counter: its launches are
 counted from the profiler's device activities in the prefills of 8-10,
@@ -2661,11 +2674,14 @@ def _device_activity(torch, run
                      ) -> tuple[int, float, dict[str, float], dict[str, int]]:
     """Device activities, their summed device time (ms), and the time and
     the number of activities per kernel name of one ``run()`` under
-    ``torch.profiler``."""
+    ``torch.profiler``, which records the device's activities only: the
+    host ops' records would triple the events to parse (on the H100
+    machine the cnn cell's 1.04 M events took 77-99 s in
+    ``prof.events()``, its 0.35 M device ones 23 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
@@ -3102,11 +3118,311 @@ def starcoder2_fp32(n_layers: int = 2):
                                attn_impl="pallas_swa")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: EF-HC training of starcoder2-15b
+# ---------------------------------------------------------------------------
+
+# bf16 train-step parameters, card against CPU: one bf16 ulp (rtol 2^-7) and
+# a floor of 4 bf16 ulps of the leaf's largest value, the model's own bf16
+# rounding in two implementations (tests/test_torch_train.py states why)
+TRAIN_BF16_RTOL, TRAIN_LEAF_ULPS = 2.0 ** -7, 4
+
+
+def starcoder2_train(n_layers: int = 2):
+    """starcoder2-15b at its full width in its own bf16 (``attn_impl``
+    auto: ``xla`` at S=2048; remat on), its depth cut from 40 to
+    ``n_layers`` layers as ``starcoder2_fp32`` cuts it: 1.372e9 parameters
+    a replica."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("starcoder2-15b"), n_layers=n_layers,
+                               layer_plan=((("attn",), n_layers),))
+
+
+def _trees_equal(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _trees_close(torch, got, want, label: str) -> float:
+    """bf16 trees within TRAIN_BF16_RTOL and TRAIN_LEAF_ULPS; returns the
+    worst share of the allowance used."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        floor = TRAIN_LEAF_ULPS * TRAIN_BF16_RTOL * float(w.abs().max())
+        allow = TRAIN_BF16_RTOL * w.abs() + floor
+        share = float(((g - w).abs() / allow.clamp(min=1e-30)).max())
+        check(share <= 1.0, f"{label}: a leaf outside rtol {TRAIN_BF16_RTOL} + "
+                            f"{TRAIN_LEAF_ULPS} ulps of its scale ({share:.3g} of it)")
+        worst = max(worst, share)
+    return worst
+
+
+def _ring_p(torch, dev, m: int):
+    """The Metropolis P of the m-replica ring with the odd replicas
+    triggered (a real Event-3 matrix), its neighbor schedule's ELL slots,
+    diagonal and weights."""
+    from repro_torch.core import mixing
+    from repro_torch.core.consensus import edge_coloring
+    from repro_torch.core.topology import ring_adjacency
+    from repro_torch.launch.steps import neighbor_slots
+
+    adj = ring_adjacency(m)
+    v = torch.arange(m, device=dev) % 2 == 1
+    adj_t = torch.as_tensor(adj, device=dev)
+    p = mixing.build_p(adj_t, (v[:, None] | v[None, :]) & adj_t)
+    idx = torch.as_tensor(neighbor_slots(edge_coloring(adj), m), device=dev)
+    rows = torch.arange(m, device=dev)[:, None]
+    p_off = torch.where(idx != rows, p[rows, idx], 0.0).contiguous()
+    return p, idx, torch.diagonal(p).contiguous(), p_off
+
+
+def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
+    """The three bf16 entries against their plain versions at the train
+    cell's largest leaf (each parameter tree's stacked (m, 3.0e8) rows):
+    the trigger within rtol 1e-5 (fp32 sums in another order), both mixes
+    bit for bit; with each one's time, the plain version's, a library
+    call's and the byte bound."""
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_ordered_ref, mix_sparse_ref
+    from repro_torch.kernels.trigger import ops as trigger_ops
+    from repro_torch.kernels.trigger.ref import trigger_sq_ref
+    from repro_torch.tree import tree_leaves
+
+    leaves_w, leaves_h = tree_leaves(params), tree_leaves(w_hat)
+    big = max(range(len(leaves_w)), key=lambda i: leaves_w[i].numel())
+    m = leaves_w[big].shape[0]
+    w = leaves_w[big].reshape(m, -1)
+    h = leaves_h[big].reshape(m, -1)
+    n = w.shape[1]
+    rows: dict[str, dict] = {}
+
+    got, ref = trigger_ops.trigger_sq(w, h), trigger_sq_ref(w, h)
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    rel_err = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    check(rel_err <= 1e-5, f"trigger_sq_bf16: max rel err {rel_err:.3g} > 1e-5")
+    check(torch.equal(got, trigger_ops.trigger_sq(w, h)), "trigger_sq_bf16: not the "
+          "same from run to run")
+    b_ms, b_by = bound(2 * m * n * 2 + m * 4, 3 * m * n)
+    rows["trigger_sq_bf16"] = {
+        "name": "trigger_sq_bf16", "shape": [m, n], "max_abs_err": abs_err,
+        "max_rel_err": rel_err, "tolerance": "rtol 1e-5",
+        "ms": time_ms(torch, lambda: trigger_ops.trigger_sq(w, h)),
+        "plain_ms": time_ms(torch, lambda: trigger_sq_ref(w, h), reps=10),
+        "library_ms": time_ms(torch, lambda: ((w.float() - h.float()) ** 2).sum(1), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+    p, idx, p_diag, p_off = _ring_p(torch, dev, m)
+    got, ref = mixing_ops.mix(p, w), mix_ordered_ref(p, w)
+    torch.cuda.synchronize()
+    abs_err = float((got.float() - ref.float()).abs().max())
+    check(torch.equal(got, ref), f"mix_bf16: not bit-equal to its plain version "
+                                 f"(max abs err {abs_err:.3g})")
+    b_ms, b_by = bound(2 * m * n * 2 + m * m * 4, 2 * m * m * n)
+    rows["mix_bf16"] = {
+        "name": "mix_bf16", "shape": [m, n], "max_abs_err": abs_err, "tolerance": "exact",
+        "ms": time_ms(torch, lambda: mixing_ops.mix(p, w)),
+        "plain_ms": time_ms(torch, lambda: mix_ordered_ref(p, w), reps=10),
+        "library_ms": time_ms(torch, lambda: torch.matmul(p, w.float()).to(w.dtype), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del got, ref
+
+    got = mixing_ops.mix_sparse(idx, p_diag, p_off, w)
+    ref = mix_sparse_ref(idx, p_diag, p_off, w)
+    torch.cuda.synchronize()
+    abs_err = float((got.float() - ref.float()).abs().max())
+    check(torch.equal(got, ref), f"mix_sparse_bf16: not bit-equal to its plain "
+                                 f"version (max abs err {abs_err:.3g})")
+    csr = _csr(torch, idx, p_diag, p_off)
+    nnz = int((p_off != 0).sum())
+    b_ms, b_by = bound(2 * m * n * 2 + m * idx.shape[1] * (8 + 4) + m * 4,
+                       (2 * nnz + m) * n)
+    rows["mix_sparse_bf16"] = {
+        "name": "mix_sparse_bf16", "shape": [m, n], "d_max": idx.shape[1],
+        "nnz_off": nnz, "max_abs_err": abs_err, "tolerance": "exact",
+        "ms": time_ms(torch, lambda: mixing_ops.mix_sparse(idx, p_diag, p_off, w)),
+        "plain_ms": time_ms(torch, lambda: mix_sparse_ref(idx, p_diag, p_off, w), reps=10),
+        "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, w.float()).to(w.dtype),
+                              reps=10),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del got, ref
+    for name, row in rows.items():
+        print(f"kernel {name} at the train cell's largest leaf {tuple(row['shape'])} bf16: "
+              f"max abs err {row['max_abs_err']:.3g} (tol {row['tolerance']}); kernel_ms "
+              f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+              f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+    print(f"card after the train kernel rows: {card_state()}")
+    return rows
+
+
+def _train_twin(torch, dev, seed: int = 0, dense: int = 3, neighbor: int = 2) -> None:
+    """The smoke configuration in bf16 (m=4 on a ring, pods=2, S=64) on the
+    card (the bf16 entries) and on the CPU (their plain versions) from one
+    set of weights: each step's v, trigger rate and alpha equal, the loss
+    within rtol 2^-7, the parameters and w_hat within the bf16 allowance."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config("starcoder2-15b"), dtype="bfloat16")
+    cpu_state = T.init_state(cfg, 4, seed, "cpu")
+    card_state_ = tuple(tree_map(lambda t: t.to(dev, copy=True), s) for s in cpu_state)
+    runs = {}
+    for where, device, state in (("card", dev, card_state_), ("cpu", "cpu", cpu_state)):
+        kw = dict(m=4, batch=8, seq=64, pods=2, seed=seed, device=device, log=lambda s: None)
+        a = T.train(cfg, steps=dense, state=(*state, 0), **kw)
+        b = T.train(cfg, steps=neighbor, mix="neighbor", state=(a.params, a.w_hat, a.step), **kw)
+        runs[where] = (a.records + b.records, b.params, b.w_hat)
+    (rec_g, pg, hg), (rec_c, pc, hc) = runs["card"], runs["cpu"]
+    for g, c in zip(rec_g, rec_c):
+        check(g["v"] == c["v"] and g["trigger_rate"] == c["trigger_rate"],
+              f"train twin step {g['k']}: v {g['v']} on the card, {c['v']} on the CPU")
+        check(abs(g["alpha"] - c["alpha"]) <= RTOL * abs(c["alpha"]),
+              f"train twin step {g['k']}: alpha {g['alpha']} vs {c['alpha']}")
+        check(abs(g["loss"] - c["loss"]) <= TRAIN_BF16_RTOL * abs(c["loss"]),
+              f"train twin step {g['k']}: loss {g['loss']} vs {c['loss']}")
+    used = max(_trees_close(torch, pg, pc, "train twin params"),
+               _trees_close(torch, hg, hc, "train twin w_hat"))
+    print(f"train card vs cpu {cfg.name} bf16 m=4 S=64, {dense} dense + {neighbor} neighbor "
+          f"steps: v equal at every step (trigger rates "
+          f"{[r['trigger_rate'] for r in rec_c]}), losses within rtol 2^-7, parameters and "
+          f"w_hat within rtol 2^-7 + {TRAIN_LEAF_ULPS} ulps of each leaf's scale "
+          f"(worst share {used:.3f})")
+
+
+def phase_train(torch, dev, cfg=None, m: int = 4, pods: int = 2, batch: int = 8,
+                seq: int = 2048, dense: int = 4, neighbor: int = 2, seed: int = 0,
+                twin: bool = True) -> tuple[dict[str, int], dict[str, dict]]:
+    """EF-HC training of starcoder2-15b (``starcoder2_train``, or ``cfg``)
+    through ``repro_torch.launch.train.train``: m replicas on a ring with
+    ``pods`` pods (personalized rho), global batch ``batch`` at ``seq``
+    tokens, ``dense`` dense steps with a checkpoint at their end, then
+    ``neighbor`` neighbor steps continuing in memory: the main path, whose
+    launches of the three bf16 entries must be leaves x steps.  Then a run
+    that resumes from the checkpoint and takes the same neighbor steps,
+    bit-equal to the in-memory one; the entries against their plain
+    versions at the largest leaf; one profiled dense step; and the smoke
+    configuration's card-vs-CPU twin.  Returns the main path's launches
+    and the kernel rows (none off the card)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or starcoder2_train()
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    label = f"train {cfg.name} {cfg.n_layers}L m={m} pods={pods} B={batch} S={seq}"
+
+    def log(line: str) -> None:
+        print(f"{label}: {line}", flush=True)
+
+    kw = dict(m=m, batch=batch, seq=seq, pods=pods, seed=seed, device=dev, log=log)
+    _reset_launches()
+    if on_card:
+        torch.zeros(1, device=dev)  # the allocator's stats exist once it has run
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first = T.train(cfg, steps=dense, ckpt=str(ckpt), ckpt_every=dense + neighbor + 1, **kw)
+    t1 = time.perf_counter()
+    run = T.train(cfg, steps=neighbor, mix="neighbor",
+                  state=(first.params, first.w_hat, first.step), **kw)
+    if on_card:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {k: n for k, n in _launches().items() if n}
+    n_leaves = len(tree_leaves(run.params))
+    want = {"trigger_sq_bf16": n_leaves * (dense + neighbor), "mix_bf16": n_leaves * dense,
+            "mix_sparse_bf16": n_leaves * neighbor}
+    check(counts == want, f"{label}: launches {counts}, expected {want} ({n_leaves} leaves)")
+    records = first.records + run.records
+    for r in records:
+        check(np.isfinite(r["loss"]) and 0.0 <= r["trigger_rate"] <= 1.0,
+              f"{label}: step {r['k']} loss {r['loss']}, trigger_rate {r['trigger_rate']}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else float("nan")
+    warm = first.step_ms[1:] + run.step_ms  # the first step warms the libraries
+    ms = {"dense": statistics.median(first.step_ms[1:]) if dense > 1 else float("nan"),
+          "neighbor": statistics.median(run.step_ms)}
+    n_par = cfg.n_params
+    print(f"{label}: {n_par} parameters a replica ({n_par * 2 / 1e9:.3f} GB in bf16), "
+          f"{n_leaves} leaves; step ms {[round(x, 1) for x in first.step_ms + run.step_ms]} "
+          f"(first includes warm-up); median ms/step dense {ms['dense']:.1f}, neighbor "
+          f"{ms['neighbor']:.1f}; tokens/s {run.tokens_per_step / statistics.median(warm) * 1e3:.0f}"
+          f" ({run.tokens_per_step} tokens a step); peak memory allocated {peak:.2f} GiB; "
+          f"dense leg {t1 - t0:.1f} s (init, {dense} steps, checkpoint), neighbor leg "
+          f"{t2 - t1:.1f} s; launches {counts}; card {card_state()}")
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.glob("step_*.msgpack"))
+
+    # the resume: from the checkpoint in a run of its own, bit-equal
+    t3 = time.perf_counter()
+    resumed = T.train(cfg, steps=neighbor, mix="neighbor", ckpt=str(ckpt), **kw)
+    t4 = time.perf_counter()
+    check(resumed.records == run.records, f"{label}: the resumed steps' metrics differ "
+                                          f"from the run they continue")
+    check(_trees_equal(torch, resumed.params, run.params)
+          and _trees_equal(torch, resumed.w_hat, run.w_hat),
+          f"{label}: the resumed state differs from the run it continues")
+    print(f"{label}: resumed from the step-{dense} checkpoint ({ckpt_bytes / 1e9:.2f} GB), "
+          f"{neighbor} neighbor steps bit-equal to the uninterrupted run (params, w_hat, "
+          f"every metric); resume leg {t4 - t3:.1f} s (restore, steps, checkpoint)")
+    del resumed, first
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not on_card:
+        return counts, {}
+    torch.cuda.empty_cache()
+    rows = _train_rows(torch, dev, run.params, run.w_hat)
+
+    # one dense step under the profiler
+    setup = run.setup
+    step = steps_mod.make_train_step(dataclasses.replace(setup, mix="dense"),
+                                     n_model_params=n_par)
+    b = next(T._batches(cfg, m, batch, seq, seed, dev))
+    params, w_hat = run.params, run.w_hat
+    n_act, busy, per_name, count = _device_activity(
+        torch, lambda: step(params, w_hat, b, run.step))
+    if not n_act:
+        print(f"{label} profile: the profiler saw no device activity; busy share not measured")
+    else:
+        own, seen = {}, _repo_counts(count)
+        for name, t in per_name.items():
+            if fn := _repo_kernel(name):
+                own[fn] = own.get(fn, 0.0) + t
+        events = sum(own.values())
+        print(f"{label} profile: one dense step, {n_act} device activities, device busy "
+              f"{busy:.1f} ms of {ms['dense']:.1f} ms/step without the profiler (idle share "
+              f"{1 - busy / ms['dense']:.3f}); Events 2-3 kernels {events:.3f} ms "
+              f"({events / busy:.4f} of busy): " + ", ".join(
+                  f"{k} {v:.3f} ({seen.get(k, 0)} activities)" for k, v in sorted(own.items())))
+        for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"{label} profile:   {t:9.3f} ms ({t / busy:.3f} of busy)  {name[:90]}")
+    del params, w_hat, run, b
+    torch.cuda.empty_cache()
+    if twin:
+        _train_twin(torch, dev, seed)
+    return counts, rows
+
+
 # kernel functions of csrc/ (the names the profiler shows)
 REPO_KERNELS = ("trigger_sq_kernel", "mix_kernel", "mix_sparse_kernel",
                 "compact_slots_kernel", "mix_sparse_wide_kernel",
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
-                "swa_tc_kernel", "swa_tf32_kernel")
+                "swa_tc_kernel", "swa_tf32_kernel", "trigger_sq_bf16_kernel",
+                "trigger_sq_bf16_rows_kernel", "mix_bf16_kernel",
+                "mix_sparse_bf16_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -3125,6 +3441,12 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/swa/kernel.py:76"),
     "swa_attention_tf32": ("src/repro_torch/kernels/csrc/swa_attention_tf32.cu",
                            "src/repro/kernels/swa/kernel.py:76"),
+    "trigger_sq_bf16": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
+                        "src/repro/kernels/trigger/kernel.py:39"),
+    "mix_bf16": ("src/repro_torch/kernels/csrc/mix.cu",
+                 "src/repro/kernels/mixing/kernel.py:32"),
+    "mix_sparse_bf16": ("src/repro_torch/kernels/csrc/mix_sparse.cu",
+                        "src/repro/kernels/mixing/kernel.py:74"),
 }
 
 
@@ -3231,6 +3553,11 @@ def main() -> int:
         lap("phase 9")
         smoke, seen_smoke = phase_serve_cpu(torch, dev)
         lap("phase 10")
+        torch.cuda.empty_cache()  # the serve phases' weights are gone
+        train_launches, train_rows = phase_train(torch, dev)
+        launches.update(train_launches)
+        rows.update(train_rows)
+        lap("phase 11")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",

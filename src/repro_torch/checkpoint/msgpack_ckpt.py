@@ -8,10 +8,16 @@ Port of ``repro.checkpoint.msgpack_ckpt``, same on-disk format.  Layout:
 * plain tuple -> {"__tuple__": [items...]}
 * None        -> {"__none__": true}
 
-Tensors go to host numpy before encoding (``restore`` returns numpy; the
-caller puts the leaves back on its device, byte-exact).  ``save`` writes
-atomically (tmp + rename) and rotates old checkpoints (``keep=0`` keeps
-every step).
+Tensors go to host numpy one at a time as the file is written
+(``restore`` returns numpy; the caller puts the leaves back on its device,
+byte-exact).  numpy has no bfloat16 without ``ml_dtypes``, so a bf16 leaf
+is written as the reference writes one, ``"dtype": "bfloat16"`` over its
+raw 2-byte words, and restores as a CPU ``torch.bfloat16`` tensor through
+a 16-bit view.  ``save`` streams the packed tree into the file (one
+leaf's host copy at a time) and ``restore`` decodes from a memory map
+(one copy of each leaf), so a checkpoint of tens of GB needs about its
+own size in host memory, not three times it.  ``save`` writes atomically
+(tmp + rename) and rotates old checkpoints (``keep=0`` keeps every step).
 
 The encoder is ``packb``/``unpackb`` below, not the ``msgpack`` package:
 the subset this format needs -- maps with str keys, arrays, str, bin,
@@ -23,6 +29,7 @@ raw=False)`` reads it.
 from __future__ import annotations
 
 import importlib
+import mmap
 import os
 import re
 import struct
@@ -91,9 +98,10 @@ def _pack(obj, out: list) -> None:
         data = obj.encode("utf-8")
         _pack_len(len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB), out)
         out.append(data)
-    elif isinstance(obj, bytes):
-        _pack_len(len(obj), None, 0, (0xC4, 0xC5, 0xC6), out)
-        out.append(obj)
+    elif isinstance(obj, (bytes, _Raw)):
+        data = obj.buffer() if isinstance(obj, _Raw) else obj
+        _pack_len(len(data), None, 0, (0xC4, 0xC5, 0xC6), out)
+        out.append(data)
     elif isinstance(obj, (list, tuple)):
         _pack_len(len(obj), 0x90, 16, (None, 0xDC, 0xDD), out)
         for item in obj:
@@ -123,7 +131,24 @@ _SIZED = {0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
           0xDE: (">H", "map"), 0xDF: (">I", "map")}
 
 
-def _unpack(buf: memoryview, pos: int):
+class _Raw:
+    """An array's raw bytes, taken (as a flat uint8 view of its host copy)
+    only when the packer writes them."""
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def buffer(self) -> memoryview:
+        arr = self.obj
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().contiguous()
+            if arr.dtype == torch.bfloat16:
+                arr = arr.view(torch.int16)
+            arr = arr.numpy()
+        return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+def _unpack(buf: memoryview, pos: int, views: bool = False):
     b = buf[pos]
     pos += 1
     if b < 0x80:
@@ -155,17 +180,17 @@ def _unpack(buf: memoryview, pos: int):
     if kind == "str":
         return str(buf[pos:pos + n], "utf-8"), pos + n
     if kind == "bin":
-        return bytes(buf[pos:pos + n]), pos + n
+        return (buf[pos:pos + n] if views else bytes(buf[pos:pos + n])), pos + n
     if kind == "array":
         items = []
         for _ in range(n):
-            item, pos = _unpack(buf, pos)
+            item, pos = _unpack(buf, pos, views)
             items.append(item)
         return items, pos
     out = {}
     for _ in range(n):
-        k, pos = _unpack(buf, pos)
-        out[k], pos = _unpack(buf, pos)
+        k, pos = _unpack(buf, pos, views)
+        out[k], pos = _unpack(buf, pos, views)
     return out, pos
 
 
@@ -186,12 +211,24 @@ def _is_namedtuple(obj) -> bool:
     return isinstance(obj, tuple) and hasattr(type(obj), "_fields")
 
 
-def _tree_encode(obj):
-    if isinstance(obj, (np.ndarray, torch.Tensor)):
-        arr = (obj.detach().cpu().numpy() if isinstance(obj, torch.Tensor)
-               else np.asarray(obj))
-        return {"__nd__": list(arr.shape), "dtype": str(arr.dtype),
-                "data": np.ascontiguousarray(arr).tobytes()}
+def _tree_encode(obj, lazy: bool = False):
+    """The tree as the msgpack subset, dict keys sorted (the reference's
+    file for the same tree, byte for byte); an array's bytes as ``bytes``,
+    or with ``lazy`` as a ``_Raw`` the packer reads when it writes them."""
+    def enc(v):
+        return _tree_encode(v, lazy)
+
+    def data(arr):
+        return _Raw(arr) if lazy else _Raw(arr).buffer().tobytes()
+
+    if isinstance(obj, torch.Tensor):
+        # numpy's name of the dtype; a bf16 tensor's raw 2-byte words are
+        # written as the reference writes an ml_dtypes bfloat16 array
+        dtype = ("bfloat16" if obj.dtype == torch.bfloat16
+                 else str(torch.empty(0, dtype=obj.dtype).numpy().dtype))
+        return {"__nd__": list(obj.shape), "dtype": dtype, "data": data(obj)}
+    if isinstance(obj, np.ndarray):
+        return {"__nd__": list(obj.shape), "dtype": str(obj.dtype), "data": data(obj)}
     if isinstance(obj, (np.bool_, bool)):
         return bool(obj)
     if isinstance(obj, np.integer):
@@ -203,13 +240,14 @@ def _tree_encode(obj):
     if _is_namedtuple(obj):
         cls = type(obj)
         return {"__nt__": f"{cls.__module__}.{cls.__qualname__}",
-                "data": [_tree_encode(v) for v in obj]}
+                "data": [enc(v) for v in obj]}
     if isinstance(obj, tuple):
-        return {"__tuple__": [_tree_encode(v) for v in obj]}
+        return {"__tuple__": [enc(v) for v in obj]}
     if isinstance(obj, list):
-        return [_tree_encode(v) for v in obj]
+        return [enc(v) for v in obj]
     if isinstance(obj, dict):
-        return {k: _tree_encode(v) for k, v in obj.items()}
+        # keys sorted, as the reference's jax.device_get of the tree leaves them
+        return {k: enc(obj[k]) for k in sorted(obj)}
     if isinstance(obj, (int, float, str, bytes)):
         return obj
     raise TypeError(f"cannot serialize {type(obj)}")
@@ -226,6 +264,9 @@ def _nt_class(qualname: str):
 def _tree_decode(obj):
     if isinstance(obj, dict):
         if "__nd__" in obj:
+            if obj["dtype"] == "bfloat16":
+                raw = np.frombuffer(obj["data"], dtype=np.int16).reshape(obj["__nd__"])
+                return torch.from_numpy(raw.copy()).view(torch.bfloat16)
             return (np.frombuffer(obj["data"], dtype=np.dtype(obj["dtype"]))
                     .reshape(obj["__nd__"]).copy())
         if "__none__" in obj:
@@ -244,12 +285,18 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step}.msgpack")
     tmp = path + ".tmp"
-    payload = packb(_tree_encode(tree))
     with open(tmp, "wb") as f:
-        f.write(payload)
+        _pack(_tree_encode(tree, lazy=True), _Writer(f))
     os.replace(tmp, path)
     _rotate(ckpt_dir, keep)
     return path
+
+
+class _Writer:
+    """The packer's output list, written straight to a file."""
+
+    def __init__(self, f):
+        self.append = f.write
 
 
 def _steps(ckpt_dir: str) -> list[int]:
@@ -279,6 +326,15 @@ def restore(ckpt_dir: str, step: int | None = None) -> Any:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-    with open(os.path.join(ckpt_dir, f"step_{step}.msgpack"), "rb") as f:
-        raw = unpackb(f.read())
-    return _tree_decode(raw)
+    path = os.path.join(ckpt_dir, f"step_{step}.msgpack")
+    if os.path.getsize(path) == 0:
+        raise ValueError(f"{path} is empty")
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        buf = memoryview(mm)
+        raw, pos = _unpack(buf, 0, views=True)  # bins: views into the map
+        if pos != len(buf):
+            raise ValueError(f"{len(buf) - pos} trailing bytes after the object")
+        tree = _tree_decode(raw)  # copies every array out of the map
+        del raw
+        buf.release()
+    return tree

@@ -11,10 +11,13 @@ A batched run gives ``flat`` and the weights a leading cell axis,
 (C, m, d_max); the neighbor table (m, d_max) is shared.  Each cell's
 rows are those its solo call gives.  A shard of the sharded engine mixes
 its rows from the ``[own; halo]`` buffer (``mix_sparse_halo``), a source
-with more rows than the table.
+with more rows than the table.  ``edge_coloring`` (host numpy) cuts a
+static base graph into the matchings of the train step's neighbor
+schedule.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -72,3 +75,97 @@ def mix_delta_sparse(nbr_idx: torch.Tensor, p_off: torch.Tensor,
     for s in range(nbr_idx.shape[1]):
         delta = delta + p_off[..., s:s + 1].float() * (flat[..., nbr_idx[:, s], :] - flat)
     return flat + delta
+
+
+def edge_coloring(adjacency) -> list[list[tuple[int, int]]]:
+    """Misra-Gries proper edge coloring of the static base graph: returns
+    rounds of vertex-disjoint edges (matchings) that partition the edge set,
+    using at most maxdeg + 1 colors (Vizing's bound, which this algorithm
+    *guarantees* -- a greedy first-fit can need up to 2*maxdeg - 1).  Each
+    round is one pairwise swap of the replicas in
+    ``launch.steps.neighbor_slots``.
+
+    Accepts the canonical ``topology.EdgeList`` (the staging-native form --
+    edges and maxdeg read off directly, no O(m^2) dense scan) or a dense
+    symmetric adjacency (legacy input)."""
+    from repro_torch.core.topology import EdgeList
+
+    if isinstance(adjacency, EdgeList):
+        m = adjacency.m
+        edges = list(zip(adjacency.u.tolist(), adjacency.v.tolist()))
+        maxdeg = (int(np.bincount(np.concatenate([adjacency.u, adjacency.v]), minlength=m).max())
+                  if edges else 0)
+    else:
+        adjacency = np.asarray(adjacency, bool)
+        m = adjacency.shape[0]
+        edges = [(i, j) for i in range(m) for j in range(i + 1, m) if adjacency[i, j]]
+        maxdeg = int(adjacency.sum(1).max()) if edges else 0
+    if not edges:
+        return []
+    ncolors = maxdeg + 1
+    # incident[x][c] = the neighbor reached from x over the c-colored edge
+    incident: list[dict[int, int]] = [{} for _ in range(m)]
+    color: dict[frozenset, int] = {}
+
+    def free(x: int) -> int:
+        return next(c for c in range(ncolors) if c not in incident[x])
+
+    def assign(a: int, b: int, c: int) -> None:
+        e = frozenset((a, b))
+        old = color.get(e)
+        if old is not None:
+            del incident[a][old], incident[b][old]
+        color[e] = c
+        incident[a][c] = b
+        incident[b][c] = a
+
+    def unassign(a: int, b: int) -> None:
+        old = color.pop(frozenset((a, b)))
+        del incident[a][old], incident[b][old]
+
+    for (u, v) in edges:
+        # maximal fan of u starting at v: each next edge (u, f) is colored
+        # with a color free on the previous fan vertex
+        fan = [v]
+        in_fan = {v}
+        grew = True
+        while grew:
+            grew = False
+            for c, w in incident[u].items():
+                if w not in in_fan and c not in incident[fan[-1]]:
+                    fan.append(w)
+                    in_fan.add(w)
+                    grew = True
+                    break
+        c = free(u)
+        d = free(fan[-1])
+        if c != d:
+            # invert the maximal cd-path starting at u (first edge colored d)
+            path, x, want = [], u, d
+            while want in incident[x]:
+                y = incident[x][want]
+                path.append((x, y))
+                x, want = y, (c if want == d else d)
+            for a, b in path:
+                unassign(a, b)
+            for i, (a, b) in enumerate(path):
+                assign(a, b, c if i % 2 == 0 else d)
+        # shortest fan prefix [v .. w] that is still a fan with d free on w
+        w_end = next(i for i, f in enumerate(fan) if d not in incident[f]
+                     and all(color[frozenset((u, fan[j + 1]))] not in incident[fan[j]]
+                             for j in range(i)))
+        # rotate: shift each fan edge's color back one vertex, color (u,w)=d
+        # (snapshot + unassign first: in-place shifting would momentarily
+        # give two edges at u the same color and corrupt ``incident``)
+        shifted = [color[frozenset((u, fan[i + 1]))] for i in range(w_end)]
+        for i in range(w_end):
+            unassign(u, fan[i + 1])
+        for i in range(w_end):
+            assign(u, fan[i], shifted[i])
+        assign(u, fan[w_end], d)
+
+    rounds: list[list[tuple[int, int]]] = [[] for _ in range(ncolors)]
+    for e, c in color.items():
+        a, b = sorted(e)
+        rounds[c].append((a, b))
+    return [r for r in rounds if r]

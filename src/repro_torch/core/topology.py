@@ -174,6 +174,18 @@ def ring_edges(m: int) -> EdgeList:
     return _canonical_edges(np.concatenate([u, [0]]), np.concatenate([v, [m - 1]]), m)
 
 
+def ring_adjacency(m: int) -> np.ndarray:
+    """Static ring as a dense (m, m) bool matrix, the reference's legacy
+    form (the train step's base graph over the replicas)."""
+    a = np.zeros((m, m), dtype=bool)
+    idx = np.arange(m)
+    a[idx, (idx + 1) % m] = True
+    a[(idx + 1) % m, idx] = True
+    if m <= 2:
+        np.fill_diagonal(a, False)
+    return a
+
+
 def complete_edges(m: int) -> EdgeList:
     """All m(m-1)/2 pairs in canonical row-major order, built without the
     (m, m) matrix np.triu_indices would allocate."""

@@ -211,7 +211,8 @@ def cnn_logits(w: Params, x: torch.Tensor) -> torch.Tensor:
     convolutions run as patches times one batched product over the
     devices (``_conv3x3``, NCHW with the devices' channels side by side);
     a shared x runs the first one against all devices' kernels as one
-    group."""
+    group.  The chunks' predictions are those of one pass; their logits
+    agree to fp32 rounding (a batched product may round by batch count)."""
     m = w["c1"].shape[0]
     step = max(1, CNN_EVAL_ROWS // x.shape[0]) if x.dim() == 2 else m
     if step >= m:

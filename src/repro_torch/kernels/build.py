@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu",
                              "swa_attention.cu", "swa_attention_tc.cu",
                              "swa_attention_tf32.cu")
+HEADERS: tuple[str, ...] = ("bf16.cuh",)  # included by the sources
 NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -32,7 +33,10 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int
 _SIGNATURES = {
     "repro_trigger_sq_f32": (_P, _P, _P, _I64, _I64, _P),
+    "repro_trigger_sq_bf16": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "repro_mix_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "repro_mix_bf16": (_P, _P, _P, _I64, _I64, _P),
+    "repro_mix_sparse_bf16": (*(_P,) * 5, *(_I64,) * 4, _P),
     "repro_mix_sparse_f32": (*(_P,) * 11, *(_I64,) * 8, _P),
     "repro_mix_sparse_wide_f32": (*(_P,) * 12, *(_I64,) * 10, _P),
     "repro_mix_sparse_direct_f32": (*(_P,) * 7, *(_I64,) * 6, _P),
@@ -59,7 +63,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

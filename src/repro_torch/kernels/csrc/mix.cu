@@ -51,8 +51,23 @@
 // passes 2^31 at 16 cells of 4096 x 50890), and its blocks do the solo
 // launch's arithmetic on its slices, so each cell's output is bit-equal
 // to a launch on that cell alone.
+//
+// bf16 rows (repro_mix_bf16): the train step's Event 3 on bf16 parameter
+// leaves, as mix_pallas computes them (W in its dtype, fp32 sums, w.dtype
+// out), one cell.  Bound: memory, m D 2 bytes read and written each, with
+// 2 m^2 D flops far below the ridge for the few replicas of a train step
+// (m = 4: 2 flops a byte).  A plain SIMT kernel: a thread owns 8 columns
+// (one 16-byte load a row), reads the m source rows of them once for each
+// tile of 8 output rows, and sums j = 0..m-1 in order, every product and
+// sum rounded (__fmul_rn / __fadd_rn, never an FMA, so that the plain
+// version in kernels/mixing/ref.py gives the same bits), then rounds to
+// bf16 to nearest even.  64-bit column offsets: a leaf's rows reach
+// 3.0e8 columns.  It does not use the tensor cores (a bf16 W is exact in
+// TF32, so two TF32 products would do; ROADMAP Queue 2).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -368,4 +383,58 @@ extern "C" int repro_mix_f32(const float* P, const float* W, float* OUT, long lo
   if (va == 4) return launch_b<4>(vb, P, W, OUT, cells, m, D, s);
   if (va == 2) return launch_b<2>(vb, P, W, OUT, cells, m, D, s);
   return launch_b<1>(vb, P, W, OUT, cells, m, D, s);
+}
+
+namespace {
+
+constexpr int MIXB_NT = 256, MIXB_TILE = 8;
+
+// columns [c, c + V) of every output row; V = 8 when D % 8 == 0 and W and
+// OUT are 16-byte aligned, else 1
+template <int V>
+__global__ void __launch_bounds__(MIXB_NT)
+mix_bf16_kernel(const float* __restrict__ P, const uint16_t* __restrict__ W,
+                uint16_t* __restrict__ OUT, int m, long long D) {
+  const long long c = ((long long)blockIdx.x * MIXB_NT + threadIdx.x) * V;
+  if (c >= D) return;
+  for (int i0 = 0; i0 < m; i0 += MIXB_TILE) {
+    float acc[MIXB_TILE][V];
+    for (int j = 0; j < m; ++j) {
+      float x[V];
+      bf16rows::load<V>(W + (long long)j * D + c, x);
+#pragma unroll
+      for (int t = 0; t < MIXB_TILE; ++t) {
+        if (i0 + t < m) {
+          const float p = __ldg(P + (long long)(i0 + t) * m + j);
+#pragma unroll
+          for (int q = 0; q < V; ++q)
+            acc[t][q] = j == 0 ? __fmul_rn(p, x[q]) : __fadd_rn(acc[t][q], __fmul_rn(p, x[q]));
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < MIXB_TILE; ++t)
+      if (i0 + t < m) bf16rows::store<V>(OUT + (long long)(i0 + t) * D + c, acc[t]);
+  }
+}
+
+}  // namespace
+
+// P: (m, m) fp32, W and OUT: (m, D) bf16 (as 16-bit words), row-major, one
+// cell; W and OUT must not overlap.  Launches on `stream` and returns the
+// CUDA error of the launch.
+extern "C" int repro_mix_bf16(const float* P, const uint16_t* W, uint16_t* OUT, long long m,
+                              long long D, void* stream) {
+  if (m < 1 || m > 0x7fffffff || D < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = D % 8 == 0 && (((uintptr_t)W | (uintptr_t)OUT) & 15u) == 0;
+  const int v = vec ? 8 : 1;
+  const long long blocks = (D + (long long)MIXB_NT * v - 1) / ((long long)MIXB_NT * v);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (vec)
+    mix_bf16_kernel<8><<<(unsigned int)blocks, MIXB_NT, 0, (cudaStream_t)stream>>>(P, W, OUT,
+                                                                                  (int)m, D);
+  else
+    mix_bf16_kernel<1><<<(unsigned int)blocks, MIXB_NT, 0, (cudaStream_t)stream>>>(P, W, OUT,
+                                                                                  (int)m, D);
+  return (int)cudaGetLastError();
 }

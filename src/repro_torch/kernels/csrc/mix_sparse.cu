@@ -92,8 +92,22 @@
 // [own rows ; halo rows] buffer in the sharded engine); output row i's self
 // term is W row i and the table indexes [0, n_src).  Only W's cell stride
 // and the finite flags (C, n_src) see n_src; a square call passes n_src = m.
+//
+// bf16 rows (repro_mix_sparse_bf16): the train step's neighbor schedule on
+// bf16 parameter leaves (launch/steps.py: the edge-coloring rounds as ELL
+// slots, d_max = the rounds), one cell, no plan.  The direct route alone:
+// a 256-thread block takes 4 output rows and 2048 columns, 8 a thread
+// (16-byte loads), and walks each row's slots in order straight from
+// device memory, every slot taken, zero weights included: the plain slot
+// loop's arithmetic to the bit (__fmul_rn / __fadd_rn), so 0 * inf gives
+// NaN as there, and a zero's sign is the plain version's too.  Bound:
+// memory, m D 2 bytes read and written each; the rows a block reads again
+// for its slots come from L2 (a ring's 4 replicas: 2048 columns of 4 rows).
+// 64-bit offsets: rows reach 3.0e8 columns.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -605,5 +619,62 @@ extern "C" int repro_mix_sparse_direct_f32(const int64_t* idx, const float* p_di
             (unsigned int)((D + DIRECT_CHUNK - 1) / DIRECT_CHUNK), (unsigned int)cells);
   mix_sparse_direct_kernel<<<grid, DIRECT_NT, 0, (cudaStream_t)stream>>>(
       idx, p_diag, p_off, w, out, rows, finite, (int)m, (int)n_src, (int)n_rows, (int)d_max, D);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+constexpr int SPB_NT = 256, SPB_ROWS = 4;
+
+// columns [c, c + V) of rows 4 blockIdx.y ..; V = 8 when D % 8 == 0 and W
+// and OUT are 16-byte aligned, else 1
+template <int V>
+__global__ void __launch_bounds__(SPB_NT)
+mix_sparse_bf16_kernel(const int64_t* __restrict__ idx, const float* __restrict__ p_diag,
+                       const float* __restrict__ p_off, const uint16_t* __restrict__ w,
+                       uint16_t* __restrict__ out, int m, int d_max, long long D) {
+  const long long c = ((long long)blockIdx.x * SPB_NT + threadIdx.x) * V;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * SPB_ROWS;
+  for (int i = r0; i < r0 + SPB_ROWS && i < m; ++i) {
+    float acc[V], x[V];
+    const float pd = __ldg(p_diag + i);
+    bf16rows::load<V>(w + (long long)i * D + c, x);
+#pragma unroll
+    for (int q = 0; q < V; ++q) acc[q] = __fmul_rn(pd, x[q]);
+    for (int s = 0; s < d_max; ++s) {
+      const long long at = (long long)i * d_max + s;
+      const float p = __ldg(p_off + at);
+      bf16rows::load<V>(w + __ldg(idx + at) * D + c, x);
+#pragma unroll
+      for (int q = 0; q < V; ++q) acc[q] = __fadd_rn(acc[q], __fmul_rn(p, x[q]));
+    }
+    bf16rows::store<V>(out + (long long)i * D + c, acc);
+  }
+}
+
+}  // namespace
+
+// idx: (m, d_max) int64 into [0, n_src); p_diag: (m,) fp32, p_off: (m,
+// d_max) fp32; w: (n_src, D) bf16 with n_src >= m, out: (m, D) bf16 (as
+// 16-bit words), all row-major, one cell; w and out must not overlap.
+// Launches on `stream` and returns the CUDA error of the launch.
+extern "C" int repro_mix_sparse_bf16(const int64_t* idx, const float* p_diag,
+                                     const float* p_off, const uint16_t* w, uint16_t* out,
+                                     long long m, long long n_src, long long d_max,
+                                     long long D, void* stream) {
+  if (m < 1 || n_src < m || d_max < 0 || D < 1 || (m + SPB_ROWS - 1) / SPB_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = D % 8 == 0 && (((uintptr_t)w | (uintptr_t)out) & 15u) == 0;
+  const int v = vec ? 8 : 1;
+  const long long blocks = (D + (long long)SPB_NT * v - 1) / ((long long)SPB_NT * v);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned int)blocks, (unsigned int)((m + SPB_ROWS - 1) / SPB_ROWS));
+  if (vec)
+    mix_sparse_bf16_kernel<8><<<grid, SPB_NT, 0, (cudaStream_t)stream>>>(
+        idx, p_diag, p_off, w, out, (int)m, (int)d_max, D);
+  else
+    mix_sparse_bf16_kernel<1><<<grid, SPB_NT, 0, (cudaStream_t)stream>>>(
+        idx, p_diag, p_off, w, out, (int)m, (int)d_max, D);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,17 @@
 """Wrappers of the mixing kernels (``csrc/mix.cu``, ``csrc/mix_sparse.cu``).
 
-A CUDA tensor launches the kernel (fp32, contiguous; ELL indices int64)
-or raises; a CPU tensor runs the plain version in ``ref.py``.  Both
-kernels take a leading cell axis, C cells in one launch: ``mix`` with
-P (C, m, m) and W (C, m, D), ``mix_sparse`` with one shared neighbor table
-and per-cell weights and rows; unbatched inputs are one cell.  The
+A CUDA tensor launches the kernel of W's dtype (contiguous; ELL indices
+int64, P and its ELL weights fp32) or raises; a CPU tensor runs the plain
+version in ``ref.py``.  fp32 rows (the simulator's flat rows) take the
+fp32 kernels, which take a leading cell axis, C cells in one launch:
+``mix`` with P (C, m, m) and W (C, m, D), ``mix_sparse`` with one shared
+neighbor table and per-cell weights and rows; unbatched inputs are one
+cell.  bf16 rows (the train step's parameter leaves) take the bf16
+entries, one cell, W's dtype out; any other dtype raises.  The
 gather-mix's row-group plans live here (``prepare_plan``), a few, each for
-the neighbor table it was built from, whatever the number of cells."""
+the neighbor table it was built from, whatever the number of cells; the
+bf16 entry needs none.  ``mix_tree`` and ``mix_sparse_tree`` apply them
+leaf by leaf over a stacked parameter tree, each leaf as (m, -1) rows."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -15,11 +20,13 @@ import torch
 
 from repro_torch.kernels import build, check_cuda_input, on_cpu, stream_handle
 from repro_torch.kernels.mixing.plan import CHUNK, MixSparsePlan, build_plan
-from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref
+from repro_torch.kernels.mixing.ref import mix_ordered_ref, mix_ref, mix_sparse_ref
+from repro_torch.tree import tree_map
 
 # launches of the CUDA kernels, counted where they are launched and
 # nowhere else
-LAUNCHES = {"mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0}
+LAUNCHES = {"mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+            "mix_bf16": 0, "mix_sparse_bf16": 0}
 # builds of a gather-mix plan (each a host sync), counted where they happen
 PLAN_BUILDS = 0
 
@@ -45,12 +52,15 @@ def mix(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense consensus mixing, per cell: p (C, m, m), w (C, m, D) -> P @ W
     (C, m, D), or p (m, m), w (m, D) as one cell, to fp32 accuracy (split
     TF32 on the card's tensor cores; ``mix_ref_3xtf32`` emulates the
-    split).  One launch for all cells."""
+    split).  One launch for all cells.  bf16 rows, one cell: the bf16
+    entry, bf16 out (``_mix_bf16``)."""
     if w.dim() not in (2, 3) or tuple(p.shape) != tuple(w.shape[:-1]) + (w.shape[-2],):
         raise ValueError(f"mix takes p (m, m) and w (m, D), or p (C, m, m) and "
                          f"w (C, m, D); got {tuple(p.shape)} and {tuple(w.shape)}")
     if on_cpu(p, w):
-        return mix_ref(p, w)
+        return mix_ordered_ref(p, w) if w.dtype == torch.bfloat16 else mix_ref(p, w)
+    if w.dtype == torch.bfloat16:
+        return _mix_bf16(p, w)
     cells = _cells(w)
     m, n = w.shape[-2:]
     check_cuda_input("p", p, torch.float32, tuple(p.shape))
@@ -66,6 +76,81 @@ def mix(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     build.check(err, "mix")
     LAUNCHES["mix"] += 1
     return out
+
+
+def _one_cell(name: str, w: torch.Tensor) -> None:
+    if w.dim() != 2:
+        raise ValueError(f"the bf16 {name} entry takes one cell, w (m, D); got "
+                         f"{tuple(w.shape)}")
+
+
+def _mix_bf16(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``mix`` of bf16 rows on the card: ``repro_mix_bf16``, bf16 out, the
+    bits of ``mix_ordered_ref``."""
+    _one_cell("mix", w)
+    m, n = w.shape
+    check_cuda_input("p", p, torch.float32, (m, m))
+    check_cuda_input("w", w, torch.bfloat16, (m, n))
+    out = torch.empty_like(w)
+    if m == 0 or n == 0:
+        return out
+    err = build.library().repro_mix_bf16(p.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                         m, n, stream_handle(w.device))
+    build.check(err, "mix_bf16")
+    LAUNCHES["mix_bf16"] += 1
+    return out
+
+
+def _mix_sparse_bf16(nbr_idx, p_diag, p_off, w) -> torch.Tensor:
+    """``mix_sparse`` of bf16 rows on the card: ``repro_mix_sparse_bf16``,
+    every slot in order, the bits of ``mix_sparse_ref``."""
+    _one_cell("mix_sparse", w)
+    m, d_max = nbr_idx.shape
+    n_src, n = w.shape
+    check_cuda_input("nbr_idx", nbr_idx, torch.int64, (m, d_max))
+    check_cuda_input("p_off", p_off, torch.float32, (m, d_max))
+    p_diag = p_diag.reshape(m)
+    check_cuda_input("p_diag", p_diag, torch.float32, (m,))
+    check_cuda_input("w", w, torch.bfloat16, (n_src, n))
+    if -(-m // 4) > _MAX_GRID_Y:
+        raise ValueError(f"the bf16 mix_sparse entry takes m <= {4 * _MAX_GRID_Y}; got {m}")
+    out = torch.empty((m, n), dtype=w.dtype, device=w.device)
+    if m == 0 or n == 0:
+        return out
+    err = build.library().repro_mix_sparse_bf16(
+        nbr_idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
+        out.data_ptr(), m, n_src, d_max, n, stream_handle(w.device))
+    build.check(err, "mix_sparse_bf16")
+    LAUNCHES["mix_sparse_bf16"] += 1
+    return out
+
+
+def _tree(mix_rows, tree, out):
+    """``mix_rows`` over each leaf as (m, -1) rows; with ``out`` (a tree of
+    the same structure, ``tree`` itself allowed) each mixed leaf is copied
+    into its place as soon as it exists, so one leaf's result is live at a
+    time, and ``out`` is returned."""
+    def one(leaf, *dst):
+        mixed = mix_rows(leaf.reshape(leaf.shape[0], -1)).reshape(leaf.shape)
+        if not dst:
+            return mixed
+        return dst[0].copy_(mixed)
+
+    return tree_map(one, tree) if out is None else tree_map(one, tree, out)
+
+
+def mix_tree(p: torch.Tensor, tree, *, out=None):
+    """Dense consensus mixing of a stacked parameter tree, leaves (m, ...):
+    each leaf flattened to (m, -1), mixed by ``mix`` in its dtype and
+    reshaped.  ``out``: see ``_tree``."""
+    return _tree(lambda rows: mix(p, rows), tree, out)
+
+
+def mix_sparse_tree(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
+                    p_off: torch.Tensor, tree, *, out=None):
+    """Leaf-wise ``mix_sparse`` over a stacked parameter tree.  ``out``:
+    see ``_tree``."""
+    return _tree(lambda rows: mix_sparse(nbr_idx, p_diag, p_off, rows), tree, out)
 
 
 def prepare_plan(nbr_idx: torch.Tensor) -> MixSparsePlan | None:
@@ -119,7 +204,8 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
 
     Each route launches once for all cells when the plan gives it rows and
     counts under its own key.  All give the plain version's bits, cell by
-    cell; the CPU path runs that directly."""
+    cell; the CPU path runs that directly.  bf16 rows, one cell, take the
+    bf16 entry instead, which needs no plan (``_mix_sparse_bf16``)."""
     lead = tuple(w.shape[:-2])
     if w.dim() not in (2, 3) or nbr_idx.dim() != 2 or nbr_idx.shape[0] > w.shape[-2] \
             or tuple(p_off.shape) != lead + tuple(nbr_idx.shape) \
@@ -131,6 +217,8 @@ def mix_sparse(nbr_idx: torch.Tensor, p_diag: torch.Tensor,
             f"{tuple(p_diag.shape)}, {tuple(w.shape)}")
     if on_cpu(nbr_idx, p_diag, p_off, w):
         return mix_sparse_ref(nbr_idx, p_diag, p_off, w)
+    if w.dtype == torch.bfloat16:
+        return _mix_sparse_bf16(nbr_idx, p_diag, p_off, w)
     cells = _cells(w)
     m, d_max = nbr_idx.shape
     n_src, n = w.shape[-2:]

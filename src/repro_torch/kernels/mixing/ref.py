@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the mixing kernels (the CPU path and the
-card's yardstick), with the kernels' optional leading cell axis.
-``mix_sparse_ref`` runs the slot loop in the kernel's order and
-arithmetic, so the two agree bit for bit.  ``mix_ref_3xtf32``
-emulates the dense kernel's split-TF32 arithmetic (tests only; ``mix_ref``
-stays the yardstick)."""
+card's yardstick), with the kernels' optional leading cell axis.  Each
+reads W in its dtype, computes in fp32 and writes W's dtype, as the
+reference's kernels do.  ``mix_sparse_ref`` runs the slot loop in the
+kernels' order and arithmetic, so the two agree bit for bit.
+``mix_ordered_ref`` is the bf16 ``mix`` entry's arithmetic, the same bit
+for bit: j summed in order, each product and sum rounded.
+``mix_ref_3xtf32`` emulates the fp32 dense kernel's split-TF32
+arithmetic (tests only; ``mix_ref`` stays the yardstick)."""
 import torch
 
 from repro_torch.core.consensus import mix_sparse
@@ -11,6 +14,16 @@ from repro_torch.core.consensus import mix_sparse
 
 def mix_ref(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (p.float() @ w.float()).to(w.dtype)
+
+
+def mix_ordered_ref(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """P @ W with out[i] = p[i, 0] w[0] + p[i, 1] w[1] + ..., left to
+    right in fp32, every product and sum rounded (no fused multiply-add)."""
+    p, wf = p.float(), w.float()
+    acc = p[..., :, :1] * wf[..., :1, :]
+    for j in range(1, w.shape[-2]):
+        acc = acc + p[..., :, j:j + 1] * wf[..., j:j + 1, :]
+    return acc.to(w.dtype)
 
 
 def mix_sparse_ref(nbr_idx: torch.Tensor, p_diag: torch.Tensor,

@@ -177,6 +177,12 @@ def attention_seq(
             or prefix_len is not None or not cfg.causal):
         impl = "chunked" if s > 4096 else "xla"  # banded prerequisites unmet
     if impl == "pallas_swa":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "attn_impl='pallas_swa' has no backward pass (the reference's SWA "
+                "kernel has no VJP): train with 'xla' or 'chunked'; a backward "
+                "SWA kernel is ROADMAP Queue 2 item K2")
         out = swa_ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                     window=layer_window, causal=cfg.causal)
     elif impl == "banded":

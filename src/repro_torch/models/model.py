@@ -9,14 +9,21 @@ a dict {block_name_i: stacked_params} with leading axis ``repeat``; a stage
 runs as a Python loop over ``range(repeat)`` on views of the stacked leaves
 (the reference's ``lax.scan``).
 
-Batch dict: ``tokens`` (B, S) integer ids.  Training (``loss_fn``, the MTP
-head) is ROADMAP Queue 1 item 18; modality frontends are item 16.
+Batch dict: ``tokens`` (B, S) integer ids, and for ``loss_fn`` ``targets``
+(B, S) ids and an optional fp32 ``loss_mask`` (B, S).  The MTP head is
+ROADMAP Queue 1 item 12, the MoE router's aux loss item 13, modality
+frontends item 16.  Under autograd with ``cfg.remat`` each layer of a
+stage runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` around its scan body): its activations are recomputed
+in the backward pass instead of kept.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng, resolve_device
 from repro_torch.models import blocks
@@ -113,12 +120,19 @@ def _init_params_key(cfg: ArchConfig, key: torch.Tensor, device) -> dict:
 
 def _stage_seq(cfg: ArchConfig, cycle, repeat, stage_params, x, positions,
                prefix_len):
+    def layer(x, r):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bi, bt in enumerate(cycle):
+            p = tree_map(lambda t: t[r], stage_params[f"{bi}_{bt}"])
+            x, a = blocks.block_seq(cfg, bt, p, x, positions, prefix_len=prefix_len)
+            aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(repeat):
-        for bi, bt in enumerate(cycle):
-            layer = tree_map(lambda t: t[r], stage_params[f"{bi}_{bt}"])
-            x, a = blocks.block_seq(cfg, bt, layer, x, positions, prefix_len=prefix_len)
-            aux = aux + a
+        x, a = checkpoint(layer, x, r, use_reentrant=False) if remat else layer(x, r)
+        aux = aux + a
     return x, aux
 
 
@@ -145,6 +159,34 @@ def forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]
     h, aux = backbone_seq(cfg, params, x, positions, prefix_len)
     logits = apply_head(cfg, params["head"], params["embed"], h)
     return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _xent(logits, targets, mask):
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy over the unmasked positions ->
+    (loss, {"ce", "aux", "loss"})."""
+    if cfg.moe is not None:
+        raise NotImplementedError("the MoE router's aux loss is not ported to "
+                                  "repro_torch yet: ROADMAP Queue 1 item 13 (MoE FFN)")
+    if cfg.mtp:
+        raise NotImplementedError("the MTP loss is not ported to repro_torch "
+                                  "yet: ROADMAP Queue 1 item 12 (MLA attention)")
+    logits, aux = forward(cfg, params, batch)
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    loss = _xent(logits, targets, mask)
+    return loss, {"ce": loss, "aux": aux, "loss": loss}
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,14 @@ def fma_f32(a, b, c) -> torch.Tensor:
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA computes it.  Taken
+    through float64 (exact for float32 inputs after the one rounding back):
+    torch's vectorized float32 ``sqrt`` on some CPUs is off by an ulp in
+    about one value in six."""
+    return x.double().sqrt().float()
+
+
 def uniform(key: torch.Tensor, shape: tuple[int, ...] = (), minval=0.0,
             maxval=1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the mantissa bits of a float in
@@ -194,7 +202,7 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     w = -log1p_f32(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
 
     def coef(i):
         return torch.where(lt, float(np.float32(_ERFINV_LT5[i])),

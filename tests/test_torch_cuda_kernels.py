@@ -409,3 +409,68 @@ def test_sweep_on_the_card_launches_once_per_iteration(cuda, mix_impl):
     for f in ("loss", "tx_time", "util", "consensus_err", "acc"):
         np.testing.assert_allclose(getattr(card, f), getattr(cpu, f), rtol=2e-4,
                                    atol=2e-5, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 entries (the train step's Events 2 and 3 on parameter leaves)
+# ---------------------------------------------------------------------------
+
+def _bf16_rows(cuda, m, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+# 16-byte loads (n % 8 == 0) and 2-byte ones; one slab and several
+@pytest.mark.parametrize("m,n", [(1, 7), (4, 130), (4, 98304), (3, 100001)])
+def test_trigger_sq_bf16_entry_matches_plain(cuda, m, n):
+    w = _bf16_rows(cuda, m, n, m + n)
+    h = (w.float() + 0.01 * _bf16_rows(cuda, m, n, 1).float()).to(torch.bfloat16)
+    before = ttrig.LAUNCHES["trigger_sq_bf16"]
+    got = ttrig.trigger_sq(w, h)
+    assert ttrig.LAUNCHES["trigger_sq_bf16"] == before + 1
+    assert torch.equal(got, ttrig.trigger_sq(w, h))  # a fixed order: run to run
+    torch.testing.assert_close(got, trigger_sq_ref(w, h), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+# m up to and past one tile of 8 output rows; aligned and ragged D
+@pytest.mark.parametrize("m,n", [(1, 9), (4, 2048), (4, 1001), (12, 4104)])
+def test_mix_bf16_entry_bit_equal_to_plain(cuda, m, n):
+    from repro_torch.kernels.mixing.ref import mix_ordered_ref
+    w = _bf16_rows(cuda, m, n, m * n)
+    w[0, 3] = float("inf")  # 0 * inf and inf - inf: NaN where the plain sum has it
+    p = torch.rand((m, m), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = tmix.LAUNCHES["mix_bf16"]
+    got = tmix.mix(p, w)
+    assert tmix.LAUNCHES["mix_bf16"] == before + 1 and got.dtype == torch.bfloat16
+    want = mix_ordered_ref(p, w)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d_max,n", [(4, 3, 2048), (4, 3, 1001), (37, 5, 4096)])
+def test_mix_sparse_bf16_entry_bit_equal_to_plain(cuda, m, d_max, n):
+    rng = np.random.default_rng(m + n)
+    idx, p_diag, p_off = (torch.as_tensor(a, device=cuda) for a in _ell(rng, m, d_max))
+    w = _bf16_rows(cuda, m, n, n)
+    w[1, 5] = float("nan")
+    before = tmix.LAUNCHES["mix_sparse_bf16"]
+    got = tmix.mix_sparse(idx, p_diag, p_off, w)
+    assert tmix.LAUNCHES["mix_sparse_bf16"] == before + 1 and got.dtype == torch.bfloat16
+    want = mix_sparse_ref(idx, p_diag, p_off, w)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_reject_other_dtypes(cuda):
+    w = torch.zeros((4, 8), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        ttrig.trigger_sq(w, w)
+    with pytest.raises(TypeError):
+        tmix.mix(torch.eye(4, device=cuda), w)
+    with pytest.raises(ValueError, match="one cell"):
+        tmix.mix(torch.eye(4, device=cuda).expand(2, 4, 4).contiguous(),
+                 torch.zeros((2, 4, 8), dtype=torch.bfloat16, device=cuda))

@@ -299,7 +299,9 @@ def test_chunked_evaluation_equals_one_pass(name, monkeypatch):
     """``EvalFn`` over two cells (one forward over the cells' devices)
     gives each cell's accuracy alone, and the cnn's forward on a shared x
     over chunks of the devices (``CNN_EVAL_ROWS`` (device, sample) pairs)
-    gives the logits of one pass."""
+    gives the predictions of one pass and its logits to fp32 rounding: a
+    chunk's batched products take as many devices as the chunk holds, and
+    torch's CPU ``bmm`` rounds some shapes differently by batch count."""
     _, ts = _specs(name)
     w = convert.params_from_jax(_ref_params(name, m=6, seed=5), "cpu")
     cells = tree_map(lambda t: t.reshape((2, 3) + t.shape[1:]), w)
@@ -314,7 +316,9 @@ def test_chunked_evaluation_equals_one_pass(name, monkeypatch):
         one = ts.logits(w, xt)
         for rows in (7, 14, 28):  # chunks of 1, 2 and 4 of the 6 devices
             monkeypatch.setattr(tspec, "CNN_EVAL_ROWS", rows)
-            assert torch.equal(ts.logits(w, xt), one)
+            got = ts.logits(w, xt)
+            assert torch.equal(got.argmax(-1), one.argmax(-1))
+            torch.testing.assert_close(got, one, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("name,order", [

@@ -49,6 +49,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.api, "
             "repro_torch.convert, repro_torch.kernels.build, "
             "repro_torch.configs, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.checkpoint.msgpack_ckpt, "
             "repro_torch.fl.sharded, repro_torch.launch.mesh; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
@@ -72,6 +73,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
         tapi.serve([spec])
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.ScenarioService()
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(smoke_config("starcoder2-15b"), m=2, steps=1)  # the default device
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
