@@ -154,6 +154,7 @@ JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -3126,6 +3127,11 @@ def starcoder2_fp32(n_layers: int = 2):
 # a floor of 4 bf16 ulps of the leaf's largest value, the model's own bf16
 # rounding in two implementations (tests/test_torch_train.py states why)
 TRAIN_BF16_RTOL, TRAIN_LEAF_ULPS = 2.0 ** -7, 4
+# the train cell: m replicas on a ring over 2 pods (personalized rho), the
+# global batch, dense steps (checkpointed at their end), then neighbor steps
+TRAIN_M, TRAIN_PODS, TRAIN_BATCH, TRAIN_DENSE, TRAIN_NEIGHBOR, TRAIN_SEED = 4, 2, 8, 4, 2, 0
+# the replica that comes back with another seed's weights in the firing leg
+TRAIN_FIRE_REPLICA = 1
 
 
 def starcoder2_train(n_layers: int = 2):
@@ -3148,19 +3154,22 @@ def _trees_equal(torch, a, b) -> bool:
 
 
 def _trees_close(torch, got, want, label: str) -> float:
-    """bf16 trees within TRAIN_BF16_RTOL and TRAIN_LEAF_ULPS; returns the
-    worst share of the allowance used."""
+    """bf16 trees within TRAIN_BF16_RTOL and TRAIN_LEAF_ULPS, compared on
+    ``want``'s device a replica's rows at a time; returns the worst share
+    of the allowance used."""
     from repro_torch.tree import tree_leaves
 
     worst = 0.0
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
-        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        g, w = g.detach(), w.detach()
         floor = TRAIN_LEAF_ULPS * TRAIN_BF16_RTOL * float(w.abs().max())
-        allow = TRAIN_BF16_RTOL * w.abs() + floor
-        share = float(((g - w).abs() / allow.clamp(min=1e-30)).max())
-        check(share <= 1.0, f"{label}: a leaf outside rtol {TRAIN_BF16_RTOL} + "
-                            f"{TRAIN_LEAF_ULPS} ulps of its scale ({share:.3g} of it)")
-        worst = max(worst, share)
+        for gi, wi in zip(g, w):
+            gi, wi = gi.to(wi.device).float(), wi.float()
+            allow = TRAIN_BF16_RTOL * wi.abs() + floor
+            share = float(((gi - wi).abs() / allow.clamp(min=1e-30)).max())
+            check(share <= 1.0, f"{label}: a leaf outside rtol {TRAIN_BF16_RTOL} + "
+                                f"{TRAIN_LEAF_ULPS} ulps of its scale ({share:.3g} of it)")
+            worst = max(worst, share)
     return worst
 
 
@@ -3263,23 +3272,26 @@ def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
     return rows
 
 
-def _train_twin(torch, dev, seed: int = 0, dense: int = 3, neighbor: int = 2) -> None:
+def _train_twin(torch, dev) -> None:
     """The smoke configuration in bf16 (m=4 on a ring, pods=2, S=64) on the
     card (the bf16 entries) and on the CPU (their plain versions) from one
-    set of weights: each step's v, trigger rate and alpha equal, the loss
-    within rtol 2^-7, the parameters and w_hat within the bf16 allowance."""
+    set of weights, 3 dense steps then 2 neighbor steps: each step's v,
+    trigger rate and alpha equal, the loss within rtol 2^-7, the parameters
+    and w_hat within the bf16 allowance."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
     from repro_torch.launch import train as T
     from repro_torch.tree import tree_map
 
+    dense, neighbor = 3, 2
     cfg = dataclasses.replace(smoke_config("starcoder2-15b"), dtype="bfloat16")
-    cpu_state = T.init_state(cfg, 4, seed, "cpu")
+    cpu_state = T.init_state(cfg, TRAIN_M, TRAIN_SEED, "cpu")
     card_state_ = tuple(tree_map(lambda t: t.to(dev, copy=True), s) for s in cpu_state)
     runs = {}
     for where, device, state in (("card", dev, card_state_), ("cpu", "cpu", cpu_state)):
-        kw = dict(m=4, batch=8, seq=64, pods=2, seed=seed, device=device, log=lambda s: None)
+        kw = dict(m=TRAIN_M, batch=TRAIN_BATCH, seq=64, pods=TRAIN_PODS, seed=TRAIN_SEED,
+                  device=device, log=lambda s: None)
         a = T.train(cfg, steps=dense, state=(*state, 0), **kw)
         b = T.train(cfg, steps=neighbor, mix="neighbor", state=(a.params, a.w_hat, a.step), **kw)
         runs[where] = (a.records + b.records, b.params, b.w_hat)
@@ -3293,27 +3305,157 @@ def _train_twin(torch, dev, seed: int = 0, dense: int = 3, neighbor: int = 2) ->
               f"train twin step {g['k']}: loss {g['loss']} vs {c['loss']}")
     used = max(_trees_close(torch, pg, pc, "train twin params"),
                _trees_close(torch, hg, hc, "train twin w_hat"))
-    print(f"train card vs cpu {cfg.name} bf16 m=4 S=64, {dense} dense + {neighbor} neighbor "
-          f"steps: v equal at every step (trigger rates "
+    print(f"train card vs cpu {cfg.name} bf16 m={TRAIN_M} S=64, {dense} dense + {neighbor} "
+          f"neighbor steps: v equal at every step (trigger rates "
           f"{[r['trigger_rate'] for r in rec_c]}), losses within rtol 2^-7, parameters and "
           f"w_hat within rtol 2^-7 + {TRAIN_LEAF_ULPS} ulps of each leaf's scale "
           f"(worst share {used:.3f})")
 
 
-def phase_train(torch, dev, cfg=None, m: int = 4, pods: int = 2, batch: int = 8,
-                seq: int = 2048, dense: int = 4, neighbor: int = 2, seed: int = 0,
-                twin: bool = True) -> tuple[dict[str, int], dict[str, dict]]:
+@contextlib.contextmanager
+def _plain_train_kernels():
+    """The train step's Events 2-3 through the kernels' plain versions,
+    wherever its tensors lie: ``launch.steps``' three tree wrappers swapped
+    for leaf-wise ``trigger_sq_ref``, ``mix_ordered_ref`` and
+    ``mix_sparse_ref`` (a step made and run inside the block)."""
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_ordered_ref, mix_sparse_ref
+    from repro_torch.kernels.trigger.ref import trigger_sq_ref
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.tree import tree_leaves
+
+    def trigger(w_tree, h_tree):
+        tot = None
+        for w, h in zip(tree_leaves(w_tree), tree_leaves(h_tree), strict=True):
+            s = trigger_sq_ref(w.reshape(w.shape[0], -1), h.reshape(h.shape[0], -1))
+            tot = s if tot is None else tot + s
+        return tot
+
+    def dense(p, tree, *, out=None):
+        return mixing_ops._tree(lambda rows: mix_ordered_ref(p, rows), tree, out)
+
+    def sparse(idx, p_diag, p_off, tree, *, out=None):
+        return mixing_ops._tree(lambda rows: mix_sparse_ref(idx, p_diag, p_off, rows),
+                                tree, out)
+
+    saved = steps_mod.trigger_sq_tree, steps_mod.mix_tree, steps_mod.mix_sparse_tree
+    steps_mod.trigger_sq_tree, steps_mod.mix_tree, steps_mod.mix_sparse_tree = (
+        trigger, dense, sparse)
+    try:
+        yield
+    finally:
+        steps_mod.trigger_sq_tree, steps_mod.mix_tree, steps_mod.mix_sparse_tree = saved
+
+
+def _train_firing(torch, dev, cfg, params, w_hat, k: int, seq: int, label: str) -> None:
+    """Consensus at work on the main path at full width.  Replica
+    TRAIN_FIRE_REPLICA's parameters are replaced by another seed's random
+    weights, as a replica that comes back with fresh weights since its last
+    broadcast (w_hat stays as it was): its deviation is of the weights' own
+    scale, so under the reference's r, rho and alpha it fires (the others,
+    a few steps from their w_hat, stay silent at full width; each one's
+    margin is printed).  Then one dense step and one neighbor step, each
+    from one state through the bf16 entries and again through their plain
+    versions (``_plain_train_kernels``): v equal (the dense step's the
+    replicas past their margin, the fresh one among them), every entry launched
+    once a leaf, the triggered rows of w_hat the parameters before the
+    step and the others untouched (bit for bit), and the two runs' losses,
+    parameters and w_hat within the bf16 allowance."""
+    import dataclasses
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim.schedules import paper_diminishing
+    from repro_torch.tree import tree_leaves, tree_map
+
+    on_card = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    fresh = M.init_params(cfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1), dev)
+    for dst, src in zip(tree_leaves(params), tree_leaves(fresh), strict=True):
+        dst[TRAIN_FIRE_REPLICA].copy_(src)
+    del fresh
+    batches = T._batches(cfg, TRAIN_M, TRAIN_BATCH, seq, TRAIN_SEED, dev)
+    for _ in range(k):
+        next(batches)
+    setup = steps_mod.make_setup(cfg, TRAIN_M, pods=TRAIN_PODS)
+    n_leaves = len(tree_leaves(params))
+    with _plain_train_kernels():  # each replica's Event-2 margin, as the step will see it
+        sq = steps_mod.trigger_sq_tree(params, w_hat).cpu().numpy()
+    alpha = float(paper_diminishing(setup.alpha0, gamma=1.0, theta=0.5)(torch.tensor(k)))
+    rho = setup.bandwidths.mean() / setup.bandwidths
+    ratio = np.sqrt(sq / cfg.n_params) / (setup.r * rho * alpha)
+    print(f"{label} firing leg: replica {TRAIN_FIRE_REPLICA} given seed {TRAIN_SEED + 1}'s "
+          f"weights; each replica's sqrt(sq / N) over its threshold r rho gamma at k={k}: "
+          f"{[float(f'{x:.4g}') for x in ratio]}", flush=True)
+    plain = tree_map(torch.clone, (params, w_hat))
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    for mix, entry in (("dense", "mix_bf16"), ("neighbor", "mix_sparse_bf16")):
+        s = dataclasses.replace(setup, mix=mix)
+        make = steps_mod.make_neighbor_train_step if mix == "neighbor" else \
+            steps_mod.make_train_step
+        b = next(batches)
+        _reset_launches()
+        params, w_hat, got = make(s, n_model_params=cfg.n_params)(params, w_hat, b, k)
+        counts = {name: n for name, n in _launches().items() if n}
+        want = {"trigger_sq_bf16": n_leaves, entry: n_leaves}
+        check(counts == want, f"{label} firing {mix} step: launches {counts}, expected {want}")
+        v = got["v"].tolist()
+        check(any(v), f"{label} firing {mix} step: no replica fired")
+        if mix == "dense":
+            check(v == (ratio > 1).tolist() and v[TRAIN_FIRE_REPLICA],
+                  f"{label} firing dense step: v {v}, margins {ratio}")
+        # plain holds the state before the step
+        for h, h0, w0 in zip(tree_leaves(w_hat), tree_leaves(plain[1]),
+                             tree_leaves(plain[0]), strict=True):
+            for i, fired in enumerate(v):
+                check(torch.equal(h[i], (w0 if fired else h0)[i]),
+                      f"{label} firing {mix} step: w_hat row {i} is not the "
+                      f"{'parameters before the step' if fired else 'w_hat before it'}")
+        with _plain_train_kernels():
+            p_params, p_w_hat, p_got = make(s, n_model_params=cfg.n_params)(*plain, b, k)
+        check({name: n for name, n in _launches().items() if n} == counts,
+              f"{label} firing {mix} step: the plain run launched a kernel")
+        check(p_got["v"].tolist() == v, f"{label} firing {mix} step: v {v} through the "
+                                        f"entries, {p_got['v'].tolist()} through the plain versions")
+        loss, p_loss = float(got["loss"]), float(p_got["loss"])
+        check(float(got["alpha"]) == float(p_got["alpha"]) and np.isfinite(loss)
+              and abs(loss - p_loss) <= TRAIN_BF16_RTOL * abs(p_loss),
+              f"{label} firing {mix} step: loss {loss} vs {p_loss} plain")
+        used = max(_trees_close(torch, params, p_params, f"{label} firing {mix} params"),
+                   _trees_close(torch, w_hat, p_w_hat, f"{label} firing {mix} w_hat"))
+        exact = _trees_equal(torch, params, p_params) and _trees_equal(torch, w_hat, p_w_hat)
+        print(f"{label} firing {mix} step k={k}: v {v} the same through the bf16 entries and "
+              f"their plain versions ({n_leaves} launches each of trigger_sq_bf16 and {entry}); "
+              f"w_hat rows of the fired replicas the parameters before the step, the others "
+              f"untouched, bit for bit; loss {loss:.6f} vs {p_loss:.6f} plain; parameters and "
+              f"w_hat within rtol 2^-7 + {TRAIN_LEAF_ULPS} ulps of each leaf's scale (worst "
+              f"share {used:.3g}; {'bit-equal' if exact else 'not bit-equal'})", flush=True)
+        for dst, src in zip(tree_leaves(plain), tree_leaves((params, w_hat)), strict=True):
+            dst.copy_(src)  # the next step starts both runs from one state
+        del p_params, p_w_hat
+        k += 1
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else float("nan")
+    print(f"{label} firing leg: {time.perf_counter() - t0:.1f} s, peak memory allocated "
+          f"{peak:.2f} GiB (two copies of the state)")
+
+
+def phase_train(torch, dev, cfg=None, seq: int = 2048
+                ) -> tuple[dict[str, int], dict[str, dict]]:
     """EF-HC training of starcoder2-15b (``starcoder2_train``, or ``cfg``)
-    through ``repro_torch.launch.train.train``: m replicas on a ring with
-    ``pods`` pods (personalized rho), global batch ``batch`` at ``seq``
-    tokens, ``dense`` dense steps with a checkpoint at their end, then
-    ``neighbor`` neighbor steps continuing in memory: the main path, whose
-    launches of the three bf16 entries must be leaves x steps.  Then a run
-    that resumes from the checkpoint and takes the same neighbor steps,
-    bit-equal to the in-memory one; the entries against their plain
-    versions at the largest leaf; one profiled dense step; and the smoke
-    configuration's card-vs-CPU twin.  Returns the main path's launches
-    and the kernel rows (none off the card)."""
+    through ``repro_torch.launch.train.train``: TRAIN_M replicas on a ring
+    over TRAIN_PODS pods (personalized rho), global batch TRAIN_BATCH at
+    ``seq`` tokens, TRAIN_DENSE dense steps with a checkpoint at their end,
+    then TRAIN_NEIGHBOR neighbor steps continuing in memory: the main path,
+    whose launches of the three bf16 entries must be leaves x steps.  Then
+    a run that resumes from the checkpoint and takes the same neighbor
+    steps, bit-equal to the in-memory one.  On the card, then: the entries
+    against their plain versions at the largest leaf; one profiled dense
+    step; the firing leg (``_train_firing``), since no replica of the main
+    path fires at this width; and the smoke configuration's card-vs-CPU
+    twin.  Returns the main path's launches and the kernel rows."""
     import dataclasses
     import shutil
 
@@ -3321,16 +3463,18 @@ def phase_train(torch, dev, cfg=None, m: int = 4, pods: int = 2, batch: int = 8,
     from repro_torch.launch import train as T
     from repro_torch.tree import tree_leaves
 
+    m, dense, neighbor = TRAIN_M, TRAIN_DENSE, TRAIN_NEIGHBOR
     on_card = torch.device(dev).type == "cuda"
     cfg = cfg or starcoder2_train()
     ckpt = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    label = f"train {cfg.name} {cfg.n_layers}L m={m} pods={pods} B={batch} S={seq}"
+    label = f"train {cfg.name} {cfg.n_layers}L m={m} pods={TRAIN_PODS} B={TRAIN_BATCH} S={seq}"
 
     def log(line: str) -> None:
         print(f"{label}: {line}", flush=True)
 
-    kw = dict(m=m, batch=batch, seq=seq, pods=pods, seed=seed, device=dev, log=log)
+    kw = dict(m=m, batch=TRAIN_BATCH, seq=seq, pods=TRAIN_PODS, seed=TRAIN_SEED, device=dev,
+              log=log)
     _reset_launches()
     if on_card:
         torch.zeros(1, device=dev)  # the allocator's stats exist once it has run
@@ -3364,7 +3508,8 @@ def phase_train(torch, dev, cfg=None, m: int = 4, pods: int = 2, batch: int = 8,
           f"{ms['neighbor']:.1f}; tokens/s {run.tokens_per_step / statistics.median(warm) * 1e3:.0f}"
           f" ({run.tokens_per_step} tokens a step); peak memory allocated {peak:.2f} GiB; "
           f"dense leg {t1 - t0:.1f} s (init, {dense} steps, checkpoint), neighbor leg "
-          f"{t2 - t1:.1f} s; launches {counts}; card {card_state()}")
+          f"{t2 - t1:.1f} s; launches {counts}; trigger rates "
+          f"{[r['trigger_rate'] for r in records]}; card {card_state()}")
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.glob("step_*.msgpack"))
 
     # the resume: from the checkpoint in a run of its own, bit-equal
@@ -3387,10 +3532,9 @@ def phase_train(torch, dev, cfg=None, m: int = 4, pods: int = 2, batch: int = 8,
     rows = _train_rows(torch, dev, run.params, run.w_hat)
 
     # one dense step under the profiler
-    setup = run.setup
-    step = steps_mod.make_train_step(dataclasses.replace(setup, mix="dense"),
+    step = steps_mod.make_train_step(dataclasses.replace(run.setup, mix="dense"),
                                      n_model_params=n_par)
-    b = next(T._batches(cfg, m, batch, seq, seed, dev))
+    b = next(T._batches(cfg, m, TRAIN_BATCH, seq, TRAIN_SEED, dev))
     params, w_hat = run.params, run.w_hat
     n_act, busy, per_name, count = _device_activity(
         torch, lambda: step(params, w_hat, b, run.step))
@@ -3409,10 +3553,12 @@ def phase_train(torch, dev, cfg=None, m: int = 4, pods: int = 2, batch: int = 8,
                   f"{k} {v:.3f} ({seen.get(k, 0)} activities)" for k, v in sorted(own.items())))
         for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{label} profile:   {t:9.3f} ms ({t / busy:.3f} of busy)  {name[:90]}")
-    del params, w_hat, run, b
+    k = run.step + 1
+    del run, b, step
+    _train_firing(torch, dev, cfg, params, w_hat, k, seq, label)
+    del params, w_hat
     torch.cuda.empty_cache()
-    if twin:
-        _train_twin(torch, dev, seed)
+    _train_twin(torch, dev)
     return counts, rows
 
 

@@ -38,6 +38,9 @@ _MAX_CELLS = 65535  # the kernels' cell axis is a grid axis
 # ``plan.nbr_idx``), so a recycled id cannot alias another table
 _PLANS: "OrderedDict[tuple[int, int], MixSparsePlan]" = OrderedDict()
 PLAN_CACHE_SIZE = 8
+# the least and largest index of the last few tables the bf16 gather-mix
+# took, keyed and held as the plans are
+_RANGES: "OrderedDict[tuple[int, int], tuple[torch.Tensor, int, int]]" = OrderedDict()
 
 
 def _cells(w: torch.Tensor) -> int:
@@ -117,12 +120,33 @@ def _mix_sparse_bf16(nbr_idx, p_diag, p_off, w) -> torch.Tensor:
     out = torch.empty((m, n), dtype=w.dtype, device=w.device)
     if m == 0 or n == 0:
         return out
+    lo, hi = _table_range(nbr_idx)
+    if lo < 0 or hi >= n_src:
+        raise ValueError(f"mix_sparse: nbr_idx reads rows {lo} to {hi} of w, which has "
+                         f"{n_src}")
     err = build.library().repro_mix_sparse_bf16(
         nbr_idx.data_ptr(), p_diag.data_ptr(), p_off.data_ptr(), w.data_ptr(),
         out.data_ptr(), m, n_src, d_max, n, stream_handle(w.device))
     build.check(err, "mix_sparse_bf16")
     LAUNCHES["mix_sparse_bf16"] += 1
     return out
+
+
+def _table_range(nbr_idx: torch.Tensor) -> tuple[int, int]:
+    """The least and largest index of ``nbr_idx``, read on the first call
+    for this tensor at its current version (a host sync) and kept in an LRU
+    of ``PLAN_CACHE_SIZE`` tables, as ``prepare_plan`` keeps its plans."""
+    key = (id(nbr_idx), nbr_idx._version)
+    hit = _RANGES.get(key)
+    if hit is None or hit[0] is not nbr_idx:
+        lo, hi = torch.aminmax(nbr_idx)
+        hit = (nbr_idx, int(lo), int(hi))
+        _RANGES[key] = hit
+        while len(_RANGES) > PLAN_CACHE_SIZE:
+            _RANGES.popitem(last=False)
+    else:
+        _RANGES.move_to_end(key)
+    return hit[1], hit[2]
 
 
 def _tree(mix_rows, tree, out):

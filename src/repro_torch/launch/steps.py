@@ -100,11 +100,6 @@ def make_setup(cfg: ArchConfig, m: int, *, mix: str = "dense", pods: int = 1
 # EF-HC pieces at framework scale
 # ---------------------------------------------------------------------------
 
-def _mix_dense(p_mat: torch.Tensor, params, *, out=None):
-    """Event 3 under the dense schedule: ``mix`` on each leaf."""
-    return mix_tree(p_mat, params, out=out)
-
-
 def neighbor_slots(rounds, m: int) -> np.ndarray:
     """The matching rounds as an ELL table (m, len(rounds)): column r is
     round r's permutation of the replicas (matched endpoints swapped, an
@@ -164,10 +159,11 @@ def make_train_step(setup: TrainSetup, *, n_model_params: int, mix_override=None
     (updated in place), batch a dict of (m, B, S) tensors there, k the
     step.  metrics: ``loss`` (the replicas' mean), ``trigger_rate``,
     ``alpha`` and ``v`` (m,), all tensors on the device.  ``mix_override``
-    replaces the dense schedule: ``mix(p_mat, params, out=params)``."""
+    replaces the dense schedule, ``mix_tree`` (the reference's
+    ``_mix_dense``): ``mix(p_mat, params, out=params)``."""
     cfg, m = setup.cfg, setup.m
     sched = paper_diminishing(setup.alpha0, gamma=1.0, theta=0.5)
-    mix = mix_override if mix_override is not None else _mix_dense
+    mix = mix_override if mix_override is not None else mix_tree
     consts: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def on(device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -465,6 +465,22 @@ def test_mix_sparse_bf16_entry_bit_equal_to_plain(cuda, m, d_max, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bad", [4, -1])
+def test_mix_sparse_bf16_entry_refuses_rows_outside_w(cuda, bad):
+    idx = torch.tensor([[1, 3], [0, 2], [1, 3], [2, 0]], device=cuda)
+    p_off = torch.full((4, 2), 0.25, device=cuda)
+    p_diag = torch.full((4,), 0.5, device=cuda)
+    w = _bf16_rows(cuda, 4, 64, 0)
+    assert torch.equal(tmix.mix_sparse(idx, p_diag, p_off, w),
+                       mix_sparse_ref(idx, p_diag, p_off, w))
+    idx[3, 1] = bad  # in place: a new version of the table, checked anew
+    before = tmix.LAUNCHES["mix_sparse_bf16"]
+    with pytest.raises(ValueError, match="nbr_idx reads rows"):
+        tmix.mix_sparse(idx, p_diag, p_off, w)
+    assert tmix.LAUNCHES["mix_sparse_bf16"] == before
+
+
+@pytest.mark.gpu
 def test_bf16_wrappers_reject_other_dtypes(cuda):
     w = torch.zeros((4, 8), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
