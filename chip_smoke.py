@@ -140,7 +140,31 @@ error:
    trigger within rtol 1e-5, both mixes bit for bit) with their times,
    library calls and bounds; one profiled dense step (busy and idle
    time, the entries' share); the smoke configuration in bf16 on the
-   card and on the CPU, v equal at every step.
+   card and on the CPU, v equal at every step;
+12. serve_mla: deepseek-v3-671b at full width in bf16, its depth cut from
+   61 to 2 layers with the reference's smoke block mix (``deepseek_serve``:
+   an ``mla`` layer, an ``mla_moe`` layer with 256 routed experts top-8
+   and the shared one; the MTP head's parameters built): one prefill of
+   8192 tokens (the chunked MLA path in both layers) with the MoE
+   capacity's dropped share, four requests decoded through the absorbed
+   MLA cache against ``forward`` at a capacity that drops none, and the
+   MoE layer's ``scatter`` against its ``dense`` oracle on 512 tokens;
+13. serve_moe: granite-moe-3b-a800m at full width and depth (32 layers,
+   bf16): the same with a prefill of 32768 tokens;
+14. train_moe: EF-HC training of granite-moe-3b-a800m at full width and
+   depth through ``repro_torch.launch.train.train`` (phase 11's cell
+   without the checkpoint round): exactly leaves x steps launches of each
+   entry per dtype (the bf16 entries on the bf16 leaves, the fp32
+   ``trigger_sq`` / ``mix`` / ``mix_sparse`` kernels on the fp32 routers);
+   ms/step, tokens/s, peak memory, each step's ce and aux; one profiled
+   dense step; one MoE layer's forward and backward twice with drops,
+   bit-equal; the bf16 entries against their plain versions at the
+   (4, 805306368) expert leaf; the granite smoke configuration in bf16 on
+   the card and on the CPU, v equal at every step.
+
+Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
+in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
+top-k expert indices equal in every MoE layer.
 
 The SIMT SWA kernel has no wrapper route, so no counter: its launches are
 counted from the profiler's device activities in the prefills of 8-10,
@@ -209,6 +233,29 @@ def bound(nbytes: float, flops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mix_fp64_gate(torch, p, w, got, ref, label: str) -> dict[str, tuple[float, float]]:
+    """The split-TF32 ``mix`` output ``got`` and fp32 ``torch.matmul``'s
+    ``ref`` against fp64 P @ W: per side the largest error and the mean
+    error signed along the exact value, relative to its mean size (a
+    truncating sum shrinks).  The kernel's largest error must stay within
+    MIX_FP64_ERR_VS_LIB x cuBLAS's fp32 one and its bias within one fp32
+    ulp (MIX_FP64_BIAS) of the values' mean size.  (cuBLAS's own bias,
+    ~1e-11, is at this measure's noise floor, so no multiple of it is a
+    yardstick.)"""
+    exact = p.double() @ w.double()
+    err = {k: (float((x.double() - exact).abs().max()),
+               float(((x.double() - exact) * exact.sign()).mean() / exact.abs().mean()))
+           for k, x in (("kernel", got), ("library", ref))}
+    del exact
+    check(err["kernel"][0] <= MIX_FP64_ERR_VS_LIB * err["library"][0],
+          f"{label}: max abs err against fp64 {err['kernel'][0]:.3g} > "
+          f"{MIX_FP64_ERR_VS_LIB} x torch.matmul's {err['library'][0]:.3g}")
+    check(abs(err["kernel"][1]) <= MIX_FP64_BIAS,
+          f"{label}: mean relative bias against fp64 {err['kernel'][1]:.3g} "
+          f"outside +-{MIX_FP64_BIAS:.3g}")
+    return err
 
 
 def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
@@ -344,23 +391,7 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     abs_err = float((got - ref).abs().max())
     mix_atol = 1e-5
     check(abs_err <= mix_atol, f"mix: max abs err {abs_err:.3g} > {mix_atol}")
-    # both against fp64: the largest error and the mean error signed along
-    # the exact value, relative to its mean size (a truncating sum shrinks)
-    exact = p.double() @ w.double()
-    fp64_err = {k: (float((v.double() - exact).abs().max()),
-                    float(((v.double() - exact) * exact.sign()).mean() / exact.abs().mean()))
-                for k, v in (("kernel", got), ("library", ref))}
-    del exact
-    # the split's limits against fp64: its largest error within twice
-    # cuBLAS's fp32 one, and its bias within one fp32 ulp (2^-23) of the
-    # values' mean size.  (cuBLAS's own bias, ~1e-11, is at this measure's
-    # noise floor, so no multiple of it is a yardstick.)
-    check(fp64_err["kernel"][0] <= MIX_FP64_ERR_VS_LIB * fp64_err["library"][0],
-          f"mix: max abs err against fp64 {fp64_err['kernel'][0]:.3g} > "
-          f"{MIX_FP64_ERR_VS_LIB} x torch.matmul's {fp64_err['library'][0]:.3g}")
-    check(abs(fp64_err["kernel"][1]) <= MIX_FP64_BIAS,
-          f"mix: mean relative bias against fp64 {fp64_err['kernel'][1]:.3g} "
-          f"outside +-{MIX_FP64_BIAS:.3g}")
+    fp64_err = mix_fp64_gate(torch, p, w, got, ref, "mix")
     ms = time_ms(torch, lambda: mixing_ops.mix(p, w))
     plain = time_ms(torch, lambda: mix_ref(p, w))
     lib = time_ms(torch, lambda: torch.matmul(p, w))
@@ -486,17 +517,7 @@ def _mix_cells_row(torch, dev, gen, m: int = 1024, n: int = 50890,
               f"mix with cells: cell {c} differs from its solo launch")
     ref = mix_ref(p, w)
     abs_err = float((got - ref).abs().max())
-    exact = p.double() @ w.double()
-    fp64_err = {k: (float((x.double() - exact).abs().max()),
-                    float(((x.double() - exact) * exact.sign()).mean() / exact.abs().mean()))
-                for k, x in (("kernel", got), ("library", ref))}
-    del exact
-    check(fp64_err["kernel"][0] <= MIX_FP64_ERR_VS_LIB * fp64_err["library"][0],
-          f"mix with cells: max abs err against fp64 {fp64_err['kernel'][0]:.3g} > "
-          f"{MIX_FP64_ERR_VS_LIB} x torch.matmul's {fp64_err['library'][0]:.3g}")
-    check(abs(fp64_err["kernel"][1]) <= MIX_FP64_BIAS,
-          f"mix with cells: mean relative bias against fp64 "
-          f"{fp64_err['kernel'][1]:.3g} outside +-{MIX_FP64_BIAS:.3g}")
+    fp64_err = mix_fp64_gate(torch, p, w, got, ref, "mix with cells")
     ms = time_ms(torch, lambda: mixing_ops.mix(p, w), reps=10)
     plain = time_ms(torch, lambda: mix_ref(p, w), reps=10)
     lib = time_ms(torch, lambda: torch.matmul(p, w), reps=10)
@@ -2695,6 +2716,30 @@ def _device_activity(torch, run
     return len(dev_events), sum(per_name.values()), per_name, count
 
 
+def _op_kernels(torch, run, accept) -> tuple[int, int, float, float]:
+    """One ``run()`` under ``torch.profiler`` with the host's ops and their
+    input shapes: the number of host ops that ``accept(name, shapes)``
+    takes, the number of device activities they launched themselves, their
+    device time and that of every device activity of the run (ms).  Read
+    from the profiler's raw events, each device activity tied to its
+    launching op by its correlation id: ``prof.events()`` took 61 s over a
+    granite train step's host and device events on the H100 machine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    raw = prof.profiler.kineto_results.events()
+    ops = {e.correlation_id() for e in raw if e.device_type() == torch.autograd.DeviceType.CPU
+           and e.linked_correlation_id() == 0 and accept(e.name(), e.shapes())}
+    dev = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in dev if e.linked_correlation_id() in ops]
+    return (len(ops), len(mine), sum(e.duration_ns() for e in mine) / 1e6,
+            sum(e.duration_ns() for e in dev) / 1e6)
+
+
 def _repo_kernel(name: str) -> str | None:
     """The repo's kernel function (``REPO_KERNELS``) a profiler event name
     belongs to, if any."""
@@ -3272,12 +3317,92 @@ def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
     return rows
 
 
-def _train_twin(torch, dev) -> None:
-    """The smoke configuration in bf16 (m=4 on a ring, pods=2, S=64) on the
-    card (the bf16 entries) and on the CPU (their plain versions) from one
-    set of weights, 3 dense steps then 2 neighbor steps: each step's v,
-    trigger rate and alpha equal, the loss within rtol 2^-7, the parameters
-    and w_hat within the bf16 allowance."""
+def _router_rows(torch, dev, w, h) -> dict[str, dict]:
+    """The fp32 kernels at the train cell's own router rows ``w`` and
+    their w_hat ``h`` (m, D), with the ring's real Event-3 P, at phase 2's
+    fp32 tolerances: ``trigger_sq`` within rtol 1e-5 of its plain version,
+    ``mix`` (split TF32) within atol 1e-5 of fp32 ``torch.matmul`` and
+    within phase 2's limits against fp64, ``mix_sparse`` bit for bit;
+    with each one's time, the plain version's, a library call's and the
+    bound.  The mix must move the rows by more than its tolerance, or a
+    kernel that copies its input would pass."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mixing import ops as mixing_ops
+    from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref
+    from repro_torch.kernels.trigger import ops as trigger_ops
+    from repro_torch.kernels.trigger.ref import trigger_sq_ref
+
+    m, n = w.shape
+    trig_rtol, mix_atol = 1e-5, 1e-5
+    rows: dict[str, dict] = {}
+
+    got, ref = trigger_ops.trigger_sq(w, h), trigger_sq_ref(w, h)
+    torch.cuda.synchronize()
+    rel_err = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    check(rel_err <= trig_rtol, f"trigger_sq at the router rows: max rel err {rel_err:.3g} "
+                                f"> {trig_rtol}")
+    b_ms, b_by = bound(2 * m * n * 4 + m * 4, 3 * m * n)
+    rows["trigger_sq"] = {
+        "shape": [m, n], "max_abs_err": float((got - ref).abs().max()),
+        "tolerance": f"rtol {trig_rtol}", "ms": time_ms(torch, lambda: trigger_ops.trigger_sq(w, h)),
+        "plain_ms": time_ms(torch, lambda: trigger_sq_ref(w, h)),
+        "library_ms": time_ms(torch, lambda: F.pairwise_distance(w, h, eps=0.0) ** 2),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+    p, idx, p_diag, p_off = _ring_p(torch, dev, m)
+    got, ref = mixing_ops.mix(p, w), mix_ref(p, w)
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    moved = float((ref - w).abs().max())
+    check(abs_err <= mix_atol < moved, f"mix at the router rows: max abs err {abs_err:.3g} "
+                                       f"(tol {mix_atol}); the mix moves the rows by {moved:.3g}")
+    fp64 = mix_fp64_gate(torch, p, w, got, ref, "mix at the router rows")
+    b_ms, b_by = bound((m * m + 2 * m * n) * 4, 3 * 2 * m * m * n, TF32_TC_FLOPS)
+    rows["mix"] = {
+        "shape": [m, n], "max_abs_err": abs_err, "tolerance": f"atol {mix_atol}",
+        "moved": moved, "fp64_max_abs_err": fp64["kernel"][0], "fp64_bias": fp64["kernel"][1],
+        "ms": time_ms(torch, lambda: mixing_ops.mix(p, w)),
+        "plain_ms": time_ms(torch, lambda: mix_ref(p, w)),
+        "library_ms": time_ms(torch, lambda: torch.matmul(p, w)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+    got = mixing_ops.mix_sparse(idx, p_diag, p_off, w)
+    ref = mix_sparse_ref(idx, p_diag, p_off, w)
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    check(abs_err == 0.0, f"mix_sparse at the router rows: max abs err {abs_err:.3g}, "
+                          f"expected 0")
+    csr = _csr(torch, idx, p_diag, p_off)
+    nnz = int((p_off != 0).sum())
+    b_ms, b_by = _sparse_bound(nnz, m, m, idx.shape[1], n)
+    rows["mix_sparse"] = {
+        "shape": [m, n], "max_abs_err": abs_err, "tolerance": "exact",
+        "ms": time_ms(torch, lambda: mixing_ops.mix_sparse(idx, p_diag, p_off, w)),
+        "plain_ms": time_ms(torch, lambda: mix_sparse_ref(idx, p_diag, p_off, w)),
+        "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, w)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del got, ref
+    for name, row in rows.items():
+        extra = (f"; rows moved by {row['moved']:.3g}, against fp64 max abs err "
+                 f"{row['fp64_max_abs_err']:.3g} (torch.matmul's {fp64['library'][0]:.3g}), "
+                 f"mean relative bias {row['fp64_bias']:.3g}" if name == "mix" else "")
+        print(f"kernel {name} at the train cell's fp32 router rows {tuple(row['shape'])}, ring "
+              f"P: max abs err {row['max_abs_err']:.3g} (tol {row['tolerance']}{extra}); "
+              f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+              f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+    return rows
+
+
+def _train_twin(torch, dev, arch: str = "starcoder2-15b") -> None:
+    """``arch``'s smoke configuration in bf16 (m=4 on a ring, pods=2, S=64)
+    on the card (the bf16 entries; a MoE's fp32 routers through the fp32
+    kernels) and on the CPU (their plain versions) from one set of weights,
+    3 dense steps then 2 neighbor steps: each step's v, trigger rate and
+    alpha equal, the loss within rtol 2^-7, the parameters and w_hat
+    within the bf16 allowance (a bf16 model's fp32 router too: its
+    gradient comes through the model's bf16 arithmetic)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -3285,7 +3410,7 @@ def _train_twin(torch, dev) -> None:
     from repro_torch.tree import tree_map
 
     dense, neighbor = 3, 2
-    cfg = dataclasses.replace(smoke_config("starcoder2-15b"), dtype="bfloat16")
+    cfg = dataclasses.replace(smoke_config(arch), dtype="bfloat16")
     cpu_state = T.init_state(cfg, TRAIN_M, TRAIN_SEED, "cpu")
     card_state_ = tuple(tree_map(lambda t: t.to(dev, copy=True), s) for s in cpu_state)
     runs = {}
@@ -3562,6 +3687,496 @@ def phase_train(torch, dev, cfg=None, seq: int = 2048
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the MLA and MoE architectures
+# ---------------------------------------------------------------------------
+
+# one MoE layer's scatter against its dense oracle: the tokens, and the
+# bf16 outputs' tolerance (the two impls sum in different orders)
+MOE_SCATTER_VS_DENSE_TOKENS = 512
+MOE_BF16_REL_L2 = 1e-2
+# the MoE phases' weights and tokens
+MOE_SEED = 0
+# phases 12-13: the requests decoded, their prompt and greedy tokens, the
+# cache's length, and the prefill that warms the libraries first
+SERVE_MOE_REQUESTS, SERVE_MOE_PROMPT, SERVE_MOE_NEW, SERVE_MOE_CACHE_LEN = 4, 16, 16, 64
+SERVE_MOE_WARM = 1024
+# phase 10's MoE smoke configurations: tokens a row (two rows), and the
+# capacity factor of the scatter leg, at which pairs drop
+SERVE_CPU_MOE_SEQ = 128
+SERVE_CPU_MOE_DROP_CF = 0.5
+
+
+def deepseek_serve():
+    """deepseek-v3-671b at its full width in bf16, its depth cut from 61 to
+    2 layers with the reference's smoke block mix (an ``mla`` layer with the
+    dense FFN, an ``mla_moe`` layer with 256 routed experts and the shared
+    one), the MTP head's parameters kept."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=2,
+                               layer_plan=((("mla",), 1), (("mla_moe",), 1)))
+
+
+def _dtype_of(cfg):
+    from repro_torch.models.layers import torch_dtype
+
+    return torch_dtype(cfg.dtype)
+
+
+def _no_drop(cfg):
+    """``cfg`` with a MoE capacity that holds every token of any batch:
+    capacity_factor = n_experts / top_k makes each expert's queue as long
+    as the batch.  Decode is held against a forward at this capacity
+    (its own steps of B <= 4 tokens drop none: the capacity's floor is 4)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+@contextlib.contextmanager
+def _moe_drops():
+    """The (pairs, dropped) counts of every MoE capacity decision while the
+    block runs (``moe._queue_slots`` wrapped; device tensors, no sync)."""
+    from repro_torch.models import moe
+
+    real, seen = moe._queue_slots, []
+
+    def counted(idx, n_experts, cap):
+        slot, keep = real(idx, n_experts, cap)
+        seen.append((keep.numel(), (~keep).sum()))
+        return slot, keep
+
+    moe._queue_slots = counted
+    try:
+        yield seen
+    finally:
+        moe._queue_slots = real
+
+
+@contextlib.contextmanager
+def _moe_routing():
+    """Every MoE layer's routing while the block runs, on the host in call
+    order: the top-k indices (``moe.router_probs``) and, where the impl
+    queues its pairs, the slots and keep masks (``moe._queue_slots``)."""
+    from repro_torch.models import moe
+
+    real_probs, real_slots, seen = moe.router_probs, moe._queue_slots, []
+
+    def probs(m, p, x):
+        vals, idx, aux = real_probs(m, p, x)
+        seen.append(("top-k indices", idx.cpu()))
+        return vals, idx, aux
+
+    def slots(idx, n_experts, cap):
+        slot, keep = real_slots(idx, n_experts, cap)
+        seen.extend((("slots", slot.cpu()), ("keep masks", keep.cpu())))
+        return slot, keep
+
+    moe.router_probs, moe._queue_slots = probs, slots
+    try:
+        yield seen
+    finally:
+        moe.router_probs, moe._queue_slots = real_probs, real_slots
+
+
+def _drop_share(seen) -> tuple[float, int]:
+    pairs = sum(n for n, _ in seen)
+    return (float(sum(int(d) for _, d in seen)) / pairs if pairs else 0.0), len(seen)
+
+
+def _moe_scatter_vs_dense(torch, dev, cfg, ffn, label: str) -> None:
+    """One MoE layer's ``scatter`` against its ``dense`` oracle on
+    MOE_SCATTER_VS_DENSE_TOKENS random bf16 tokens, at a capacity that
+    drops none."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    tokens = MOE_SCATTER_VS_DENSE_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev).to(_dtype_of(cfg))
+    base = _no_drop(cfg)
+    out = {}
+    with _moe_drops() as seen:
+        for impl in ("scatter", "dense"):
+            c = dataclasses.replace(base, moe=dataclasses.replace(base.moe, impl=impl))
+            with torch.no_grad():
+                out[impl] = moe.moe_ffn(c, ffn, x)[0].float()
+    share, _ = _drop_share(seen)
+    rel = float((out["scatter"] - out["dense"]).norm() / out["dense"].norm())
+    err = float((out["scatter"] - out["dense"]).abs().max())
+    check(share == 0.0, f"{label}: the no-drop capacity dropped {share:.3g} of the pairs")
+    check(bool(torch.isfinite(out["scatter"]).all()) and rel <= MOE_BF16_REL_L2,
+          f"{label}: scatter vs dense rel L2 {rel:.3g} > {MOE_BF16_REL_L2}")
+    print(f"{label}: MoE scatter vs dense oracle on {tokens} tokens, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k}, no drops: rel L2 {rel:.3g}, max abs err {err:.3g} "
+          f"(tol rel L2 {MOE_BF16_REL_L2}, bf16)")
+
+
+def phase_serve_moe(torch, dev, cfg, seq: int) -> None:
+    """An MLA / MoE architecture (``cfg``, bf16, seeded weights): one
+    prefill of ``seq`` tokens at B=1 (after one of SERVE_MOE_WARM tokens
+    that warms the libraries) with its MoE capacity drops counted and,
+    where the model has MLA, the chunked MLA path's calls; then
+    SERVE_MOE_REQUESTS requests decoded token by token (SERVE_MOE_PROMPT
+    tokens replayed into a SERVE_MOE_CACHE_LEN cache, SERVE_MOE_NEW greedy
+    ones) against ``forward`` on the same tokens at a capacity that drops
+    none (the decode steps drop none at the model's own); then one MoE
+    layer's ``scatter`` against its ``dense`` oracle."""
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    n_req, prompt, new = SERVE_MOE_REQUESTS, SERVE_MOE_PROMPT, SERVE_MOE_NEW
+    cache_len, warm, seed = SERVE_MOE_CACHE_LEN, SERVE_MOE_WARM, MOE_SEED
+    on_card = torch.device(dev).type == "cuda"
+    label = f"serve {cfg.name} {cfg.n_layers}L"
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    _sync(torch, dev)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"{label}: {n_params} parameters ({n_bytes / 1e9:.2f} GB, {cfg.dtype} with fp32 "
+          f"routers{', the MTP head included' if cfg.mtp else ''}) drawn on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    prefill = steps.make_prefill_step(cfg)
+    tokens = torch.as_tensor(token_dataset(seq, vocab=cfg.vocab, seed=seed),
+                             dtype=torch.int64, device=dev)[None]
+    prefill(params, {"tokens": tokens[:, :warm]})
+    chunked = []
+    real_chunked = attn_mod._mla_chunked
+    attn_mod._mla_chunked = lambda *a: chunked.append(1) or real_chunked(*a)
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        with _moe_drops() as seen:
+            t1 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            _sync(torch, dev)
+            prefill_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        attn_mod._mla_chunked = real_chunked
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else float("nan")
+    drop, n_moe = _drop_share(seen)
+    n_mla = sum(bt in ("mla", "mla_moe") for cyc, rep in cfg.layer_plan for bt in cyc
+                for _ in range(rep))
+    check(tuple(logits.shape) == (1, seq, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{label} prefill: logits {tuple(logits.shape)} not finite or misshaped")
+    check(n_moe == sum(bt in ("moe", "mla_moe") for cyc, rep in cfg.layer_plan
+                       for bt in cyc for _ in range(rep)),
+          f"{label} prefill: {n_moe} MoE capacity decisions")
+    if n_mla:
+        check(len(chunked) == n_mla, f"{label} prefill: the chunked MLA path ran "
+                                     f"{len(chunked)} times for {n_mla} MLA layers")
+    del logits
+    print(f"{label} prefill B=1 S={seq}: logits finite; {prefill_ms:.1f} ms "
+          f"({seq / prefill_ms * 1e3:.0f} tokens/s, host clock to a sync, after a "
+          f"{warm}-token warm-up); peak memory allocated {peak:.2f} GiB; MoE "
+          f"capacity dropped {drop:.4f} of the (token, expert) pairs over {n_moe} "
+          f"layers{f'; the chunked MLA path in all {n_mla} MLA layers' if n_mla else ''}; "
+          f"card {card_state() if on_card else 'not measured'}", flush=True)
+
+    serve = steps.make_serve_step(cfg)
+    prompts = token_dataset(n_req * prompt, vocab=cfg.vocab, seed=seed + 1)
+    fed = torch.zeros((n_req, prompt + new), dtype=torch.int64, device=dev)
+    fed[:, :prompt] = torch.as_tensor(prompts.reshape(n_req, prompt))
+    cache = M.init_cache(cfg, n_req, cache_len, device=dev)
+    dec = []
+    with _moe_drops() as seen:
+        t0 = time.perf_counter()
+        for t in range(prompt):
+            lg, cache = serve(params, cache, fed[:, t], t)
+            dec.append(lg)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        for t in range(prompt, prompt + new):
+            fed[:, t] = dec[-1].argmax(-1)
+            lg, cache = serve(params, cache, fed[:, t], t)
+            dec.append(lg)
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+    dec_drop, _ = _drop_share(seen)
+    check(dec_drop == 0.0, f"{label} decode: capacity dropped {dec_drop:.3g} of the pairs")
+    dec = torch.stack(dec, 1).float()
+    fwd = steps.make_prefill_step(_no_drop(cfg))(params, {"tokens": fed}).float()
+    rel = float(((dec - fwd).norm(dim=(1, 2)) / fwd.norm(dim=(1, 2))).max())
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(dec).all()) and rel <= 5e-2,
+          f"{label} decode: decode logits vs forward relative L2 {rel:.3g} > 5e-2")
+    step_ms = (t2 - t1) * 1e3 / new
+    attn_kind = "absorbed MLA" if n_mla else "KV"
+    print(f"{label} decode B={n_req} cache_len={cache_len} ({attn_kind} cache): {prompt} "
+          f"prompt tokens replayed in {(t1 - t0) * 1e3 / prompt:.2f} ms/step, {new} greedy "
+          f"steps at {step_ms:.2f} ms/step ({n_req * 1e3 / step_ms:.1f} "
+          f"tokens/s), no pair dropped; logits at {prompt + new} positions vs forward "
+          f"(no-drop capacity): max relative L2 {rel:.3g} (tol 5e-2), argmax agreement "
+          f"{agree:.3f}", flush=True)
+    del cache, dec, fwd
+
+    stage, block = next((si, f"{bi}_{bt}") for si, (cyc, _) in enumerate(cfg.layer_plan)
+                        for bi, bt in enumerate(cyc) if bt in ("moe", "mla_moe"))
+    ffn = {k: v[0] for k, v in params["stages"][stage][block]["ffn"].items()}
+    _moe_scatter_vs_dense(torch, dev, cfg, ffn, label)
+    del params, ffn
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def phase_serve_cpu_moe(torch, dev) -> None:
+    """The granite-moe and deepseek-v3 smoke configurations (fp32) on the
+    card and on the CPU, one set of weights, through the dense MoE oracle
+    and through the scatter at capacity factor SERVE_CPU_MOE_DROP_CF, where
+    pairs drop: the logits within atol=rtol 1e-4, and in every MoE layer
+    the top-k expert indices, and the scatter's slots and keep masks,
+    equal."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    seq = SERVE_CPU_MOE_SEQ
+    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b"):
+        base = smoke_config(arch)
+        cpu_params = M.init_params(base, torch.Generator().manual_seed(MOE_SEED), "cpu")
+        card_params = M.tree_map(lambda t: t.to(dev), cpu_params)
+        tokens = torch.as_tensor(token_dataset(2 * seq, vocab=base.vocab, seed=MOE_SEED),
+                                 dtype=torch.int64).reshape(2, seq)
+        scatter = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, impl="scatter", capacity_factor=SERVE_CPU_MOE_DROP_CF))
+        for cfg in (base, scatter):
+            prefill = steps.make_prefill_step(cfg)
+            label = f"serve_cpu {cfg.name} {cfg.moe.impl}"
+            with _moe_routing() as on_card:
+                card = prefill(card_params, {"tokens": tokens.to(dev)}).cpu()
+            with _moe_routing() as on_cpu:
+                cpu = prefill(cpu_params, {"tokens": tokens})
+            kinds = [kind for kind, _ in on_card]
+            check(kinds and kinds == [kind for kind, _ in on_cpu],
+                  f"{label}: routing decisions {kinds} on the card, "
+                  f"{[kind for kind, _ in on_cpu]} on the CPU")
+            for (kind, a), (_, b) in zip(on_card, on_cpu):
+                check(torch.equal(a, b), f"{label}: {kind} differ between the card and the CPU")
+            keep = [k for kind, k in on_card if kind == "keep masks"]
+            dropped = sum(int((~k).sum()) for k in keep) / max(sum(k.numel() for k in keep), 1)
+            check(cfg.moe.impl == "dense" or dropped > 0,
+                  f"{label}: no pair dropped at capacity factor {cfg.moe.capacity_factor}")
+            err = float((card - cpu).abs().max())
+            check(bool(torch.allclose(card, cpu, atol=1e-4, rtol=1e-4)),
+                  f"{label}: card vs cpu logits outside atol=rtol 1e-4 (max abs err {err:.3g})")
+            n_layers = kinds.count("top-k indices")
+            print(f"serve card vs cpu {cfg.name} fp32 S={seq} {cfg.moe.impl}"
+                  f"{f' capacity factor {cfg.moe.capacity_factor}' if keep else ''}: logits max "
+                  f"abs err {err:.3g} (tol atol=rtol 1e-4); top-{cfg.moe.top_k} expert indices"
+                  f"{', slots and keep masks' if keep else ''} equal in all {n_layers} MoE "
+                  f"layers ({on_card[0][1].numel()} picks each"
+                  f"{f'; {dropped:.4f} of them dropped' if keep else ''})")
+
+
+def _moe_repeats(torch, dev, cfg, tokens: int) -> float:
+    """One MoE layer (random weights) forward and backward twice on the
+    same ``tokens`` tokens at capacity factor 0.5, so that pairs drop to
+    the overflow slot: the output and every gradient bit-equal, as the
+    resume and the twins need.  Returns the share of (token, expert)
+    pairs dropped."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    p = moe.init_moe(cfg, gen, _dtype_of(cfg), dev)
+    leaves = [p[k].requires_grad_() for k in sorted(p)]
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev).to(_dtype_of(cfg))
+    x.requires_grad_()
+    g = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev).to(x.dtype)
+    runs = []
+    with _moe_drops() as seen:
+        for _ in range(2):
+            out, aux = moe.moe_ffn(cfg, p, x)
+            runs.append((out, *torch.autograd.grad((out * g).sum() + aux, leaves + [x])))
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{cfg.name}: the MoE layer's output or gradients differ between two runs")
+    drop = _drop_share(seen[:1])[0]
+    check(drop > 0, f"{cfg.name}: no pair dropped at capacity factor 0.5")
+    return drop
+
+
+def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
+                    ) -> tuple[dict[str, int], dict[str, dict]]:
+    """EF-HC training of granite-moe-3b-a800m at full width and depth (32
+    layers, bf16 with fp32 routers, the scatter MoE) through
+    ``repro_torch.launch.train.train``, phase 11's cell without its
+    checkpoint round: TRAIN_M replicas on a ring over TRAIN_PODS pods,
+    global batch TRAIN_BATCH at ``seq`` tokens, TRAIN_DENSE dense then
+    TRAIN_NEIGHBOR neighbor steps.  Each entry of the trigger and mixing
+    wrappers must launch once a leaf of its dtype a step: the bf16 entries
+    on the bf16 leaves, the fp32 kernels on the routers.  Then one profiled
+    dense step (busy, idle, the kernels' and the MoE scatter / gather
+    kernels' shares, and the expert products' from the kernels of the
+    trace's ``aten::bmm`` calls on the experts' slabs), one MoE layer's
+    forward and backward twice with drops, bit-equal (``_moe_repeats``);
+    after the rest of the state is freed, the bf16 entries against their
+    plain versions at the (4, 805306368) expert leaf and the fp32 kernels
+    at the (4, 1572864) router rows (``_router_rows``); and the smoke
+    configuration's card-vs-CPU twin.  Returns the launches and the
+    kernel rows' ``*_moe_leaf`` and ``*_router`` fields."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    m, dense, neighbor = TRAIN_M, TRAIN_DENSE, TRAIN_NEIGHBOR
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or get_config("granite-moe-3b-a800m")
+    label = (f"train_moe {cfg.name} {cfg.n_layers}L m={m} pods={TRAIN_PODS} "
+             f"B={TRAIN_BATCH} S={seq}")
+
+    def log(line: str) -> None:
+        print(f"{label}: {line}", flush=True)
+
+    kw = dict(m=m, batch=TRAIN_BATCH, seq=seq, pods=TRAIN_PODS, seed=TRAIN_SEED, device=dev,
+              log=log, log_every=1)
+    _reset_launches()
+    if on_card:
+        torch.zeros(1, device=dev)  # the allocator's stats exist once it has run
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first = T.train(cfg, steps=dense, **kw)
+    t1 = time.perf_counter()
+    run = T.train(cfg, steps=neighbor, mix="neighbor",
+                  state=(first.params, first.w_hat, first.step), **kw)
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    counts = {k: n for k, n in _launches().items() if n}
+    leaves = tree_leaves(run.params)
+    n16 = sum(t.dtype == torch.bfloat16 for t in leaves)
+    n32 = sum(t.dtype == torch.float32 for t in leaves)
+    check(n16 + n32 == len(leaves) and n32 == sum(
+        bt in ("moe", "mla_moe") for cyc, _ in cfg.layer_plan for bt in cyc),
+        f"{label}: {n16} bf16 and {n32} fp32 leaves of {len(leaves)}")
+    steps = dense + neighbor
+    want = {"trigger_sq_bf16": n16 * steps, "trigger_sq": n32 * steps,
+            "mix_bf16": n16 * dense, "mix": n32 * dense,
+            "mix_sparse_bf16": n16 * neighbor, "mix_sparse": n32 * neighbor}
+    check(counts == want, f"{label}: launches {counts}, expected {want} ({n16} bf16 and "
+                          f"{n32} fp32 leaves)")
+    records = first.records + run.records
+    for r in records:
+        check(np.isfinite(r["loss"]) and r["aux"] > 0 and 0.0 <= r["trigger_rate"] <= 1.0,
+              f"{label}: step {r['k']} loss {r['loss']}, aux {r['aux']}, trigger_rate "
+              f"{r['trigger_rate']}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else float("nan")
+    warm = first.step_ms[1:] + run.step_ms  # the first step warms the libraries
+    ms = {"dense": statistics.median(first.step_ms[1:]) if dense > 1 else float("nan"),
+          "neighbor": statistics.median(run.step_ms)}
+    n_par = cfg.n_params
+    print(f"{label}: {n_par} parameters a replica ({sum(t[0].numel() * t.element_size() for t in leaves) / 1e9:.3f} GB), "
+          f"{n16} bf16 + {n32} fp32 leaves, the largest {tuple(max(leaves, key=torch.numel).shape)}; "
+          f"step ms {[round(x, 1) for x in first.step_ms + run.step_ms]} (first includes "
+          f"warm-up); median ms/step dense {ms['dense']:.1f}, neighbor {ms['neighbor']:.1f}; "
+          f"tokens/s {run.tokens_per_step / statistics.median(warm) * 1e3:.0f} "
+          f"({run.tokens_per_step} tokens a step); peak memory allocated {peak:.2f} GiB "
+          f"(params and w_hat {2 * sum(t.numel() * t.element_size() for t in leaves) / 2 ** 30:.2f} GiB); "
+          f"dense leg {t1 - t0:.1f} s (init, {dense} steps), neighbor leg {t2 - t1:.1f} s; "
+          f"launches {counts}, exactly leaves x steps per dtype; trigger rates "
+          f"{[r['trigger_rate'] for r in records]}; ce {[round(r['ce'], 4) for r in records]}; "
+          f"aux {[round(r['aux'], 4) for r in records]}; card "
+          f"{card_state() if on_card else 'not measured'}", flush=True)
+    if not on_card:
+        return counts, {}
+
+    # one dense step under the profiler
+    step = steps_mod.make_train_step(dataclasses.replace(run.setup, mix="dense"),
+                                     n_model_params=n_par)
+    b = next(T._batches(cfg, m, TRAIN_BATCH, seq, TRAIN_SEED, dev))
+    params, w_hat = run.params, run.w_hat
+    n_act, busy, per_name, count = _device_activity(
+        torch, lambda: step(params, w_hat, b, run.step))
+    moe = cfg.moe
+    layers = sum(rep * len(cyc) for cyc, rep in cfg.layer_plan)
+
+    def expert_bmm(name, shapes):  # _expert_ffn's products and their gradients'
+        return (name == "aten::bmm" and len(shapes) == 2
+                and all(len(x) == 3 and x[0] == moe.n_experts for x in shapes)
+                and any(moe.d_expert in x[1:] for x in shapes))
+
+    # a second dense step, with the host's ops: the expert products' kernels
+    t3 = time.perf_counter()
+    n_bmm, n_bmm_k, bmm_ms, busy_ops = _op_kernels(
+        torch, lambda: step(params, w_hat, b, run.step), expert_bmm)
+    t_ops = time.perf_counter() - t3
+    # three products a layer and replica forward (two without a gate), twice
+    # as many backward, and the forward again under remat
+    per_layer = (3 if cfg.act in ("swiglu", "geglu") else 2) * (3 + bool(cfg.remat))
+    check(n_bmm == m * layers * per_layer and n_bmm_k >= n_bmm,
+          f"{label} profile: {n_bmm} expert products traced ({n_bmm_k} device activities), "
+          f"expected {m * layers * per_layer}")
+    if not n_act:
+        print(f"{label} profile: the profiler saw no device activity; busy share not measured")
+    else:
+        own = {}
+        for name, t in per_name.items():
+            if fn := _repo_kernel(name):
+                own[fn] = own.get(fn, 0.0) + t
+        events = sum(own.values())
+        index = sum(t for name, t in per_name.items() if "index" in name.lower()
+                    or "radix" in name.lower() or "sort" in name.lower())
+        print(f"{label} profile: one dense step, {n_act} device activities, device busy "
+              f"{busy:.1f} ms of {ms['dense']:.1f} ms/step without the profiler (idle share "
+              f"{1 - busy / ms['dense']:.3f}); Events 2-3 kernels {events:.3f} ms "
+              f"({events / busy:.4f} of busy): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(own.items()))
+              + f"; index_put / gather / sort kernels (the MoE scatter and gather, forward "
+              f"and backward, and the embedding's) {index:.1f} ms ({index / busy:.3f} of "
+              f"busy)", flush=True)
+        print(f"{label} profile: a second dense step with the host's ops and shapes "
+              f"({t_ops:.1f} s with the parse): device busy {busy_ops:.1f} ms; the expert "
+              f"products (the {n_bmm_k} device activities of its {n_bmm} aten::bmm calls on "
+              f"the experts' (E, ., .) slabs: forward, backward and the remat forward) "
+              f"{bmm_ms:.1f} ms ({bmm_ms / busy_ops:.3f} of busy)", flush=True)
+        for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"{label} profile:   {t:9.3f} ms ({t / busy:.3f} of busy)  {name[:90]}")
+
+    drop = _moe_repeats(torch, dev, cfg, TRAIN_BATCH // m * seq)
+    print(f"{label}: one MoE layer's forward and backward twice on {TRAIN_BATCH // m * seq} "
+          f"tokens at capacity factor 0.5 ({drop:.4f} of the pairs dropped): output and "
+          f"every gradient bit-equal", flush=True)
+
+    # the bf16 entries at the expert leaf and the fp32 kernels at the
+    # router's rows, the rest of the state freed
+    big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    router = next(i for i, t in enumerate(leaves) if t.dtype == torch.float32)
+    w, h = leaves[big], tree_leaves(w_hat)[big]
+    rw, rh = (ls[router].reshape(m, -1) for ls in (leaves, tree_leaves(w_hat)))
+    del first, run, params, w_hat, leaves, step, b
+    torch.cuda.empty_cache()
+    fields = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")
+    rows = {name: {f"{k}_moe_leaf": row[k] for k in fields}
+            for name, row in _train_rows(torch, dev, {"w": w}, {"w": h}).items()}
+    del w, h
+    torch.cuda.empty_cache()
+    rows.update({name: {f"{k}_router": row[k] for k in fields}
+                 for name, row in _router_rows(torch, dev, rw, rh).items()})
+    del rw, rh
+    _train_twin(torch, dev, "granite-moe-3b-a800m")
+    return counts, rows
+
+
 # kernel functions of csrc/ (the names the profiler shows)
 REPO_KERNELS = ("trigger_sq_kernel", "mix_kernel", "mix_sparse_kernel",
                 "compact_slots_kernel", "mix_sparse_wide_kernel",
@@ -3698,12 +4313,24 @@ def main() -> int:
             torch, dev, cfg=starcoder2_fp32(), seq=8192, twin="chunked")
         lap("phase 9")
         smoke, seen_smoke = phase_serve_cpu(torch, dev)
+        phase_serve_cpu_moe(torch, dev)
         lap("phase 10")
         torch.cuda.empty_cache()  # the serve phases' weights are gone
         train_launches, train_rows = phase_train(torch, dev)
         launches.update(train_launches)
         rows.update(train_rows)
         lap("phase 11")
+        from repro_torch.configs import get_config
+        phase_serve_moe(torch, dev, deepseek_serve(), seq=8192)
+        lap("phase 12")
+        phase_serve_moe(torch, dev, get_config("granite-moe-3b-a800m"), seq=32768)
+        lap("phase 13")
+        moe_launches, moe_rows = phase_train_moe(torch, dev)
+        for name, n in moe_launches.items():
+            rows[name]["train_moe_launches"] = n
+        for name, row in moe_rows.items():
+            rows[name].update(row)
+        lap("phase 14")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
@@ -3736,7 +4363,13 @@ def main() -> int:
                                    "library_ms_c8", "bound_ms_c8",
                                    "ms_64_columns", "ms_m4096_r04",
                                    "plain_ms_m4096_r04", "bound_ms_m4096_r04",
-                                   "library_ms_m4096_r04", "sass_tensor_ops")
+                                   "library_ms_m4096_r04", "sass_tensor_ops",
+                                   "train_moe_launches", "shape_moe_leaf",
+                                   "max_abs_err_moe_leaf", "ms_moe_leaf",
+                                   "plain_ms_moe_leaf", "library_ms_moe_leaf",
+                                   "bound_ms_moe_leaf", "shape_router",
+                                   "max_abs_err_router", "ms_router", "plain_ms_router",
+                                   "library_ms_router", "bound_ms_router")
                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,29 +2,30 @@
 
 ``get_config(arch_id)`` returns the full-size ArchConfig; ``smoke_config``
 returns the reduced same-family variant (<= 2 layers, d_model 128) the
-CPU tests use.  The port runs starcoder2-15b; the other nine
-architectures of the JAX package raise ``NotImplementedError`` naming the
-ROADMAP item (Queue 1) that ports what they need.
+CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m and
+deepseek-v3-671b; the other seven architectures of the JAX package raise
+``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports what
+they need.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, MLAConfig
 
 _MODULES = {
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "starcoder2-15b": "starcoder2_15b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 # architectures of the JAX package not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "granite-moe-3b-a800m": "item 13 (MoE FFN)",
     "hymba-1.5b": "item 14 (mamba and hybrid blocks)",
     "deepseek-coder-33b": "item 17 (the other configs)",
     "phi3-medium-14b": "item 17 (the other configs)",
     "xlstm-125m": "item 15 (xLSTM blocks)",
-    "deepseek-v3-671b": "item 12 (MLA attention)",
     "paligemma-3b": "item 16 (modality frontends)",
     "qwen2-72b": "item 17 (the other configs)",
     "hubert-xlarge": "item 16 (modality frontends)",
@@ -47,7 +48,9 @@ def get_config(arch_id: str) -> ArchConfig:
 # reduced layer plans preserving each family's block mix (the reference's
 # table, for the architectures the port runs)
 _SMOKE_PLANS = {
+    "granite-moe-3b-a800m": ((("moe",), 2),),
     "starcoder2-15b": ((("attn",), 2),),
+    "deepseek-v3-671b": ((("mla",), 1), (("mla_moe",), 1)),
 }
 
 
@@ -74,4 +77,12 @@ def smoke_config(arch_id: str) -> ArchConfig:
         remat=False,
         fl_m=1,
     )
+    if cfg.moe is not None:
+        updates["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_expert=64,
+            n_shared=min(cfg.moe.n_shared, 1), impl="dense")
+    if cfg.mla is not None:
+        updates["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                   qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                   v_head_dim=16)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **updates)

@@ -41,13 +41,20 @@ def params_to_numpy(tree):
 
 def arch_params_from_jax(np_tree, device, dtype=None):
     """The reference's nested parameter tree (dicts and lists of numpy
-    arrays, ``jax.device_get`` of ``repro.models.model.init_params``) -> the
-    same tree of tensors on ``device``, cast to ``dtype`` if given."""
-    def leaf(a):
-        t = tensor_from_numpy(a).to(device)
-        return t if dtype is None else t.to(dtype)
+    arrays, ``jax.device_get`` of ``repro.models.model.init_params``: the
+    stages' stacked leaves, the MoE expert stacks, the ``mtp`` subtree) ->
+    the same tree of tensors on ``device``, each leaf in its own dtype, or
+    cast to ``dtype`` if given; a MoE ``router`` stays fp32, as the model
+    keeps it whatever its dtype."""
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, key) for v in node)
+        t = tensor_from_numpy(node).to(device)
+        return t if dtype is None or key == "router" else t.to(dtype)
 
-    return tree_map(leaf, np_tree)
+    return walk(np_tree)
 
 
 def state_from_jax(state, device, *, opt_state=None) -> efhc.EFHCState:

@@ -773,8 +773,8 @@ def run(
             "or a host eval callable")
     if engine == "python":
         raise NotImplementedError(
-            "engine='python' is not ported (ROADMAP.md Queue 1 item 4 keeps "
-            "only the device-resident engine); use engine='scan'")
+            "engine='python' is not ported (ROADMAP.md Queue 1 item 10 "
+            "brings the python engine); use engine='scan'")
     if engine != "scan":
         raise ValueError(f"unknown engine {engine!r}; allowed: ('scan', 'python')")
     if graph.m != sim.m or batches.m != sim.m:

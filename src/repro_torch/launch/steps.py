@@ -133,23 +133,27 @@ def mix_neighbor_permute(p_mat: torch.Tensor, params, rounds, *, out=None):
     return mix_sparse_tree(nbr_idx, p_diag, p_off.contiguous(), params, out=out)
 
 
-def _local_sgd(cfg: ArchConfig, params, batch, alpha: torch.Tensor) -> torch.Tensor:
+def _local_sgd(cfg: ArchConfig, params, batch, alpha: torch.Tensor
+               ) -> dict[str, torch.Tensor]:
     """Event 4 in place: each replica's loss and gradient alone (the
     reference's vmap over the replica axis), its update written over its
-    rows; returns the sum of the replicas' losses (fp32)."""
+    rows; returns the sums over the replicas of ``loss_fn``'s ``loss``,
+    ``ce`` and ``aux`` (fp32)."""
     m = first_leaf(params).shape[0]
-    total = torch.zeros((), dtype=torch.float32, device=first_leaf(params).device)
+    total = {name: torch.zeros((), dtype=torch.float32, device=first_leaf(params).device)
+             for name in ("loss", "ce", "aux")}
     for i in range(m):
         mine = tree_map(lambda t: t[i].detach().requires_grad_(), params)
         with torch.enable_grad():
-            loss, _ = M.loss_fn(cfg, mine, {k: v[i] for k, v in batch.items()})
+            loss, parts = M.loss_fn(cfg, mine, {k: v[i] for k, v in batch.items()})
         leaves = tree_leaves(mine)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         for w, g in zip(leaves, grads):
             if g is not None:  # an unused leaf keeps its value, as w - alpha 0
                 w.copy_(w.float().sub_(g.float().mul_(alpha)).to(w.dtype))
         del grads, leaves, mine  # one replica's gradients live at a time
-        total = total + loss.detach()
+        for name in total:
+            total[name] = total[name] + parts[name].detach()
     return total
 
 
@@ -157,7 +161,9 @@ def make_train_step(setup: TrainSetup, *, n_model_params: int, mix_override=None
     """The EF-HC train step ``(params, w_hat, batch, k) -> (params, w_hat,
     metrics)``: params and w_hat stacked trees (m, ...) on one device
     (updated in place), batch a dict of (m, B, S) tensors there, k the
-    step.  metrics: ``loss`` (the replicas' mean), ``trigger_rate``,
+    step.  metrics: ``loss`` (the replicas' mean; the reference's), ``ce``
+    and ``aux`` (the means of ``loss_fn``'s terms: the cross-entropy and
+    the MoE router's aux loss, 0 without one), ``trigger_rate``,
     ``alpha`` and ``v`` (m,), all tensors on the device.  ``mix_override``
     replaces the dense schedule, ``mix_tree`` (the reference's
     ``_mix_dense``): ``mix(p_mat, params, out=params)``."""
@@ -196,9 +202,9 @@ def make_train_step(setup: TrainSetup, *, n_model_params: int, mix_override=None
             v = torch.zeros(m, dtype=torch.bool, device=device)
 
         # ---- Event 4: local SGD ------------------------------------------
-        loss = _local_sgd(cfg, params, batch, alpha)
-        metrics = {"loss": loss / m, "trigger_rate": v.float().mean(), "alpha": alpha,
-                   "v": v}
+        sums = _local_sgd(cfg, params, batch, alpha)
+        metrics = {**{name: x / m for name, x in sums.items()},
+                   "trigger_rate": v.float().mean(), "alpha": alpha, "v": v}
         return params, w_hat, metrics
 
     return train_step

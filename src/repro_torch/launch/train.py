@@ -7,7 +7,8 @@ model replicas on one card, e.g. on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-15b \\
       --smoke --data 4 --steps 3 --device cpu
 
-The flags and the printed lines are the reference's.  ``--data`` is the
+The flags and the printed lines are the reference's; with a MoE the step
+line also carries ``loss_fn``'s ``ce`` and ``aux`` terms.  ``--data`` is the
 number of replicas (FL devices) on the card; the reference's mesh axes
 across cards (``--model > 1``, ``--devices``) are ROADMAP Queue 1 item
 19 and raise.  ``--device`` defaults to ``cuda`` and raises without a
@@ -69,8 +70,8 @@ def _parse(argv=None):
 @dataclasses.dataclass
 class TrainRun:
     """A finished run: the state after its last step (on its device), one
-    record per step (``k``, ``loss``, ``trigger_rate``, ``alpha``, ``v``,
-    host values), each step's wall time (ms, after a device sync) and the
+    record per step (``k``, ``loss``, ``ce``, ``aux``, ``trigger_rate``,
+    ``alpha``, ``v``, host values), each step's wall time (ms, after a device sync) and the
     tokens a step takes."""
     setup: steps_mod.TrainSetup
     params: Any
@@ -170,13 +171,14 @@ def train(cfg: ArchConfig, *, m: int, steps: int, batch: int = 8, seq: int = 64,
             torch.cuda.synchronize(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         rec = {"k": k, **{name: float(metrics[name])
-                          for name in ("loss", "trigger_rate", "alpha")},
+                          for name in ("loss", "ce", "aux", "trigger_rate", "alpha")},
                "v": metrics["v"].tolist()}
         records.append(rec)
         if k % log_every == 0 or k == start + steps - 1:
+            moe = f" ce {rec['ce']:.4f} aux {rec['aux']:.4f}" if cfg.moe is not None else ""
             log(f"step {k:5d} loss {rec['loss']:.4f} "
                 f"trigger_rate {rec['trigger_rate']:.2f} "
-                f"consensus_err {consensus_err(params):.3e} alpha {rec['alpha']:.4f}")
+                f"consensus_err {consensus_err(params):.3e} alpha {rec['alpha']:.4f}{moe}")
         if ckpt and (k + 1) % ckpt_every == 0:
             checkpoint.save(ckpt, k + 1, {"params": params, "w_hat": w_hat, "step": k + 1})
     if ckpt:

@@ -1,8 +1,8 @@
 """Attention: GQA/MQA/MHA with RoPE, optional QKV bias, sliding window,
 prefix-LM and bidirectional masks, chunked online-softmax for long context,
-the SWA kernel path, and KV-cache decode (ring buffer for sliding-window
-layers).  Port of ``repro/models/attention.py`` without MLA (ROADMAP
-Queue 1 item 12).
+the SWA kernel path, KV-cache decode (ring buffer for sliding-window
+layers), and MLA (multi-head latent attention, deepseek-v3) with
+absorbed-matrix decode.  Port of ``repro/models/attention.py``.
 
 Shapes: x (B, S, D); q (B, S, H, dh); k/v (B, S, G, dh) with G = n_kv_heads.
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.swa import ops as swa_ops
@@ -274,5 +275,160 @@ def attention_decode(
     scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,btgk->bsgrk", probs.to(v.dtype), v).reshape(b, 1, h, dh)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ArchConfig, gen, dtype, device="cpu"):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r = m.kv_lora_rank
+    ks = split_keys(gen, 6)
+    return {
+        "wq_a": dense_init(ks[0], (d, m.q_lora_rank), d, dtype, device),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=device),
+        "wq_b": dense_init(ks[1], (m.q_lora_rank, h, qk_dim), m.q_lora_rank, dtype, device),
+        "wkv_a": dense_init(ks[2], (d, r + m.qk_rope_head_dim), d, dtype, device),
+        "kv_norm": torch.ones((r,), dtype=dtype, device=device),
+        "wk_b": dense_init(ks[3], (r, h, m.qk_nope_head_dim), r, dtype, device),
+        "wv_b": dense_init(ks[4], (r, h, m.v_head_dim), r, dtype, device),
+        "wo": dense_init(ks[5], (h, m.v_head_dim, d), h * m.v_head_dim, dtype, device),
+    }
+
+
+def _rms(x, scale, eps=1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    """1 / sqrt(qk head dim), computed in fp32 as the reference does."""
+    m = cfg.mla
+    return float(np.float32(1.0) / np.sqrt(np.float32(m.qk_nope_head_dim
+                                                      + m.qk_rope_head_dim)))
+
+
+def _mla_qkr(cfg: ArchConfig, p, x, positions):
+    """Shared q / latent projections.  Returns per-head q (nope, rope) and
+    the latent stream (c_kv, k_rope)."""
+    m = cfg.mla
+    cq = _rms(x @ p["wq_a"], p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+
+    kv = x @ p["wkv_a"]
+    c_kv = _rms(kv[..., :m.kv_lora_rank], p["kv_norm"])  # (B,S,R)
+    k_rope = kv[..., m.kv_lora_rank:]  # (B,S,rope_dim), shared across heads
+    k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scores(q_nope, q_rope, k_nope, k_rope, scale: float):
+    """(B, H, Sq, Sk) fp32 scores: the two einsums summed in their own dtype,
+    then upcast and scaled, as in the reference."""
+    return (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+            + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float() * scale
+
+
+def mla_seq(cfg: ArchConfig, p, x, positions, *, prefix_len=None) -> torch.Tensor:
+    """Prefill/train MLA: decompress K/V per head (naive form); the chunked
+    online softmax when S > 4096 and S divides into ``attn_chunk``."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(cfg, p, x, positions[None])
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
+    val = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    scale = _mla_scale(cfg)
+
+    s = x.shape[1]
+    chunk = min(cfg.attn_chunk, s)
+    if s > 4096 and s % chunk == 0:
+        out = _mla_chunked(cfg, q_nope, q_rope, k_nope, k_rope, val, positions, scale,
+                           prefix_len)
+    else:
+        mask = _mask(positions, positions, causal=cfg.causal, window=None,
+                     prefix_len=prefix_len)
+        scores = _mla_scores(q_nope, q_rope, k_nope, k_rope, scale)
+        scores = torch.where(mask[None, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhst,bthk->bshk", probs.to(val.dtype), val)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mla_chunked(cfg, q_nope, q_rope, k_nope, k_rope, val, positions, scale, prefix_len):
+    """Online softmax over KV chunks of ``attn_chunk`` keys."""
+    b, s, h, _ = q_nope.shape
+    dv = val.shape[-1]
+    chunk = min(cfg.attn_chunk, s)
+    dev = q_nope.device
+    m_run = torch.full((b, h, s), -math.inf, device=dev)
+    l_run = torch.zeros((b, h, s), device=dev)
+    acc = torch.zeros((b, h, s, dv), device=dev)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        sc = _mla_scores(q_nope, q_rope, k_nope[:, sl], k_rope[:, sl], scale)
+        mask = _mask(positions, positions[sl], causal=cfg.causal, window=None,
+                     prefix_len=prefix_len)
+        sc = torch.where(mask[None, None], sc, -1e30)
+        m_new = torch.maximum(m_run, sc.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        pr = torch.exp(sc - m_new[..., None])
+        del sc
+        l_run = l_run * alpha + pr.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhst,bthk->bhsk", pr,
+                                                    val[:, sl].float())
+        m_run = m_new
+    out = (acc / torch.clamp(l_run, min=1e-30)[..., None]).transpose(1, 2)
+    return out.to(q_nope.dtype)
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # (B, L, R) compressed latent
+    k_rope: torch.Tensor  # (B, L, rope_dim)
+    pos: torch.Tensor  # (L,)
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+                   device="cpu") -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, cache_len, m.qk_rope_head_dim), dtype=dtype,
+                           device=device),
+        pos=torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def mla_decode(cfg: ArchConfig, p, x_t, cache: MLACache, t: int
+               ) -> tuple[torch.Tensor, MLACache]:
+    """Absorbed-matrix MLA decode: attention runs in the latent space, FLOPs
+    per token O(H * R * S) instead of decompressing the whole cache.  The
+    new latent goes to slot ``min(t, L - 1)`` (a clamp, not a ring: past
+    the cache's end the last slot is overwritten) and every stored
+    position ``<= t`` is attended, as in the reference.  The cache is
+    written in place and returned."""
+    t = int(t)
+    pos_t = torch.full((1, 1), t, dtype=torch.int64, device=x_t.device)
+    q_nope, q_rope, c_new, r_new = _mla_qkr(cfg, p, x_t, pos_t)
+    slot = min(t, cache.c_kv.shape[1] - 1)
+    cache.c_kv[:, slot] = c_new[:, 0]
+    cache.k_rope[:, slot] = r_new[:, 0]
+    cache.pos[slot] = t
+    c_kv, k_rope, pos = cache
+
+    # absorb wk_b into q: q_abs (B,1,H,R)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv)
+              + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float() * _mla_scale(cfg)
+    valid = (pos >= 0) & (pos <= t)
+    scores = torch.where(valid[None, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", probs.to(c_kv.dtype), c_kv)  # latent ctx
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"])  # absorb wv_b
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache

@@ -3,8 +3,9 @@ type, with uniform signatures so a stage runs as a loop over its stacked
 per-layer params (port of ``repro/models/blocks.py``).
 
 The port runs block types ``attn`` and ``attn_g`` (the ``_g`` suffix =
-global attention, ignores cfg.window).  The others raise
-``NotImplementedError`` naming their ROADMAP item (Queue 1).
+global attention, ignores cfg.window), ``moe`` (attention + MoE FFN),
+``mla`` (MLA + dense MLP) and ``mla_moe`` (MLA + MoE FFN).  The others
+raise ``NotImplementedError`` naming their ROADMAP item (Queue 1).
 """
 from __future__ import annotations
 
@@ -13,20 +14,19 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp, init_norm,
                                        split_keys)
 
 _NOT_PORTED = {
-    "moe": "item 13 (MoE FFN)",
-    "mla": "item 12 (MLA attention)",
-    "mla_moe": "item 12 (MLA attention) and item 13 (MoE FFN)",
     "hybrid": "item 14 (mamba and hybrid blocks)",
     "hybrid_g": "item 14 (mamba and hybrid blocks)",
     "mamba": "item 14 (mamba and hybrid blocks)",
     "mlstm": "item 15 (xLSTM blocks)",
     "slstm": "item 15 (xLSTM blocks)",
 }
+_PORTED = ("attn", "attn_g", "moe", "mla", "mla_moe")
 
 
 def _check_ported(block_type: str) -> None:
@@ -34,7 +34,7 @@ def _check_ported(block_type: str) -> None:
         raise NotImplementedError(
             f"block type {block_type!r} is not ported to repro_torch yet: "
             f"ROADMAP Queue 1 {_NOT_PORTED[block_type]}")
-    if block_type not in ("attn", "attn_g"):
+    if block_type not in _PORTED:
         raise ValueError(f"unknown block type {block_type!r}")
 
 
@@ -44,6 +44,18 @@ def block_window(cfg: ArchConfig, block_type: str) -> Optional[int]:
     return cfg.window
 
 
+def _is_mla(block_type: str) -> bool:
+    return block_type in ("mla", "mla_moe")
+
+
+def _has_mlp(cfg: ArchConfig, block_type: str) -> bool:
+    return block_type in ("attn", "attn_g", "mla") and cfg.d_ff > 0
+
+
+def _has_moe(block_type: str) -> bool:
+    return block_type in ("moe", "mla_moe")
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -51,17 +63,37 @@ def block_window(cfg: ArchConfig, block_type: str) -> Optional[int]:
 def init_block(cfg: ArchConfig, block_type: str, gen, dtype, device="cpu") -> dict:
     _check_ported(block_type)
     ks = split_keys(gen, 6)  # the reference's split; ks[0] attention, ks[2] ffn
-    p: dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dtype, device),
-                         "attn": attn.init_attention(cfg, ks[0], dtype, device)}
-    if cfg.d_ff > 0:
+    p: dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dtype, device)}
+    if _is_mla(block_type):
+        p["attn"] = attn.init_mla(cfg, ks[0], dtype, device)
+    else:
+        p["attn"] = attn.init_attention(cfg, ks[0], dtype, device)
+    if _has_mlp(cfg, block_type) or _has_moe(block_type):
         p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
+    if _has_moe(block_type):
+        p["ffn"] = moe_mod.init_moe(cfg, ks[2], dtype, device)
+    elif _has_mlp(cfg, block_type):
         p["ffn"] = init_mlp(cfg, ks[2], cfg.d_model, cfg.d_ff, dtype, device)
     return p
 
 
 # ---------------------------------------------------------------------------
-# sequence (prefill) forward
+# sequence (train / prefill) forward
 # ---------------------------------------------------------------------------
+
+def _ffn(cfg: ArchConfig, block_type: str, p, x) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's FFN half, x + ffn(norm2(x)), and the MoE aux loss (0
+    without a router)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "ffn" not in p:
+        return x, aux
+    h2 = apply_norm(cfg, p["norm2"], x)
+    if _has_moe(block_type):
+        out, aux = moe_mod.moe_ffn(cfg, p["ffn"], h2)
+    else:
+        out = apply_mlp(cfg, p["ffn"], h2)
+    return x + out, aux
+
 
 def block_seq(
     cfg: ArchConfig,
@@ -74,16 +106,14 @@ def block_seq(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, aux_loss)."""
     _check_ported(block_type)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["norm1"], x)
-    y = attn.attention_seq(cfg, p["attn"], h, positions,
-                           layer_window=block_window(cfg, block_type),
-                           prefix_len=prefix_len)
-    x = x + y
-    if "ffn" in p:
-        h2 = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["ffn"], h2)
-    return x, aux
+    if _is_mla(block_type):
+        y = attn.mla_seq(cfg, p["attn"], h, positions, prefix_len=prefix_len)
+    else:
+        y = attn.attention_seq(cfg, p["attn"], h, positions,
+                               layer_window=block_window(cfg, block_type),
+                               prefix_len=prefix_len)
+    return _ffn(cfg, block_type, p, x + y)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +123,8 @@ def block_seq(
 def init_block_cache(cfg: ArchConfig, block_type: str, batch: int, cache_len: int,
                      dtype, device="cpu"):
     _check_ported(block_type)
+    if _is_mla(block_type):
+        return {"mla": attn.init_mla_cache(cfg, batch, cache_len, dtype, device)}
     w = block_window(cfg, block_type)
     eff = cache_len if w is None else min(cache_len, w)
     return {"kv": attn.init_kv_cache(cfg, batch, eff, dtype, device)}
@@ -106,15 +138,16 @@ def block_decode(
     cache,
     t: int,
 ) -> tuple[torch.Tensor, Any]:
-    """One-token block step; the KV cache is updated in place."""
+    """One-token block step; the KV (or MLA latent) cache is updated in
+    place."""
     _check_ported(block_type)
     h = apply_norm(cfg, p["norm1"], x_t)
     new_cache = dict(cache)
-    y, new_cache["kv"] = attn.attention_decode(
-        cfg, p["attn"], h, cache["kv"], t,
-        layer_window=block_window(cfg, block_type))
-    x_t = x_t + y
-    if "ffn" in p:
-        h2 = apply_norm(cfg, p["norm2"], x_t)
-        x_t = x_t + apply_mlp(cfg, p["ffn"], h2)
+    if _is_mla(block_type):
+        y, new_cache["mla"] = attn.mla_decode(cfg, p["attn"], h, cache["mla"], t)
+    else:
+        y, new_cache["kv"] = attn.attention_decode(
+            cfg, p["attn"], h, cache["kv"], t,
+            layer_window=block_window(cfg, block_type))
+    x_t, _ = _ffn(cfg, block_type, p, x_t + y)
     return x_t, new_cache

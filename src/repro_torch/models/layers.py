@@ -62,7 +62,9 @@ def dense_init(gen, shape, in_axis_size=None, dtype=torch.float32, device="cpu")
         scale = float(np.float32(1.0) / np.sqrt(np.float32(max(fan_in, 1))))
     else:
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return (draw_normal(gen, shape, device) * scale).to(dtype)
+    # the draw is a fresh tensor: scaled in place, one fp32 copy of the
+    # largest weight (an expert stack) live instead of two
+    return draw_normal(gen, shape, device).mul_(scale).to(dtype)
 
 
 def embed_init(gen, shape, dtype=torch.float32, device="cpu"):

@@ -1,8 +1,8 @@
-"""Full model assembly for serving (port of ``repro/models/model.py``).
+"""Full model assembly (port of ``repro/models/model.py``).
 
 Params tree, the reference's pytree as plain dicts of tensors:
   {"embed": {...}, "stages": [stage0, stage1, ...], "final_norm": {...},
-   "head": {...}}
+   "head": {...}, "mtp": {...}?}
 
 Each stage corresponds to one (cycle, repeat) entry of cfg.layer_plan and is
 a dict {block_name_i: stacked_params} with leading axis ``repeat``; a stage
@@ -10,9 +10,10 @@ runs as a Python loop over ``range(repeat)`` on views of the stacked leaves
 (the reference's ``lax.scan``).
 
 Batch dict: ``tokens`` (B, S) integer ids, and for ``loss_fn`` ``targets``
-(B, S) ids and an optional fp32 ``loss_mask`` (B, S).  The MTP head is
-ROADMAP Queue 1 item 12, the MoE router's aux loss item 13, modality
-frontends item 16.  Under autograd with ``cfg.remat`` each layer of a
+(B, S) ids and an optional fp32 ``loss_mask`` (B, S).  ``loss_fn`` adds
+the MoE router's aux loss and deepseek-v3's MTP loss (one extra block
+predicting token t+2) as the reference does; modality frontends are
+ROADMAP Queue 1 item 16.  Under autograd with ``cfg.remat`` each layer of a
 stage runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` around its scan body): its activations are recomputed
 in the backward pass instead of kept.
@@ -28,10 +29,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import prng, resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import (apply_head, apply_norm, embed_tokens,
-                                       init_embed, init_head, init_norm,
-                                       is_key, split_keys, torch_dtype)
-from repro_torch.tree import tree_map
+from repro_torch.models.layers import (apply_head, apply_norm, dense_init,
+                                       embed_tokens, init_embed, init_head,
+                                       init_norm, is_key, split_keys, torch_dtype)
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -39,9 +40,6 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.mtp:
-        raise NotImplementedError("the MTP head is not ported to repro_torch "
-                                  "yet: ROADMAP Queue 1 item 12 (MLA attention)")
     if cfg.frontend is not None:
         raise NotImplementedError("modality frontends are not ported to "
                                   "repro_torch yet: ROADMAP Queue 1 item 16")
@@ -87,16 +85,31 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 del layer
             stage[f"{bi}_{bt}"] = stacked
         params["stages"].append(stage)
+    if cfg.mtp:
+        params["mtp"] = _init_mtp(cfg, generator, generator, dtype, device)
     return params
+
+
+def _init_mtp(cfg: ArchConfig, k_proj, k_block, dtype, device) -> dict:
+    """deepseek-v3's MTP head: the projection of [h_t; e_{t+1}], its two
+    norms and one ``attn`` block."""
+    d = cfg.d_model
+    return {
+        "proj": dense_init(k_proj, (2 * d, d), 2 * d, dtype, device),
+        "norm_h": init_norm(cfg, d, dtype, device),
+        "norm_e": init_norm(cfg, d, dtype, device),
+        "block": blocks.init_block(cfg, "attn", k_block, dtype, device),
+    }
 
 
 def _init_params_key(cfg: ArchConfig, key: torch.Tensor, device) -> dict:
     """The reference's key stream: ``split(key, 4)`` into the embedding,
     head, stage and MTP keys, and for block ``bi`` of stage ``si`` one key
     per layer, ``split(fold_in(k_stage, si * 97 + bi), repeat)`` (the
-    reference vmaps the block init over them; layer by layer here)."""
+    reference vmaps the block init over them; layer by layer here), and
+    ``split(k_mtp)`` into the MTP projection's and block's keys."""
     dtype = _dtype(cfg)
-    k_embed, k_head, k_stage, _ = split_keys(key, 4)
+    k_embed, k_head, k_stage, k_mtp = split_keys(key, 4)
     params: dict[str, Any] = {
         "embed": init_embed(cfg, k_embed, dtype, device),
         "final_norm": init_norm(cfg, cfg.d_model, dtype, device),
@@ -111,6 +124,8 @@ def _init_params_key(cfg: ArchConfig, key: torch.Tensor, device) -> dict:
                       for r in range(repeat)]
             stage[f"{bi}_{bt}"] = tree_map(lambda *ts: torch.stack(ts), *layers)
         params["stages"].append(stage)
+    if cfg.mtp:
+        params["mtp"] = _init_mtp(cfg, *split_keys(k_mtp, 2), dtype, device)
     return params
 
 
@@ -118,20 +133,30 @@ def _init_params_key(cfg: ArchConfig, key: torch.Tensor, device) -> dict:
 # backbone (sequence form)
 # ---------------------------------------------------------------------------
 
+def _layers(stage_params, repeat: int) -> list:
+    """The stage's stacked trees as ``repeat`` per-layer trees of views, the
+    leaves split once (``unbind``): under autograd a leaf's gradient then
+    comes back as one stack, where indexing it layer by layer would add a
+    zero-padded copy of the whole stack per layer."""
+    leaves = tree_leaves(stage_params)
+    split = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(stage_params, [s[r] for s in split]) for r in range(repeat)]
+
+
 def _stage_seq(cfg: ArchConfig, cycle, repeat, stage_params, x, positions,
                prefix_len):
-    def layer(x, r):
+    def layer(x, p):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for bi, bt in enumerate(cycle):
-            p = tree_map(lambda t: t[r], stage_params[f"{bi}_{bt}"])
-            x, a = blocks.block_seq(cfg, bt, p, x, positions, prefix_len=prefix_len)
+            x, a = blocks.block_seq(cfg, bt, p[f"{bi}_{bt}"], x, positions,
+                                    prefix_len=prefix_len)
             aux = aux + a
         return x, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(repeat):
-        x, a = checkpoint(layer, x, r, use_reentrant=False) if remat else layer(x, r)
+    for p in _layers(stage_params, repeat):
+        x, a = checkpoint(layer, x, p, use_reentrant=False) if remat else layer(x, p)
         aux = aux + a
     return x, aux
 
@@ -153,11 +178,17 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
     return x, torch.arange(x.shape[1], device=x.device), None
 
 
-def forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
+def _forward(cfg: ArchConfig, params, batch):
+    """(logits (B,S,V), aux_loss, the backbone's output h, positions)."""
     x, positions, prefix_len = _embed_inputs(cfg, params, batch)
     h, aux = backbone_seq(cfg, params, x, positions, prefix_len)
     logits = apply_head(cfg, params["head"], params["embed"], h)
+    return logits, aux, h, positions
+
+
+def forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
+    logits, aux, _, _ = _forward(cfg, params, batch)
     return logits, aux
 
 
@@ -172,21 +203,40 @@ def _xent(logits, targets, mask):
 
 
 def loss_fn(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, dict]:
-    """Mean next-token cross-entropy over the unmasked positions ->
-    (loss, {"ce", "aux", "loss"})."""
-    if cfg.moe is not None:
-        raise NotImplementedError("the MoE router's aux loss is not ported to "
-                                  "repro_torch yet: ROADMAP Queue 1 item 13 (MoE FFN)")
-    if cfg.mtp:
-        raise NotImplementedError("the MTP loss is not ported to repro_torch "
-                                  "yet: ROADMAP Queue 1 item 12 (MLA attention)")
-    logits, aux = forward(cfg, params, batch)
+    """Mean next-token cross-entropy over the unmasked positions, plus
+    ``router_aux_weight * aux`` with a MoE and ``mtp_weight * mtp`` with
+    the MTP head -> (loss, {"ce", "aux", "mtp"?, "loss"}).  The backbone
+    runs once: the reference's MTP loss runs it again on the same inputs,
+    which gives the same values."""
+    logits, aux, h, positions = _forward(cfg, params, batch)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
     loss = _xent(logits, targets, mask)
-    return loss, {"ce": loss, "aux": aux, "loss": loss}
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    if cfg.mtp:
+        mtp_loss = _mtp_loss(cfg, params, batch, h, positions, mask)
+        metrics["mtp"] = mtp_loss
+        loss = loss + cfg.mtp_weight * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(cfg: ArchConfig, params, batch, h, positions, mask):
+    """Deepseek-v3 MTP: depth-1 extra head predicting token t+2 from the
+    backbone state at t combined with the embedding of token t+1."""
+    tokens, targets = batch["tokens"], batch["targets"]
+    p = params["mtp"]
+    h_t = apply_norm(cfg, p["norm_h"], h[:, :-1])
+    e_next = apply_norm(cfg, p["norm_e"], embed_tokens(params["embed"], tokens[:, 1:]))
+    z = torch.cat([h_t, e_next], dim=-1) @ p["proj"]
+    z, _ = blocks.block_seq(cfg, "attn", p["block"], z, positions[:-1])
+    logits = apply_head(cfg, params["head"], params["embed"], z)
+    # predict targets shifted one further (t+2 = targets[t+1])
+    return _xent(logits[:, :-1], targets[:, 2:], mask[:, 2:])
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +244,8 @@ def loss_fn(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, dict]:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    """Empty KV caches, one stacked (repeat, ...) tree per stage."""
+    """Empty KV (or MLA latent) caches, one stacked (repeat, ...) tree per
+    stage."""
     device = resolve_device(device)
     dtype = _dtype(cfg)
     caches = []

@@ -131,6 +131,17 @@ def test_unported_entry_points_raise_not_implemented():
         tsim.run(tsim.SimConfig(m=2), None, None, engine="python", device="cpu")
 
 
+def test_python_engine_refusals_name_the_item_that_ports_it():
+    """Both refusals of ``engine='python'`` name ROADMAP Queue 1 item 10."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tsim.run(tsim.SimConfig(m=2), None, None, engine="python", device="cpu")
+    from repro_torch.fl import baselines
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        baselines.compare(tsim.SimConfig(m=2), None, None, None, engine="python",
+                                device="cpu")
+
+
 @pytest.mark.parametrize("kw", [
     dict(policy="nope"), dict(model="resnet"), dict(optimizer="lion"),
     dict(mix_impl="fast"), dict(trace="dense"), dict(m=0), dict(iters=0),

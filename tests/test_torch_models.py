@@ -34,6 +34,9 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 ARCH = "starcoder2-15b"
+# the ported architectures beside ARCH; their own tests are in
+# test_torch_moe.py and test_torch_mla.py
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b")
 TOL = 1e-4  # fp32 logits: the same products, summed in another order
 
 
@@ -61,10 +64,17 @@ def _jparams(init, *args):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
-def test_configs_equal_reference(make):
-    want = getattr(jconfigs, make)(ARCH)
-    got = getattr(tconfigs, make)(ARCH)
+def _per_arch(*names):
+    """Cases of each name for ARCH (ids as before: the name alone) and for
+    each of MOE_ARCHS (ids ``arch-name``)."""
+    return ([pytest.param(ARCH, n, id=n) for n in names]
+            + [pytest.param(a, n, id=f"{a}-{n}") for a in MOE_ARCHS for n in names])
+
+
+@pytest.mark.parametrize("arch,make", _per_arch("get_config", "smoke_config"))
+def test_configs_equal_reference(arch, make):
+    want = getattr(jconfigs, make)(arch)
+    got = getattr(tconfigs, make)(arch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert tcommon.INPUT_SHAPES.keys() == jcommon.INPUT_SHAPES.keys()
     for name, shape in jcommon.INPUT_SHAPES.items():
@@ -72,25 +82,25 @@ def test_configs_equal_reference(make):
     assert tcommon.supported_shapes(got) == jcommon.supported_shapes(want)
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
+                                  if a != ARCH and a not in MOE_ARCHS])
 def test_unported_configs_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[2-7]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[4-7]"):
         tconfigs.get_config(arch)
 
 
-@pytest.mark.parametrize("bt", ["moe", "mla", "mla_moe", "hybrid", "hybrid_g",
-                                "mamba", "mlstm", "slstm"])
+@pytest.mark.parametrize("bt", ["hybrid", "hybrid_g", "mamba", "mlstm", "slstm"])
 def test_unported_block_types_raise_not_implemented(bt):
     cfg = tconfigs.smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[2-5]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[4-5]"):
         TB.init_block(cfg, bt, None, torch.float32, "meta")
 
 
 @pytest.mark.parametrize("active_only", [False, True])
-@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
-def test_count_params_analytic_equals_reference(make, active_only):
-    got = TM.count_params_analytic(getattr(tconfigs, make)(ARCH), active_only)
-    want = JM.count_params_analytic(getattr(jconfigs, make)(ARCH), active_only)
+@pytest.mark.parametrize("arch,make", _per_arch("get_config", "smoke_config"))
+def test_count_params_analytic_equals_reference(arch, make, active_only):
+    got = TM.count_params_analytic(getattr(tconfigs, make)(arch), active_only)
+    want = JM.count_params_analytic(getattr(jconfigs, make)(arch), active_only)
     assert got == want
 
 

@@ -194,9 +194,11 @@ def test_pallas_swa_refuses_under_autograd(ref_params):
 
 
 def test_loss_refuses_what_is_not_ported():
+    from repro_torch.models.common import FrontendStub
+
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TM.loss_fn(dataclasses.replace(tcfg, mtp=True), {}, {})
+    with pytest.raises(NotImplementedError, match="item 16"):
+        TM.loss_fn(dataclasses.replace(tcfg, frontend=FrontendStub("vision", 4, 32)), {}, {})
 
 
 # ---------------------------------------------------------------------------
