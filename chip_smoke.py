@@ -10,7 +10,11 @@ error:
 1. card: the GPU's name and power limit from ``nvidia-smi``;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, with its time, the plain version's, one PyTorch library
-   call's and the least time the card could take (``bound_ms``); the two
+   call's and the least time the card could take (``bound_ms``); the
+   trigger at the paths' rows (1024 x 50890, 4096 x 7850, 8192 x 50890,
+   1024 x 26698), each also against an fp64 sum, bit-equal from run to
+   run, with the slab plan and its kernels' own device time read from
+   the profiler with the L2 flushed (``_trigger_row``); the two
    SWA kernels (split TF32 on the tensor cores for fp32, with the SIMT
    kernel, the fp32 path's earlier design, and a build whose split rounds
    lo to nearest timed beside it, all three held against fp64; bf16 on the
@@ -137,7 +141,7 @@ error:
    schedule; ms/step, tokens/s and peak memory; a run resumed from the
    checkpoint bit-equal to the in-memory one; the three bf16 entries
    against their plain versions at the largest leaf (4 x 3.0e8: the
-   trigger within rtol 1e-5, both mixes bit for bit) with their times,
+   trigger as in phase 2, both mixes bit for bit) with their times,
    library calls and bounds; one profiled dense step (busy and idle
    time, the entries' share); the smoke configuration in bf16 on the
    card and on the CPU, v equal at every step;
@@ -159,8 +163,10 @@ error:
    ms/step, tokens/s, peak memory, each step's ce and aux; one profiled
    dense step; one MoE layer's forward and backward twice with drops,
    bit-equal; the bf16 entries against their plain versions at the
-   (4, 805306368) expert leaf; the granite smoke configuration in bf16 on
-   the card and on the CPU, v equal at every step.
+   (4, 805306368) expert leaf and the fp32 kernels at the (4, 1572864)
+   router rows (the trigger as in phase 2); the granite smoke
+   configuration in bf16 on the card and on the CPU, v equal at every
+   step.
 
 Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
 in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
@@ -330,6 +336,138 @@ def card_state() -> str:
     return card_line("clocks.sm,power.draw,temperature.gpu")
 
 
+# the trigger kernel against its plain version: fp32 sums in another
+# order; against an fp64 sum its largest relative error within this multiple
+# of the plain version's, or this floor
+TRIG_RTOL = 1e-5
+TRIG_FP64_VS_PLAIN = 2.0
+TRIG_FP64_FLOOR = 1e-6
+L2_FLUSH_BYTES = 256 << 20  # written before each device-timed call (L2: 50 MB)
+# a trigger row's fields that the kernels line carries for each of its
+# shapes: phase 2's main one, and its fleet, cells and cnn rows, the
+# router rows and the expert leaf (phase 14)
+TRIGGER_FIELDS = ("shape", "max_abs_err", "max_rel_err", "fp64_rel_err", "slabs", "ms",
+                  "device_ms", "device_ms_clean_l2", "plain_ms", "library_ms", "bound_ms")
+TRIGGER_SUFFIXES = ("", "_fleet", "_c8", "_cnn", "_router", "_moe_leaf")
+TRIGGER_KERNELS = ("trigger_sq_slab_kernel", "trigger_sq_rows_kernel")
+KERNEL_SESSIONS = 5  # profiler sessions at most, until reps whole calls are recorded
+
+
+def kernel_device_ms(torch, fn, kernels: tuple[str, ...] = TRIGGER_KERNELS,
+                     launches: int = 1, reps: int = 20, clean: bool = False) -> float:
+    """Median over ``reps`` calls of ``fn`` of the device time of the
+    repo's ``kernels`` in one call, read from ``torch.profiler``'s raw
+    device records: a call's ``launches`` records summed, the first name
+    opening each call.  An L2_FLUSH_BYTES scratch tensor is written before
+    each call, so the kernel reads its inputs from HBM with the L2 full of
+    dirty lines, as after a step's writes; with ``clean``, a second one is
+    read after it, so the L2 holds clean lines (no write-back to compete
+    with the kernel's reads).  In a process that has profiled for minutes
+    the profiler loses device records (on the H100 machine phase 11 kept
+    18 of 30 calls whole), so a call counts only with all its records, and
+    sessions repeat, up to KERNEL_SESSIONS, until ``reps`` calls are
+    whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    other = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda") if clean else None
+    fn()
+    torch.cuda.synchronize()
+    whole: list[float] = []
+    for _ in range(KERNEL_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scratch.fill_(1.0)
+                if clean:
+                    other.sum()
+                fn()
+            torch.cuda.synchronize()
+        calls: list[list[float]] = []
+        for e in sorted((e for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == torch.autograd.DeviceType.CUDA
+                         and any(k in e.name() for k in kernels)), key=lambda e: e.start_ns()):
+            if kernels[0] in e.name():
+                calls.append([])
+            if calls:
+                calls[-1].append(e.duration_ns() / 1e6)
+        whole += [sum(c) for c in calls if len(c) == launches]
+        if len(whole) >= reps:
+            break
+    check(len(whole) >= reps // 2, f"device time of {kernels[0]}: the profiler recorded "
+                                   f"{len(whole)} whole calls in {KERNEL_SESSIONS} sessions")
+    return float(statistics.median(whole[:reps]))
+
+
+def _fp64_sq(torch, w, h, step: int = 1 << 26):
+    """sum_n (w - h)^2 of each row in fp64, over column chunks (an fp64
+    copy of a train leaf would not fit)."""
+    m, n = w.shape
+    rows = max(1, step // n)
+    out = []
+    for i in range(0, m, rows):
+        acc = torch.zeros(min(rows, m - i), dtype=torch.float64, device=w.device)
+        for c in range(0, n, step):
+            d = w[i:i + rows, c:c + step].double() - h[i:i + rows, c:c + step].double()
+            acc += (d * d).sum(1)
+        out.append(acc)
+    return torch.cat(out)
+
+
+def _trigger_row(torch, w, h, label: str, library, reps: int = 25) -> dict:
+    """The trigger wrapper on (m, D) rows ``w``, ``h`` against its plain
+    version: within rtol TRIG_RTOL of it, the same bits from two calls, and
+    against an fp64 sum a largest relative error within
+    max(TRIG_FP64_VS_PLAIN x the plain version's, TRIG_FP64_FLOOR).  With
+    its event-timed ``ms`` (one wrapper call: host checks, allocation and
+    the ctypes call included), ``device_ms`` and ``device_ms_clean_l2``
+    (``kernel_device_ms``: the L2 left dirty and clean), the plain
+    version's and ``library(w, h)``'s event-timed ms (medians of ``reps``),
+    the slab plan and the byte bound."""
+    from repro_torch.kernels.trigger import ops as trigger_ops
+    from repro_torch.kernels.trigger.ref import trigger_sq_ref
+
+    m, n = w.shape
+    got, ref = trigger_ops.trigger_sq(w, h), trigger_sq_ref(w, h)
+    same = torch.equal(got, trigger_ops.trigger_sq(w, h))
+    exact = _fp64_sq(torch, w, h)
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    rel_err = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    fp64 = {k: float(((x.double() - exact).abs() / exact.abs().clamp(min=1e-300)).max())
+            for k, x in (("kernel", got), ("plain", ref))}
+    del exact, ref
+    limit = max(TRIG_FP64_VS_PLAIN * fp64["plain"], TRIG_FP64_FLOOR)
+    check(rel_err <= TRIG_RTOL, f"{label}: max rel err {rel_err:.3g} > {TRIG_RTOL}")
+    check(same, f"{label}: not the same bits from run to run")
+    check(fp64["kernel"] <= limit, f"{label}: max rel err against fp64 {fp64['kernel']:.3g} > "
+                                   f"{limit:.3g} (plain version's {fp64['plain']:.3g})")
+    cols, n_slab = trigger_ops.device_plan(m, n, w.element_size(), w.device)
+    passes = 1 if n_slab == 1 else 2
+    b_ms, b_by = bound(2 * m * n * w.element_size() + m * 4, 3 * m * n)
+    row = {"shape": [m, n], "max_abs_err": abs_err,
+           "max_rel_err": rel_err, "fp64_rel_err": fp64["kernel"],
+           "fp64_rel_err_plain": fp64["plain"], "tolerance": f"rtol {TRIG_RTOL}",
+           "slabs": [cols, n_slab],
+           "ms": time_ms(torch, lambda: trigger_ops.trigger_sq(w, h)),
+           "device_ms": kernel_device_ms(torch, lambda: trigger_ops.trigger_sq(w, h),
+                                         launches=passes),
+           "device_ms_clean_l2": kernel_device_ms(torch, lambda: trigger_ops.trigger_sq(w, h),
+                                                  launches=passes, clean=True),
+           "plain_ms": time_ms(torch, lambda: trigger_sq_ref(w, h), reps=reps),
+           "library_ms": time_ms(torch, lambda: library(w, h), reps=reps),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"kernel {label} {tuple(row['shape'])} {str(w.dtype)[6:]}: max rel err "
+          f"{rel_err:.3g} (tol rtol {TRIG_RTOL}), against fp64 {fp64['kernel']:.3g} (plain "
+          f"{fp64['plain']:.3g}, limit {limit:.3g}), two calls bit-equal; {n_slab} slab(s) of "
+          f"{cols} columns; kernel_ms {row['ms']:.4f} device_ms {row['device_ms']:.4f} (L2 "
+          f"clean {row['device_ms_clean_l2']:.4f}) plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}); device "
+          f"{b_ms / row['device_ms']:.3f} of the bound (L2 clean "
+          f"{b_ms / row['device_ms_clean_l2']:.3f}), event-timed {b_ms / row['ms']:.3f}",
+          flush=True)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -341,38 +479,25 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     from repro_torch.core import mixing, topology, triggers
     from repro_torch.kernels.mixing import ops as mixing_ops
     from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref
-    from repro_torch.kernels.trigger import ops as trigger_ops
-    from repro_torch.kernels.trigger.ref import trigger_sq_ref
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows: dict[str, dict] = {}
 
-    # trigger_sq: (1024, 50890) is the paper path's shape (mlp), (4096,
-    # 7850) the svm fleet's; tolerance: fp32 sums in another order
-    trig_rtol = 1e-5
-    for m, n in ((4096, 7850), (1024, 50890)):
+    # trigger_sq at the paths' rows: (1024, 50890) the paper path's (mlp),
+    # (4096, 7850) the svm fleet's, (8192, 50890) the 8-cell sweeps' and
+    # service A's (C m rows), (1024, 26698) the cnn run's
+    def pairwise(w, h):
+        return F.pairwise_distance(w, h, eps=0.0) ** 2
+
+    for (m, n), suffix in (((1024, 50890), ""), ((4096, 7850), "_fleet"),
+                           ((8192, 50890), "_c8"), ((1024, 26698), "_cnn")):
         w = torch.randn((m, n), generator=gen, device=dev)
         h = w + 0.01 * torch.randn((m, n), generator=gen, device=dev)
-        got = trigger_ops.trigger_sq(w, h)
-        ref = trigger_sq_ref(w, h)
-        torch.cuda.synchronize()
-        abs_err = float((got - ref).abs().max())
-        rel_err = float(((got - ref).abs() / ref.abs()).max())
-        check(rel_err <= trig_rtol,
-              f"trigger_sq ({m}, {n}): max rel err {rel_err:.3g} > {trig_rtol}")
-        ms = time_ms(torch, lambda: trigger_ops.trigger_sq(w, h))
-        plain = time_ms(torch, lambda: trigger_sq_ref(w, h))
-        lib = time_ms(torch, lambda: F.pairwise_distance(w, h, eps=0.0) ** 2)
-        b_ms, b_by = bound(2 * m * n * 4 + m * 4, 3 * m * n)
-        row = {"name": "trigger_sq", "shape": [m, n], "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "tolerance": f"rtol {trig_rtol}",
-               "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib}
-        print(f"kernel trigger_sq m={m} D={n}: max abs err {abs_err:.3g}, max "
-              f"rel err {rel_err:.3g} (tol rtol {trig_rtol}); kernel_ms {ms:.4f}"
-              f" plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
-              f"{b_ms:.4f} ({b_by})")
-        rows["trigger_sq"] = row  # the (1024, 50890) main-path row stays
+        row = _trigger_row(torch, w, h, "trigger_sq", pairwise)
+        if suffix:
+            rows["trigger_sq"].update({f"{k}{suffix}": row[k] for k in TRIGGER_FIELDS})
+        else:
+            rows["trigger_sq"] = {"name": "trigger_sq", **row}
         del w, h
 
     # mix: P is a real Metropolis matrix of the m=1024 rgg fabric the paper
@@ -408,16 +533,17 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     check(bool(mix_res) and all(any("TF32" in op for op in v.get("tensor_ops", {}))
                                 for v in mix_res.values()),
           f"mix: no TF32 tensor-core instruction in the kernel's SASS ({mix_res})")
+    dev_ms = kernel_device_ms(torch, lambda: mixing_ops.mix(p, w), ("mix_kernel",))
     rows["mix"] = {"name": "mix", "shape": [m, n], "max_abs_err": abs_err,
-                   "tolerance": f"atol {mix_atol}", "ms": ms,
+                   "tolerance": f"atol {mix_atol}", "ms": ms, "device_ms": dev_ms,
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib, "sass_tensor_ops": tc}
     print("kernel resources (cuobjdump -res-usage / -sass): " + "; ".join(
         f"{k} {v.get('registers')} registers, stack {v.get('stack', 'not read')} B, "
         f"tensor ops {v.get('tensor_ops') or 'none'}"
-        for k, v in sorted(res.items()) if k.startswith(("mix", "swa_tf32"))))
+        for k, v in sorted(res.items()) if k.startswith(("mix", "swa_tf32", "trigger"))))
     print(f"kernel mix m={m} D={n}: max abs err {abs_err:.3g} (tol atol "
-          f"{mix_atol}); kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+          f"{mix_atol}); kernel_ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms {plain:.4f} library_ms "
           f"{lib:.4f} (torch.matmul, TF32 off) bound_ms {b_ms:.4f} ({b_by}: 3 x "
           f"2 m^2 D at the TF32 tensor-core peak {TF32_TC_FLOPS:.4g} FLOP/s; "
           f"fp32 off the tensor cores {b_fp32:.4f}); {2 * m * m * n / ms / 1e9:.1f}"
@@ -456,13 +582,15 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     nnz = int(nz.sum())
     d_max = nl.d_max
     b_ms, b_by = _sparse_bound(nnz, m, m, d_max, n)
+    dev_ms = kernel_device_ms(torch, lambda: mixing_ops.mix_sparse(nl.idx, p_diag, p_off, w),
+                              ("mix_sparse_kernel",))
     rows["mix_sparse"] = {
         "name": "mix_sparse", "shape": [m, n], "d_max": d_max,
         "nnz_off": nnz, "max_abs_err": abs_err, "tolerance": "exact",
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib, "plan_build_ms": plan.build_ms}
     print(f"kernel mix_sparse m={m} D={n} d_max={d_max} nnz_off={nnz}: max abs "
-          f"err {abs_err:.3g} (tol exact); kernel_ms {ms:.4f} plain_ms "
+          f"err {abs_err:.3g} (tol exact); kernel_ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
           f"{plain:.4f} library_ms {lib:.4f} (torch.sparse.mm, CSR) bound_ms "
           f"{b_ms:.4f} ({b_by}); plan: built in {plan.build_ms:.1f} ms (host, "
           f"once per run), {plan.n_groups} groups, "
@@ -3240,13 +3368,11 @@ def _ring_p(torch, dev, m: int):
 def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
     """The three bf16 entries against their plain versions at the train
     cell's largest leaf (each parameter tree's stacked (m, 3.0e8) rows):
-    the trigger within rtol 1e-5 (fp32 sums in another order), both mixes
-    bit for bit; with each one's time, the plain version's, a library
+    the trigger as ``_trigger_row`` holds it (with its device time), both
+    mixes bit for bit; with each one's time, the plain version's, a library
     call's and the byte bound."""
     from repro_torch.kernels.mixing import ops as mixing_ops
     from repro_torch.kernels.mixing.ref import mix_ordered_ref, mix_sparse_ref
-    from repro_torch.kernels.trigger import ops as trigger_ops
-    from repro_torch.kernels.trigger.ref import trigger_sq_ref
     from repro_torch.tree import tree_leaves
 
     leaves_w, leaves_h = tree_leaves(params), tree_leaves(w_hat)
@@ -3257,21 +3383,9 @@ def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
     n = w.shape[1]
     rows: dict[str, dict] = {}
 
-    got, ref = trigger_ops.trigger_sq(w, h), trigger_sq_ref(w, h)
-    torch.cuda.synchronize()
-    abs_err = float((got - ref).abs().max())
-    rel_err = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
-    check(rel_err <= 1e-5, f"trigger_sq_bf16: max rel err {rel_err:.3g} > 1e-5")
-    check(torch.equal(got, trigger_ops.trigger_sq(w, h)), "trigger_sq_bf16: not the "
-          "same from run to run")
-    b_ms, b_by = bound(2 * m * n * 2 + m * 4, 3 * m * n)
-    rows["trigger_sq_bf16"] = {
-        "name": "trigger_sq_bf16", "shape": [m, n], "max_abs_err": abs_err,
-        "max_rel_err": rel_err, "tolerance": "rtol 1e-5",
-        "ms": time_ms(torch, lambda: trigger_ops.trigger_sq(w, h)),
-        "plain_ms": time_ms(torch, lambda: trigger_sq_ref(w, h), reps=10),
-        "library_ms": time_ms(torch, lambda: ((w.float() - h.float()) ** 2).sum(1), reps=10),
-        "bound_ms": b_ms, "bound_by": b_by}
+    rows["trigger_sq_bf16"] = _trigger_row(
+        torch, w, h, "trigger_sq_bf16 at the train cell's largest leaf",
+        lambda w, h: ((w.float() - h.float()) ** 2).sum(1), reps=10)
 
     p, idx, p_diag, p_off = _ring_p(torch, dev, m)
     got, ref = mixing_ops.mix(p, w), mix_ordered_ref(p, w)
@@ -3308,6 +3422,8 @@ def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
         "bound_ms": b_ms, "bound_by": b_by}
     del got, ref
     for name, row in rows.items():
+        if name == "trigger_sq_bf16":  # printed by _trigger_row
+            continue
         print(f"kernel {name} at the train cell's largest leaf {tuple(row['shape'])} bf16: "
               f"max abs err {row['max_abs_err']:.3g} (tol {row['tolerance']}); kernel_ms "
               f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
@@ -3320,35 +3436,24 @@ def _train_rows(torch, dev, params, w_hat) -> dict[str, dict]:
 def _router_rows(torch, dev, w, h) -> dict[str, dict]:
     """The fp32 kernels at the train cell's own router rows ``w`` and
     their w_hat ``h`` (m, D), with the ring's real Event-3 P, at phase 2's
-    fp32 tolerances: ``trigger_sq`` within rtol 1e-5 of its plain version,
-    ``mix`` (split TF32) within atol 1e-5 of fp32 ``torch.matmul`` and
-    within phase 2's limits against fp64, ``mix_sparse`` bit for bit;
-    with each one's time, the plain version's, a library call's and the
+    fp32 tolerances: ``trigger_sq`` as ``_trigger_row`` holds it, ``mix``
+    (split TF32) within atol 1e-5 of fp32 ``torch.matmul`` and within
+    phase 2's limits against fp64, ``mix_sparse`` bit for bit; with each
+    one's time, device time, the plain version's, a library call's and the
     bound.  The mix must move the rows by more than its tolerance, or a
     kernel that copies its input would pass."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.mixing import ops as mixing_ops
     from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref
-    from repro_torch.kernels.trigger import ops as trigger_ops
-    from repro_torch.kernels.trigger.ref import trigger_sq_ref
 
     m, n = w.shape
-    trig_rtol, mix_atol = 1e-5, 1e-5
+    mix_atol = 1e-5
     rows: dict[str, dict] = {}
 
-    got, ref = trigger_ops.trigger_sq(w, h), trigger_sq_ref(w, h)
-    torch.cuda.synchronize()
-    rel_err = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
-    check(rel_err <= trig_rtol, f"trigger_sq at the router rows: max rel err {rel_err:.3g} "
-                                f"> {trig_rtol}")
-    b_ms, b_by = bound(2 * m * n * 4 + m * 4, 3 * m * n)
-    rows["trigger_sq"] = {
-        "shape": [m, n], "max_abs_err": float((got - ref).abs().max()),
-        "tolerance": f"rtol {trig_rtol}", "ms": time_ms(torch, lambda: trigger_ops.trigger_sq(w, h)),
-        "plain_ms": time_ms(torch, lambda: trigger_sq_ref(w, h)),
-        "library_ms": time_ms(torch, lambda: F.pairwise_distance(w, h, eps=0.0) ** 2),
-        "bound_ms": b_ms, "bound_by": b_by}
+    rows["trigger_sq"] = _trigger_row(
+        torch, w, h, "trigger_sq at the router rows",
+        lambda w, h: F.pairwise_distance(w, h, eps=0.0) ** 2)
 
     p, idx, p_diag, p_off = _ring_p(torch, dev, m)
     got, ref = mixing_ops.mix(p, w), mix_ref(p, w)
@@ -3363,6 +3468,7 @@ def _router_rows(torch, dev, w, h) -> dict[str, dict]:
         "shape": [m, n], "max_abs_err": abs_err, "tolerance": f"atol {mix_atol}",
         "moved": moved, "fp64_max_abs_err": fp64["kernel"][0], "fp64_bias": fp64["kernel"][1],
         "ms": time_ms(torch, lambda: mixing_ops.mix(p, w)),
+        "device_ms": kernel_device_ms(torch, lambda: mixing_ops.mix(p, w), ("mix_kernel",)),
         "plain_ms": time_ms(torch, lambda: mix_ref(p, w)),
         "library_ms": time_ms(torch, lambda: torch.matmul(p, w)),
         "bound_ms": b_ms, "bound_by": b_by}
@@ -3379,18 +3485,23 @@ def _router_rows(torch, dev, w, h) -> dict[str, dict]:
     rows["mix_sparse"] = {
         "shape": [m, n], "max_abs_err": abs_err, "tolerance": "exact",
         "ms": time_ms(torch, lambda: mixing_ops.mix_sparse(idx, p_diag, p_off, w)),
+        "device_ms": kernel_device_ms(torch, lambda: mixing_ops.mix_sparse(idx, p_diag, p_off, w),
+                                      ("mix_sparse_kernel",)),
         "plain_ms": time_ms(torch, lambda: mix_sparse_ref(idx, p_diag, p_off, w)),
         "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, w)),
         "bound_ms": b_ms, "bound_by": b_by}
     del got, ref
     for name, row in rows.items():
+        if name == "trigger_sq":  # printed by _trigger_row
+            continue
         extra = (f"; rows moved by {row['moved']:.3g}, against fp64 max abs err "
                  f"{row['fp64_max_abs_err']:.3g} (torch.matmul's {fp64['library'][0]:.3g}), "
                  f"mean relative bias {row['fp64_bias']:.3g}" if name == "mix" else "")
         print(f"kernel {name} at the train cell's fp32 router rows {tuple(row['shape'])}, ring "
               f"P: max abs err {row['max_abs_err']:.3g} (tol {row['tolerance']}{extra}); "
-              f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
-              f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"kernel_ms {row['ms']:.4f} device_ms {row['device_ms']:.4f} plain_ms "
+              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}); "
               f"{row['bound_ms'] / row['ms']:.3f} of the bound")
     return rows
 
@@ -4165,12 +4276,11 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
     rw, rh = (ls[router].reshape(m, -1) for ls in (leaves, tree_leaves(w_hat)))
     del first, run, params, w_hat, leaves, step, b
     torch.cuda.empty_cache()
-    fields = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")
-    rows = {name: {f"{k}_moe_leaf": row[k] for k in fields}
+    rows = {name: {f"{k}_moe_leaf": row[k] for k in TRIGGER_FIELDS if k in row}
             for name, row in _train_rows(torch, dev, {"w": w}, {"w": h}).items()}
     del w, h
     torch.cuda.empty_cache()
-    rows.update({name: {f"{k}_router": row[k] for k in fields}
+    rows.update({name: {f"{k}_router": row[k] for k in TRIGGER_FIELDS if k in row}
                  for name, row in _router_rows(torch, dev, rw, rh).items()})
     del rw, rh
     _train_twin(torch, dev, "granite-moe-3b-a800m")
@@ -4178,11 +4288,10 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
 
 
 # kernel functions of csrc/ (the names the profiler shows)
-REPO_KERNELS = ("trigger_sq_kernel", "mix_kernel", "mix_sparse_kernel",
-                "compact_slots_kernel", "mix_sparse_wide_kernel",
+REPO_KERNELS = ("trigger_sq_slab_kernel", "trigger_sq_rows_kernel", "mix_kernel",
+                "mix_sparse_kernel", "compact_slots_kernel", "mix_sparse_wide_kernel",
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
-                "swa_tc_kernel", "swa_tf32_kernel", "trigger_sq_bf16_kernel",
-                "trigger_sq_bf16_rows_kernel", "mix_bf16_kernel",
+                "swa_tc_kernel", "swa_tf32_kernel", "mix_bf16_kernel",
                 "mix_sparse_bf16_kernel")
 
 KERNEL_SOURCES = {
@@ -4369,7 +4478,9 @@ def main() -> int:
                                    "plain_ms_moe_leaf", "library_ms_moe_leaf",
                                    "bound_ms_moe_leaf", "shape_router",
                                    "max_abs_err_router", "ms_router", "plain_ms_router",
-                                   "library_ms_router", "bound_ms_router")
+                                   "library_ms_router", "bound_ms_router",
+                                   *(f"{k}{suffix}" for suffix in TRIGGER_SUFFIXES
+                                     for k in TRIGGER_FIELDS))
                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,4 +43,9 @@ def check_cuda_input(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, for a launch: read by
+    the raw getter that torch's own generated launchers use, without
+    building a ``torch.cuda.Stream`` object (microseconds of host time a
+    launch, which event-timed kernels pay)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -32,8 +32,8 @@ NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int
 _SIGNATURES = {
-    "repro_trigger_sq_f32": (_P, _P, _P, _I64, _I64, _P),
-    "repro_trigger_sq_bf16": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "repro_trigger_sq_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "repro_trigger_sq_bf16": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "repro_mix_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
     "repro_mix_bf16": (_P, _P, _P, _I64, _I64, _P),
     "repro_mix_sparse_bf16": (*(_P,) * 5, *(_I64,) * 4, _P),

@@ -10,6 +10,8 @@ and the strict threshold compare of the reference's wrapper; the
 simulator's step does the same itself (``core.efhc.step``)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build, check_cuda_input, on_cpu, stream_handle
@@ -18,11 +20,45 @@ from repro_torch.prng import sqrt_f32
 from repro_torch.tree import tree_leaves
 
 # launches of the CUDA kernels, counted where they are launched and
-# nowhere else: "trigger_sq" the fp32 kernel, "trigger_sq_bf16" the bf16
-# entry's two passes (one launch)
+# nowhere else (one a wrapper call, both passes included): "trigger_sq"
+# the fp32 entry, "trigger_sq_bf16" the bf16 one
 LAUNCHES = {"trigger_sq": 0, "trigger_sq_bf16": 0}
 
-BF16_COLS = 32768  # columns a block of the bf16 entry's first pass sums
+# the slab plan (csrc/trigger_sq.cu): a block of 512 threads keeps 4
+# 16-byte loads of each operand in flight a thread
+BLOCKS_PER_SM = 4  # such blocks resident on an SM (2048 threads)
+WAVES = 2  # waves of resident blocks that few long rows are cut into
+MIN_SLAB_BYTES = 512 * 4 * 16  # of each operand: one round of loads a thread
+MAX_SLAB_BYTES = 8 * MIN_SLAB_BYTES
+
+
+def slab_plan(m: int, n: int, itemsize: int, sms: int) -> tuple[int, int]:
+    """(cols, n_slab): the kernel cuts each of m rows of n elements of
+    ``itemsize`` bytes into n_slab column slabs.  Slab k > 0 starts at
+    head + k cols, where head < 16 / itemsize is the row's run before its
+    first 16-byte boundary; slab 0 takes the head, the last slab runs to
+    n.  cols is a multiple of 16 bytes, and n_slab leaves the last slab
+    non-empty whatever the head.  Rows that fill the card's ``sms`` SMs
+    with resident blocks keep one slab; fewer rows are cut into at least
+    WAVES x the resident blocks, each slab MIN_SLAB_BYTES to
+    MAX_SLAB_BYTES of each operand (short blocks, or long ones that leave
+    a ragged last wave, lose bandwidth)."""
+    vec = 16 // itemsize
+    resident = sms * BLOCKS_PER_SM
+    if m >= resident:
+        return -(-n // vec) * vec, 1
+    cols = -(-n // -(-WAVES * resident // m))
+    cols = min(max(cols, MIN_SLAB_BYTES // itemsize), MAX_SLAB_BYTES // itemsize)
+    cols = -(-cols // vec) * vec
+    return cols, max(1, (n - vec) // cols + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def device_plan(m: int, n: int, itemsize: int, device: torch.device) -> tuple[int, int]:
+    """``slab_plan`` on ``device``'s SM count, kept per shape: the
+    wrapper's host time before the launch is part of a short call's time."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return slab_plan(m, n, itemsize, sms)
 
 
 def trigger_sq(w: torch.Tensor, w_hat: torch.Tensor) -> torch.Tensor:
@@ -37,26 +73,19 @@ def trigger_sq(w: torch.Tensor, w_hat: torch.Tensor) -> torch.Tensor:
     dtype = torch.bfloat16 if bf16 else torch.float32
     check_cuda_input("w", w, dtype, (m, n))
     check_cuda_input("w_hat", w_hat, dtype, (m, n))
-    out = torch.empty(m, dtype=torch.float32, device=w.device)
     if m == 0 or n == 0:
-        return out.zero_()
-    if bf16:
-        if m > 65535:
-            raise ValueError(f"the bf16 trigger kernel takes m <= 65535; got {m}")
-        n_slab = -(-n // BF16_COLS)
-        part = torch.empty((m, n_slab), dtype=torch.float32, device=w.device)
-        err = build.library().repro_trigger_sq_bf16(
-            w.data_ptr(), w_hat.data_ptr(), out.data_ptr(), part.data_ptr(), m, n,
-            n_slab, stream_handle(w.device))
-        build.check(err, "trigger_sq_bf16")
-        LAUNCHES["trigger_sq_bf16"] += 1
-        return out
-    err = build.library().repro_trigger_sq_f32(
-        w.data_ptr(), w_hat.data_ptr(), out.data_ptr(), m, n,
-        stream_handle(w.device))
-    build.check(err, "trigger_sq")
-    LAUNCHES["trigger_sq"] += 1
-    return out
+        return torch.zeros(m, dtype=torch.float32, device=w.device)
+    cols, n_slab = device_plan(m, n, w.element_size(), w.device)
+    # out and, with several slabs, the (m, n_slab) slab sums: one allocation
+    buf = torch.empty(m * (1 + (n_slab if n_slab > 1 else 0)), dtype=torch.float32,
+                      device=w.device)
+    entry = build.library().repro_trigger_sq_bf16 if bf16 else build.library().repro_trigger_sq_f32
+    err = entry(w.data_ptr(), w_hat.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * m,
+                m, n, cols, n_slab, stream_handle(w.device))
+    name = "trigger_sq_bf16" if bf16 else "trigger_sq"
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return buf[:m]
 
 
 def trigger_sq_tree(w_tree, h_tree) -> torch.Tensor:

@@ -45,7 +45,11 @@ def _ell(rng, m, d_max):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(1, 7), (33, 130), (1024, 50890), (4096, 7850)])
+# few long rows (many slabs, the second pass), rows misaligned against 16
+# bytes (D % 4 != 0), the cells' rows, and m past 65535
+@pytest.mark.parametrize("m,n", [(1, 7), (33, 130), (1024, 50890), (4096, 7850),
+                                 (4, 1572864), (1, 1 << 20), (3, 4099), (5, 50890),
+                                 (8192, 50890), (70000, 8)])
 def test_trigger_sq_kernel_matches_plain(cuda, m, n):
     g = torch.Generator(device=cuda).manual_seed(m + n)
     w = torch.randn((m, n), generator=g, device=cuda)
@@ -53,7 +57,55 @@ def test_trigger_sq_kernel_matches_plain(cuda, m, n):
     before = ttrig.LAUNCHES["trigger_sq"]
     got = ttrig.trigger_sq(w, h)
     assert ttrig.LAUNCHES["trigger_sq"] == before + 1
+    assert torch.equal(got, ttrig.trigger_sq(w, h))  # a fixed order: run to run
     torch.testing.assert_close(got, trigger_sq_ref(w, h), rtol=1e-5, atol=1e-6)
+
+
+def _offset_rows(cuda, m, n, off, dtype, seed):
+    """(m, n) contiguous rows starting ``off`` elements into a buffer, so
+    that the base sits off a 16-byte line."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    buf = torch.randn(off + m * n, generator=g, device=cuda).to(dtype)
+    return buf[off:].view(m, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# both bases off their line by the same amount (16-byte loads after a
+# head), and by different amounts (element loads)
+@pytest.mark.parametrize("off_w,off_h", [(1, 1), (3, 0), (0, 2)])
+def test_trigger_sq_kernel_on_offset_bases(cuda, dtype, off_w, off_h):
+    w = _offset_rows(cuda, 5, 50890, off_w, dtype, 0)
+    h = _offset_rows(cuda, 5, 50890, off_h, dtype, 1)
+    got = ttrig.trigger_sq(w, h)
+    assert torch.equal(got, ttrig.trigger_sq(w, h))
+    torch.testing.assert_close(got, trigger_sq_ref(w, h), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(6, 50890), (1030, 4099)])
+def test_trigger_sq_kernel_nonfinite_where_plain_is(cuda, dtype, m, n):
+    """inf and NaN in a row's head, body, slab edges and tail, inf - inf
+    included: the kernel's NaN and inf land where the plain version's do,
+    and the finite rows agree."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+    h = (w.float() + 0.01 * torch.randn((m, n), generator=g, device=cuda)).to(dtype)
+    inf, nan = float("inf"), float("nan")
+    w[1, 1] = inf  # in the head
+    h[2, n - 1] = -inf  # in the tail
+    w[3, n // 2] = nan
+    w[4, 7], h[4, 7] = inf, inf  # inf - inf
+    cols, _ = ttrig.slab_plan(m, n, w.element_size(),
+                              torch.cuda.get_device_properties(cuda).multi_processor_count)
+    w[5, min(cols, n - 1)], h[5, n - 2] = -inf, inf  # at the first slab edge and past it
+    want = trigger_sq_ref(w, h)
+    got = ttrig.trigger_sq(w, h)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert not torch.isfinite(want[1:6]).any() and torch.isfinite(want[0])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
 
 
 @pytest.mark.gpu
@@ -145,6 +197,7 @@ def test_mix_sparse_kernel_bit_equal_on_rgg_fabric(cuda, m, radius, n):
     staged = "mix_sparse_wide" if plan.wide else "mix_sparse"
     assert {k: tmix.LAUNCHES[k] - before[k] for k in before} == {
         "mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+        "mix_bf16": 0, "mix_sparse_bf16": 0,
         staged: 1, **({"mix_sparse_direct": 1} if plan.n_direct else {})}
     assert torch.equal(got, mix_sparse_ref(nl.idx, p_diag, p_off, w))
 
@@ -202,6 +255,7 @@ def test_mix_sparse_kernel_rectangular_source_bit_equal(cuda, m, radius, S, n, c
     staged = "mix_sparse_wide" if pl.wide else "mix_sparse"
     assert {k: tmix.LAUNCHES[k] - before[k] for k in before} == {
         "mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+        "mix_bf16": 0, "mix_sparse_bf16": 0,
         staged: 1, **({"mix_sparse_direct": 1} if pl.n_direct else {})}
     assert tuple(got.shape) == lead + (m, n)
     assert torch.equal(got, mix_sparse_ref(ctx.nbr_loc, p_diag, p_off, w))
@@ -377,6 +431,7 @@ def test_mix_sparse_kernel_cells_bit_equal_to_solo_launches(cuda, cells, m, radi
     staged = "mix_sparse_wide" if plan.wide else "mix_sparse"
     assert {k: tmix.LAUNCHES[k] - before[k] for k in before} == {
         "mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct": 0,
+        "mix_bf16": 0, "mix_sparse_bf16": 0,
         staged: 1, **({"mix_sparse_direct": 1} if plan.n_direct else {})}
     assert tmix.prepare_plan(nl.idx) is plan  # one plan for any number of cells
     torch.testing.assert_close(got, mix_sparse_ref(nl.idx, p_diag, p_off, w),
