@@ -2,10 +2,10 @@
 
 ``get_config(arch_id)`` returns the full-size ArchConfig; ``smoke_config``
 returns the reduced same-family variant (<= 2 layers, d_model 128) the
-CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m and
-deepseek-v3-671b; the other seven architectures of the JAX package raise
-``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports what
-they need.
+CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m,
+deepseek-v3-671b and hymba-1.5b; the other six architectures of the JAX
+package raise ``NotImplementedError`` naming the ROADMAP item (Queue 1)
+that ports what they need.
 """
 from __future__ import annotations
 
@@ -18,11 +18,11 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "starcoder2-15b": "starcoder2_15b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 # architectures of the JAX package not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "hymba-1.5b": "item 14 (mamba and hybrid blocks)",
     "deepseek-coder-33b": "item 17 (the other configs)",
     "phi3-medium-14b": "item 17 (the other configs)",
     "xlstm-125m": "item 15 (xLSTM blocks)",
@@ -51,6 +51,7 @@ _SMOKE_PLANS = {
     "granite-moe-3b-a800m": ((("moe",), 2),),
     "starcoder2-15b": ((("attn",), 2),),
     "deepseek-v3-671b": ((("mla",), 1), (("mla_moe",), 1)),
+    "hymba-1.5b": ((("hybrid_g",), 1), (("hybrid",), 1)),
 }
 
 

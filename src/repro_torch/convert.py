@@ -8,7 +8,9 @@ reference's pytree) and returns the port's tree of tensors;
 ``state_from_jax`` does the same for an ``EFHCState``-like object, so a
 test can start both implementations from one state.
 ``arch_params_from_jax`` carries an architecture model's nested parameter
-tree (``repro_torch.models.model``) across, bf16 leaves included.
+tree (``repro_torch.models.model``) across, bf16 leaves included (the Mamba
+leaves of hybrid blocks too), and ``mamba_cache_from_jax`` a Mamba decode
+cache.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import efhc
+from repro_torch.models.ssm import MambaCache
 from repro_torch.tree import tree_map
 
 
@@ -55,6 +58,14 @@ def arch_params_from_jax(np_tree, device, dtype=None):
         return t if dtype is None or key == "router" else t.to(dtype)
 
     return walk(np_tree)
+
+
+def mamba_cache_from_jax(cache, device):
+    """A reference ``MambaCache`` (conv (B, kw-1, di) in the model's dtype,
+    ssm (B, di, n) fp32; numpy or jax arrays) -> the port's
+    ``models.ssm.MambaCache`` of tensors on ``device`` (copies)."""
+    return MambaCache(conv=tensor_from_numpy(cache.conv).to(device),
+                      ssm=tensor_from_numpy(cache.ssm).to(device))
 
 
 def state_from_jax(state, device, *, opt_state=None) -> efhc.EFHCState:

@@ -6,6 +6,11 @@ the JAX package:
   swa/     - sliding-window causal attention with GQA    (model prefill):
              tensor cores for bf16 (wgmma + TMA) and for fp32 (split TF32)
 
+and one that replaces no TPU kernel:
+
+  scan/    - the Mamba selective scan of hybrid blocks    (model prefill),
+             where the reference runs an XLA associative scan
+
 Each ``ops`` wrapper launches its kernel for CUDA tensors (built on first
 use by ``build.py`` from ``csrc/``) and counts the launch in its module's
 ``LAUNCHES``; for CPU tensors, and only then, it runs the plain PyTorch

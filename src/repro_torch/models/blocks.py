@@ -4,7 +4,9 @@ per-layer params (port of ``repro/models/blocks.py``).
 
 The port runs block types ``attn`` and ``attn_g`` (the ``_g`` suffix =
 global attention, ignores cfg.window), ``moe`` (attention + MoE FFN),
-``mla`` (MLA + dense MLP) and ``mla_moe`` (MLA + MoE FFN).  The others
+``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN), ``mamba`` (a Mamba
+SSM alone) and hymba's ``hybrid`` / ``hybrid_g`` (attention and Mamba heads
+on the same normed input, averaged, + dense MLP).  ``mlstm`` and ``slstm``
 raise ``NotImplementedError`` naming their ROADMAP item (Queue 1).
 """
 from __future__ import annotations
@@ -15,18 +17,16 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp, init_norm,
                                        split_keys)
 
 _NOT_PORTED = {
-    "hybrid": "item 14 (mamba and hybrid blocks)",
-    "hybrid_g": "item 14 (mamba and hybrid blocks)",
-    "mamba": "item 14 (mamba and hybrid blocks)",
     "mlstm": "item 15 (xLSTM blocks)",
     "slstm": "item 15 (xLSTM blocks)",
 }
-_PORTED = ("attn", "attn_g", "moe", "mla", "mla_moe")
+_PORTED = ("attn", "attn_g", "moe", "mla", "mla_moe", "hybrid", "hybrid_g", "mamba")
 
 
 def _check_ported(block_type: str) -> None:
@@ -44,16 +44,24 @@ def block_window(cfg: ArchConfig, block_type: str) -> Optional[int]:
     return cfg.window
 
 
+def _has_attn(block_type: str) -> bool:
+    return block_type in ("attn", "attn_g", "moe", "hybrid", "hybrid_g")
+
+
 def _is_mla(block_type: str) -> bool:
     return block_type in ("mla", "mla_moe")
 
 
 def _has_mlp(cfg: ArchConfig, block_type: str) -> bool:
-    return block_type in ("attn", "attn_g", "mla") and cfg.d_ff > 0
+    return block_type in ("attn", "attn_g", "mla", "hybrid", "hybrid_g") and cfg.d_ff > 0
 
 
 def _has_moe(block_type: str) -> bool:
     return block_type in ("moe", "mla_moe")
+
+
+def _has_mamba(block_type: str) -> bool:
+    return block_type in ("hybrid", "hybrid_g", "mamba")
 
 
 # ---------------------------------------------------------------------------
@@ -62,12 +70,16 @@ def _has_moe(block_type: str) -> bool:
 
 def init_block(cfg: ArchConfig, block_type: str, gen, dtype, device="cpu") -> dict:
     _check_ported(block_type)
-    ks = split_keys(gen, 6)  # the reference's split; ks[0] attention, ks[2] ffn
+    # the reference's split: ks[0] attention, ks[1] mamba, ks[2] ffn
+    ks = split_keys(gen, 6)
     p: dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dtype, device)}
     if _is_mla(block_type):
         p["attn"] = attn.init_mla(cfg, ks[0], dtype, device)
-    else:
+    elif _has_attn(block_type):
         p["attn"] = attn.init_attention(cfg, ks[0], dtype, device)
+    if _has_mamba(block_type):
+        # hymba: mamba heads run in parallel with attention on the same input
+        p["mamba"] = ssm.init_mamba(cfg, ks[1], dtype, device)
     if _has_mlp(cfg, block_type) or _has_moe(block_type):
         p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
     if _has_moe(block_type):
@@ -107,12 +119,16 @@ def block_seq(
     """Returns (x_out, aux_loss)."""
     _check_ported(block_type)
     h = apply_norm(cfg, p["norm1"], x)
+    if block_type == "mamba":
+        return _ffn(cfg, block_type, p, x + ssm.mamba_seq(cfg, p["mamba"], h))
     if _is_mla(block_type):
         y = attn.mla_seq(cfg, p["attn"], h, positions, prefix_len=prefix_len)
     else:
         y = attn.attention_seq(cfg, p["attn"], h, positions,
                                layer_window=block_window(cfg, block_type),
                                prefix_len=prefix_len)
+    if _has_mamba(block_type):  # hymba: parallel heads, fused by averaging
+        y = 0.5 * (y + ssm.mamba_seq(cfg, p["mamba"], h))
     return _ffn(cfg, block_type, p, x + y)
 
 
@@ -123,11 +139,17 @@ def block_seq(
 def init_block_cache(cfg: ArchConfig, block_type: str, batch: int, cache_len: int,
                      dtype, device="cpu"):
     _check_ported(block_type)
+    cache: dict[str, Any] = {}
     if _is_mla(block_type):
-        return {"mla": attn.init_mla_cache(cfg, batch, cache_len, dtype, device)}
-    w = block_window(cfg, block_type)
-    eff = cache_len if w is None else min(cache_len, w)
-    return {"kv": attn.init_kv_cache(cfg, batch, eff, dtype, device)}
+        cache["mla"] = attn.init_mla_cache(cfg, batch, cache_len, dtype, device)
+    elif _has_attn(block_type):
+        w = block_window(cfg, block_type)
+        eff = cache_len if w is None else min(cache_len, w)
+        cache["kv"] = attn.init_kv_cache(cfg, batch, eff, dtype, device)
+    if _has_mamba(block_type):
+        d_inner = cfg.ssm_expand * cfg.d_model
+        cache["mamba"] = ssm.init_mamba_cache(cfg, batch, d_inner, dtype, device)
+    return cache
 
 
 def block_decode(
@@ -138,16 +160,22 @@ def block_decode(
     cache,
     t: int,
 ) -> tuple[torch.Tensor, Any]:
-    """One-token block step; the KV (or MLA latent) cache is updated in
-    place."""
+    """One-token block step; the KV (or MLA latent) cache and the Mamba
+    cache are updated in place."""
     _check_ported(block_type)
     h = apply_norm(cfg, p["norm1"], x_t)
     new_cache = dict(cache)
+    if block_type == "mamba":
+        y, new_cache["mamba"] = ssm.mamba_decode(cfg, p["mamba"], h, cache["mamba"])
+        return x_t + y, new_cache
     if _is_mla(block_type):
         y, new_cache["mla"] = attn.mla_decode(cfg, p["attn"], h, cache["mla"], t)
     else:
         y, new_cache["kv"] = attn.attention_decode(
             cfg, p["attn"], h, cache["kv"], t,
             layer_window=block_window(cfg, block_type))
+    if _has_mamba(block_type):
+        ym, new_cache["mamba"] = ssm.mamba_decode(cfg, p["mamba"], h, cache["mamba"])
+        y = 0.5 * (y + ym)
     x_t, _ = _ffn(cfg, block_type, p, x_t + y)
     return x_t, new_cache

@@ -17,8 +17,9 @@ Block types:
   mlstm       - xLSTM matrix-memory block (no separate FFN)
   slstm       - xLSTM scalar-memory block (no separate FFN)
 
-The port runs ``attn``, ``attn_g``, ``moe``, ``mla`` and ``mla_moe``; the
-others raise ``NotImplementedError`` in ``models/blocks.py``.
+The port runs ``attn``, ``attn_g``, ``moe``, ``mla``, ``mla_moe``,
+``hybrid``, ``hybrid_g`` and ``mamba``; ``mlstm`` and ``slstm`` raise
+``NotImplementedError`` in ``models/blocks.py``.
 """
 from __future__ import annotations
 

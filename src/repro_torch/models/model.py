@@ -244,8 +244,8 @@ def _mtp_loss(cfg: ArchConfig, params, batch, h, positions, mask):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    """Empty KV (or MLA latent) caches, one stacked (repeat, ...) tree per
-    stage."""
+    """Empty KV (or MLA latent) caches, and Mamba caches for hybrid
+    blocks, one stacked (repeat, ...) tree per stage."""
     device = resolve_device(device)
     dtype = _dtype(cfg)
     caches = []

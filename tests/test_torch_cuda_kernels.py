@@ -16,6 +16,8 @@ from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.kernels.mixing import ops as tmix  # noqa: E402
 from repro_torch.kernels.mixing import plan as tplan  # noqa: E402
 from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref  # noqa: E402
+from repro_torch.kernels.scan import ops as tscan  # noqa: E402
+from repro_torch.kernels.scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.swa import ops as tswa  # noqa: E402
 from repro_torch.kernels.swa.ref import swa_ref  # noqa: E402
 from repro_torch.kernels.trigger import ops as ttrig  # noqa: E402
@@ -307,6 +309,8 @@ def test_mix_sparse_plan_follows_the_table(cuda):
     (1, 8192, 8, 2, 128, 100), (1, 8192, 8, 2, 128, 4096),
     (2, 640, 4, 4, 64, 200), (2, 777, 6, 1, 32, 300), (2, 1000, 4, 1, 64, 4096),
     (1, 300, 4, 2, 32, 64),
+    # hymba-1.5b's heads: 25 query heads over 5 KV heads (a GQA ratio of 5)
+    (1, 4096, 25, 5, 64, 1024),
 ])
 def test_swa_kernel_matches_plain(cuda, shape, dtype, tol):
     b, s, h, g, dh, win = shape
@@ -545,3 +549,73 @@ def test_bf16_wrappers_reject_other_dtypes(cuda):
     with pytest.raises(ValueError, match="one cell"):
         tmix.mix(torch.eye(4, device=cuda).expand(2, 4, 4).contiguous(),
                  torch.zeros((2, 4, 8), dtype=torch.bfloat16, device=cuda))
+
+
+# ---- the selective scan (hybrid blocks' Mamba heads) ------------------------
+
+# (B, S, di, n): one step, several batch rows, n = 8, and hymba's channels
+# with S off the chunk and di off the block
+SCAN_SHAPES = [(1, 1, 8, 16), (2, 300, 96, 16), (3, 1000, 200, 8), (1, 4097, 3200, 16)]
+
+
+def _scan_inputs(cuda, shape, dtype, seed: int):
+    """x, dt (softplus of a normal, as the model's), b, c and a_log (the
+    model's log(1..n) plus noise) on the card in ``dtype``."""
+    bsz, s, di, n = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((bsz, s, di), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((bsz, s, di), generator=g, device=cuda) - 1)
+    b, c = torch.randn((2, bsz, s, n), generator=g, device=cuda)
+    a_log = torch.log(torch.arange(1, n + 1, device=cuda, dtype=torch.float32)).repeat(di, 1)
+    a_log = a_log + 0.1 * torch.randn((di, n), generator=g, device=cuda)
+    return [t.to(dtype).contiguous() for t in (x, dt, b, c, a_log)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_selective_scan_kernel_matches_plain(cuda, shape, dtype):
+    """Within rtol 1e-4 and 1e-5 of the output's scale (the chunk carries
+    multiply the decays in another order than the plain loop), and the same
+    bits from two calls."""
+    ins = _scan_inputs(cuda, shape, dtype, sum(shape))
+    before = tscan.LAUNCHES["selective_scan"]
+    got = tscan.selective_scan(*ins)
+    assert tscan.LAUNCHES["selective_scan"] == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:3]
+    assert torch.equal(got, tscan.selective_scan(*ins))
+    want = selective_scan_ref(*ins)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_selective_scan_kernel_nan_where_plain_is(cuda, shape, dtype):
+    """A NaN in dt at one (t, d) of the last batch row: NaN from t on in
+    channel d there, as in the plain loop, and nowhere else."""
+    bsz, s, di, _ = shape
+    x, dt, b, c, a_log = _scan_inputs(cuda, shape, dtype, 7)
+    dt[bsz - 1, s // 2, di // 3] = float("nan")
+    got = tscan.selective_scan(x, dt, b, c, a_log)
+    want = selective_scan_ref(x, dt, b, c, a_log)
+    assert int(want.isnan().sum()) == s - s // 2
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+@pytest.mark.gpu
+def test_selective_scan_wrapper_refuses_autograd_and_wide_states(cuda):
+    ins = _scan_inputs(cuda, (1, 64, 32, 16), torch.float32, 0)
+    ins[1].requires_grad_()
+    before = tscan.LAUNCHES["selective_scan"]
+    with pytest.raises(NotImplementedError, match="item K3"):
+        tscan.selective_scan(*ins)
+    with torch.no_grad():
+        tscan.selective_scan(*ins)
+    assert tscan.LAUNCHES["selective_scan"] == before + 1
+    wide = _scan_inputs(cuda, (1, 64, 32, 17), torch.float32, 0)
+    with pytest.raises(ValueError, match="n <= 16"):
+        tscan.selective_scan(*wide)
+    x, dt, b, c, a_log = _scan_inputs(cuda, (1, 64, 32, 16), torch.float32, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tscan.selective_scan(x, dt, torch.zeros((1, 64, 32), device=cuda)[..., ::2], c, a_log)

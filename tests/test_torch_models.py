@@ -35,8 +35,9 @@ from repro_torch.models import model as TM  # noqa: E402
 
 ARCH = "starcoder2-15b"
 # the ported architectures beside ARCH; their own tests are in
-# test_torch_moe.py and test_torch_mla.py
+# test_torch_moe.py, test_torch_mla.py and test_torch_ssm.py
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b")
+OTHER_ARCHS = (*MOE_ARCHS, "hymba-1.5b")
 TOL = 1e-4  # fp32 logits: the same products, summed in another order
 
 
@@ -66,9 +67,9 @@ def _jparams(init, *args):
 
 def _per_arch(*names):
     """Cases of each name for ARCH (ids as before: the name alone) and for
-    each of MOE_ARCHS (ids ``arch-name``)."""
+    each of OTHER_ARCHS (ids ``arch-name``)."""
     return ([pytest.param(ARCH, n, id=n) for n in names]
-            + [pytest.param(a, n, id=f"{a}-{n}") for a in MOE_ARCHS for n in names])
+            + [pytest.param(a, n, id=f"{a}-{n}") for a in OTHER_ARCHS for n in names])
 
 
 @pytest.mark.parametrize("arch,make", _per_arch("get_config", "smoke_config"))
@@ -83,16 +84,16 @@ def test_configs_equal_reference(arch, make):
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if a != ARCH and a not in MOE_ARCHS])
+                                  if a != ARCH and a not in OTHER_ARCHS])
 def test_unported_configs_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[4-7]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[5-7]"):
         tconfigs.get_config(arch)
 
 
-@pytest.mark.parametrize("bt", ["hybrid", "hybrid_g", "mamba", "mlstm", "slstm"])
+@pytest.mark.parametrize("bt", ["mlstm", "slstm"])
 def test_unported_block_types_raise_not_implemented(bt):
     cfg = tconfigs.smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[4-5]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
         TB.init_block(cfg, bt, None, torch.float32, "meta")
 
 
