@@ -40,7 +40,15 @@ error:
    the selective scan (hybrid blocks' Mamba heads; no TPU kernel) at
    hymba's prefill (1, 32768, 3200, 16) in bf16 and at (1, 8192, 3200, 16)
    in fp32, each against its plain version and an fp64 recurrence on 256
-   channels, bit-equal from run to run, with its registers and stack;
+   channels, bit-equal from run to run, with its registers and stack; the
+   sLSTM recurrence (xLSTM's sLSTM blocks; no TPU kernel) at xlstm-125m's
+   heads (1, 4096, 4, 4, 192) in bf16 and fp32, against its plain per-step
+   loop, bit-equal from run to run, the fp32 kernel's error against an fp64
+   recurrence within 2 x the plain fp32 loop's and the bf16 kernel's
+   distance from the fp32 recurrence within 2 x the plain bf16 loop's, with
+   its registers, the byte and operation bound and the serial floor (S x
+   one step's product + the per-step signalling between the cluster's
+   CTAs alone, timed);
 3. golden: the m=8 golden configurations of
    ``tests/test_golden_trajectory.py`` (svm and ``mlp_blocks``) on the
    card under ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
@@ -183,14 +191,35 @@ error:
    ``forward``) holds the same weights in fp32, and the bf16 decode must
    lie within 1.1 x the bf16 forward's distance from the fp32 forward
    (hymba's bf16 noise floor is above 5e-2: ``DECODE_VS_FORWARD``); one
-   more prefill gives the device time of each block type and of its
-   attention and Mamba branches (``_prefill_by_block``).
+   more prefill under the profiler gives the device time of each block
+   type and of its attention and Mamba branches (``_prefill_by_block``);
+
+16. serve_xlstm: xlstm-125m at full size (12 layers: 8 mLSTM, 4 sLSTM,
+   bf16, 1.84e8 parameters, ``mlstm_chunk`` 256): one prefill of 32768
+   tokens that launches ``slstm`` once in each of the 4 sLSTM layers, the
+   first sLSTM layer's (layer 2's) recurrence held against the plain loop
+   on its first 4096 steps (no farther from the fp32 recurrence than 2 x
+   the plain bf16 loop), then four requests decoded as in 8 (the sLSTM
+   kernel over one step a layer), the decode gate in phase 15's fp32-twin
+   form (xlstm's bf16 noise floor, too, is above 5e-2); the prefill's
+   device time by block type from the profiler (``_prefill_by_block``:
+   ``mlstm`` x8, ``slstm`` x4);
+17. serve_frontends: paligemma-3b at full size (18 layers, d 2048, MQA,
+   tied embeddings, bf16): one prefill of 256 seeded patch embeddings +
+   7936 text tokens, logits (1, 7936, 257216) finite, then four text-only
+   requests decoded as in 8 against the forward without the frontend;
+   hubert-xlarge at full size (48 layers, d 1280, bidirectional, bf16): one
+   encoder forward of 8192 seeded frames, logits (1, 8192, 504) finite.
+   S is cut from the reference's 32768 for chip time; width and depth are
+   not.
 
 Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
 in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
-top-k expert indices equal in every MoE layer; and the hymba smoke
+top-k expert indices equal in every MoE layer; the hymba smoke
 configuration (its windowed layer on the split-TF32 SWA kernel, both
-layers on the selective scan), logits within atol=rtol 1e-4.
+layers on the selective scan); the xlstm smoke configuration (its sLSTM
+layer on the sLSTM kernel); and the paligemma and hubert smoke
+configurations with seeded stub embeddings; logits within atol=rtol 1e-4.
 
 The SIMT SWA kernel has no wrapper route, so no counter: its launches are
 counted from the profiler's device activities in the prefills of 8-10
@@ -566,7 +595,7 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
         f"{k} {v.get('registers')} registers, stack {v.get('stack', 'not read')} B, "
         f"tensor ops {v.get('tensor_ops') or 'none'}"
         for k, v in sorted(res.items())
-        if k.startswith(("mix", "swa_tf32", "trigger", "selective_scan"))))
+        if k.startswith(("mix", "swa_tf32", "trigger", "selective_scan", "slstm"))))
     print(f"kernel mix m={m} D={n}: max abs err {abs_err:.3g} (tol atol "
           f"{mix_atol}); kernel_ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms {plain:.4f} library_ms "
           f"{lib:.4f} (torch.matmul, TF32 off) bound_ms {b_ms:.4f} ({b_by}: 3 x "
@@ -642,6 +671,7 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     rows.update(_swa_rows(torch, dev, gen, variant_libs["swa_attention_tc"]))
     rows["swa_attention_tc"].update(_swa_hymba_row(torch, dev, gen))
     rows.update(_scan_rows(torch, dev, gen))
+    rows.update(_slstm_rows(torch, dev, gen, res, variant_libs["slstm_sync_probe"]))
     return rows
 
 
@@ -1608,6 +1638,188 @@ def _scan_rows(torch, dev, gen) -> dict[str, dict]:
     return {"selective_scan": row}
 
 
+SLSTM_SHAPE = (1, 4096, 4, 192)  # xlstm-125m's sLSTM heads: B, S, H, dh
+# the sLSTM kernel against an fp64 recurrence (fp32) or the fp32 one (bf16):
+# its largest error on hs within this multiple of the plain loop's, or the
+# floor
+SLSTM_FP64_VS_PLAIN, SLSTM_FLOOR = 2.0, 1e-6
+SLSTM_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "fp64_max_abs_err_plain", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by", "serial_floor_ms",
+                "sync_loop_ms")
+
+
+def _slstm_inputs(torch, dev, gen, shape, dtype):
+    """pre_x (B, S, 4, H, dh) normal, R of the model's 1/sqrt(dh) scale, a
+    zero bias (the model's init) and the model's initial state (zeros, m =
+    -1e30), the first three in ``dtype``."""
+    bsz, s, h, dh = shape
+    pre = torch.randn((bsz, s, 4, h, dh), generator=gen, device=dev).to(dtype)
+    r = (torch.randn((4, h, dh, dh), generator=gen, device=dev) / dh ** 0.5).to(dtype)
+    b = torch.zeros((4, h, dh), device=dev).to(dtype)
+    z = torch.zeros((bsz, h, dh), device=dev)
+    return pre, r, b, (z, z.clone(), z.clone(), torch.full_like(z, -1e30))
+
+
+def slstm_fp64(torch, pre, r, b, st):
+    """The sLSTM recurrence in fp64 on the inputs' values (no rounding of h
+    or of the sums): hs (B, S, H, dh) fp64."""
+    c, n, h, m = (t.double() for t in st)
+    rd, bd = r.double(), b.double()
+    hs = torch.empty((pre.shape[0], pre.shape[1], *pre.shape[3:]), dtype=torch.float64,
+                     device=pre.device)
+    for t in range(pre.shape[1]):
+        i, f, z, o = (pre[:, t].double() + torch.einsum("bhk,ghkj->bghj", h, rd) + bd
+                      ).unbind(1)
+        log_f = torch.nn.functional.logsigmoid(f)
+        m_new = torch.maximum(log_f + m, i)
+        i_s, f_s = torch.exp(i - m_new), torch.exp(log_f + m - m_new)
+        c = f_s * c + i_s * torch.tanh(z)
+        n = f_s * n + i_s
+        m = m_new
+        h = torch.sigmoid(o) * c / torch.clamp_min(n, 1e-6)
+        hs[:, t] = h
+    return hs
+
+
+def slstm_bound(torch, dev, shape, elem_bytes: int) -> tuple[float, str, float, str]:
+    """The sLSTM kernel's two bounds at ``shape``: (bound_ms, bound_by), the
+    bytes (pre_x, R and the bias read once, hs and the state written once,
+    the state read once) over the memory rate against 2 x 4 H dh^2 S B fp32
+    operations at the fp32 peak; and the serial floor's product part: S
+    times one step's product on one CTA of the cluster, 4 dh (dh / cluster)
+    FMAs at one SM's share of the fp32 peak (the signalling part is timed)."""
+    from repro_torch.kernels.slstm import ops as slstm_ops
+
+    bsz, s, h, dh = shape
+    nbytes = (bsz * s * 4 * h * dh + 4 * h * dh * dh + 4 * h * dh) * elem_bytes \
+        + bsz * s * h * dh * 4 + 2 * 4 * bsz * h * dh * 4
+    flops = 2 * 4 * h * dh * dh * s * bsz
+    b_ms, b_by = bound(nbytes, flops)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_step = 2 * 4 * dh * (dh // slstm_ops.CLUSTER[dh]) / (FP32_FLOPS / sms) * 1e3
+    text = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}, fp32 operations "
+            f"{flops / FP32_FLOPS * 1e3:.4f}; serial product floor {s} x {per_step * 1e3:.4f} "
+            f"us (4 x {dh} x {dh // slstm_ops.CLUSTER[dh]} FMAs at 1/{sms} of the fp32 peak)")
+    return b_ms, b_by, s * per_step, text
+
+
+def _timed_plain(torch, ins):
+    """The plain sLSTM loop on ``ins`` (timed once, host clock to a sync:
+    ~20 launches a step): (hs, ms)."""
+    from repro_torch.kernels.slstm.ref import slstm_scan_ref
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs, _ = slstm_scan_ref(*ins)
+    torch.cuda.synchronize()
+    return hs, (time.perf_counter() - t0) * 1e3
+
+
+def _slstm_sync_ms(torch, dev, path: Path, shape) -> float:
+    """Event-timed ms of the sLSTM kernel's launch shape running S steps of
+    its per-step synchronisation alone, no arithmetic (the serial floor's
+    signalling part): ``repro_slstm_sync_loop`` of ``slstm.cu`` built with
+    -DSLSTM_SYNC_PROBE (``VARIANT_BUILDS``) at ``path``."""
+    import ctypes
+
+    from repro_torch.kernels.slstm import ops as slstm_ops
+
+    bsz, s, h, dh = shape
+    fn = ctypes.CDLL(str(path)).repro_slstm_sync_loop
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = torch.empty((bsz * h * slstm_ops.CLUSTER[dh],), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = fn(scratch.data_ptr(), bsz, s, h, dh, stream)
+        check(err == 0, f"slstm sync probe: launch error {err}")
+
+    return time_ms(torch, launch, reps=10)
+
+
+def _slstm_row(torch, dev, ins, res: dict, sync_lib: Path, plain=None, exact=None
+               ) -> dict:
+    """The sLSTM wrapper on ``ins`` (pre_x, R, the bias, the state) against
+    its plain loop (``plain``: its hs and ms, else run here), the same bits
+    from two calls, and the fp64 gate: fp32, the kernel's error on hs
+    against an fp64 recurrence within SLSTM_FP64_VS_PLAIN x the plain fp32
+    loop's; bf16, its distance from the fp32 recurrence (``exact``) within
+    that multiple of the plain bf16 loop's.  Event-timed ``ms``,
+    ``device_ms`` from the profiler, the bound and the serial floor (S x
+    one step's product + the kernel's per-step synchronisation alone,
+    timed on the probe build at ``sync_lib``: ``_slstm_sync_ms``)."""
+    from repro_torch.kernels.slstm import ops as slstm_ops
+
+    pre, r, b, st = ins
+    dtype = pre.dtype
+    shape = (pre.shape[0], pre.shape[1], pre.shape[3], pre.shape[4])
+    label = f"slstm {tuple(shape)} {str(dtype)[6:]}"
+    before = slstm_ops.LAUNCHES["slstm"]
+    got, out = slstm_ops.slstm_scan(pre, r, b, st)
+    check(slstm_ops.LAUNCHES["slstm"] == before + 1, f"{label}: no launch counted")
+    again, out2 = slstm_ops.slstm_scan(pre, r, b, st)
+    same = torch.equal(got, again) and all(torch.equal(x, y) for x, y in zip(out, out2))
+    del again, out2
+    plain, plain_ms = plain or _timed_plain(torch, ins)
+    err = float((got - plain).abs().max())
+    if dtype == torch.float32:
+        exact, kind = slstm_fp64(torch, pre, r, b, st), "fp64"
+    else:
+        exact, kind = exact.double(), "fp32"
+    dist = {k: float((y.double() - exact).abs().max()) for k, y in (("kernel", got),
+                                                                    ("plain", plain))}
+    limit = max(SLSTM_FP64_VS_PLAIN * dist["plain"], SLSTM_FLOOR)
+    del exact, plain
+    check(same, f"{label}: not the same bits from run to run")
+    check(dist["kernel"] <= limit, f"{label}: max abs err against the {kind} recurrence "
+                                   f"{dist['kernel']:.3g} > {limit:.3g} (plain loop's "
+                                   f"{dist['plain']:.3g})")
+    bsz, s, h, dh = shape
+    b_ms, b_by, floor_ms, b_text = slstm_bound(torch, dev, shape, pre.element_size())
+    sync_ms = _slstm_sync_ms(torch, dev, sync_lib, shape)
+    fn = lambda: slstm_ops.slstm_scan(pre, r, b, st)  # noqa: E731
+    row = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
+           "fp64_max_abs_err": dist["kernel"], "fp64_max_abs_err_plain": dist["plain"],
+           "fp64_reference": kind,
+           "tolerance": f"against the {kind} recurrence within {SLSTM_FP64_VS_PLAIN} x the "
+                        f"plain loop's error",
+           "ms": time_ms(torch, fn, reps=10, warmup=2),
+           "device_ms": kernel_device_ms(torch, fn, (slstm_ops.KERNEL,), reps=10),
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "serial_floor_ms": floor_ms + sync_ms, "sync_loop_ms": sync_ms,
+           "library_ms": None}
+    regs = {k: v for k, v in res.items() if k.startswith("slstm_kernel")}
+    print(f"kernel {label}: max abs err on hs against the plain loop {err:.3g}; against "
+          f"the {kind} recurrence {dist['kernel']:.3g} (plain loop {dist['plain']:.3g}, "
+          f"limit {limit:.3g}); two calls bit-equal; a cluster of "
+          f"{slstm_ops.CLUSTER[dh]} CTAs for each of {bsz * h} (row, head); kernel_ms "
+          f"{row['ms']:.4f} device_ms {row['device_ms']:.4f} ({row['device_ms'] / s * 1e3:.3f} "
+          f"us a step) plain_ms {plain_ms:.1f} (one call: a loop over S) library_ms null (no "
+          f"PyTorch call computes an sLSTM: nn.LSTM has sigmoid gates and no normalizer) "
+          f"bound_ms {b_ms:.4f} ({b_by}; {b_text}); serial floor {row['serial_floor_ms']:.4f} "
+          f"ms (product {floor_ms:.4f} + the per-step synchronisation alone {sync_ms:.4f}); "
+          f"device {b_ms / row['device_ms']:.4f} of the bound, "
+          f"{row['serial_floor_ms'] / row['device_ms']:.3f} of the serial floor; registers "
+          f"{ {k: v.get('registers') for k, v in regs.items()} }; card right after (SM "
+          f"clock, power, temperature): {card_state()}", flush=True)
+    return row
+
+
+def _slstm_rows(torch, dev, gen, res: dict, sync_lib: Path) -> dict[str, dict]:
+    """The sLSTM kernel's row: xlstm-125m's heads at S=4096 in bf16, and in
+    fp32 (suffix ``_fp32``) on the same values widened, whose plain loop is
+    the bf16 row's fp32 recurrence."""
+    pre, r, b, st = _slstm_inputs(torch, dev, gen, SLSTM_SHAPE, torch.bfloat16)
+    ins32 = (pre.float(), r.float(), b.float(), st)
+    plain32 = _timed_plain(torch, ins32)
+    row = {"name": "slstm", **_slstm_row(torch, dev, (pre, r, b, st), res, sync_lib,
+                                         exact=plain32[0])}
+    fp32 = _slstm_row(torch, dev, ins32, res, sync_lib, plain=plain32)
+    row.update({f"{k}_fp32": fp32[k] for k in SLSTM_FIELDS})
+    return {"slstm": row}
+
+
 # the cycle-profile builds of the SWA kernels: source, macro, entry point,
 # counter reader, and the phases of the tile loop in the order of the
 # kernel's Phase enum
@@ -1623,12 +1835,14 @@ PROFILE_BUILDS = {
 }
 
 
-# every build of an SWA kernel's source with a macro, a library of its own
-# each: the profile builds, and the split-TF32 kernel with lo rounded to
-# nearest (phase 2's A/B of the split)
+# every build of a kernel's source with a macro, a library of its own each:
+# the SWA profile builds, the split-TF32 kernel with lo rounded to nearest
+# (phase 2's A/B of the split), and the sLSTM kernel's synchronisation probe
+# (its serial floor's signalling part)
 VARIANT_BUILDS = {**{name: (source, macro) for name, (source, macro, *_)
                      in PROFILE_BUILDS.items()},
-                  "swa_attention_tf32_rna_lo": ("swa_attention_tf32.cu", "SWA_TF32_RNA_LO")}
+                  "swa_attention_tf32_rna_lo": ("swa_attention_tf32.cu", "SWA_TF32_RNA_LO"),
+                  "slstm_sync_probe": ("slstm.cu", "SLSTM_SYNC_PROBE")}
 
 
 def start_variant_builds() -> dict[str, tuple[subprocess.Popen, Path]]:
@@ -1753,9 +1967,11 @@ def _finite(res, label: str) -> None:
 def _launch_counts() -> tuple[dict[str, int], ...]:
     from repro_torch.kernels.mixing import ops as mixing_ops
     from repro_torch.kernels.scan import ops as scan_ops
+    from repro_torch.kernels.slstm import ops as slstm_ops
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.trigger import ops as trigger_ops
-    return trigger_ops.LAUNCHES, mixing_ops.LAUNCHES, swa_ops.LAUNCHES, scan_ops.LAUNCHES
+    return (trigger_ops.LAUNCHES, mixing_ops.LAUNCHES, swa_ops.LAUNCHES, scan_ops.LAUNCHES,
+            slstm_ops.LAUNCHES)
 
 
 def _reset_launches() -> None:
@@ -3192,11 +3408,11 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
     for name, cell in cells.items():
         # every cell ran earlier in the process, and T=4 and T=8 each build
         # their own engine, so its one-time work cancels in the difference.
-        # The cnn's first run is slower than its later ones: warm it, and
-        # time a warm one
+        # The cnn's main-path run (5d) is its first in the process, slower
+        # than later ones: time a later one too
+        t_cell = time.perf_counter()
         warm = None
         if name == "cnn":
-            cell(4)
             warm = cell(8).timing["ms_per_step"]
         seen = _per_iteration(torch, cell)
         if seen is None:
@@ -3210,7 +3426,8 @@ def phase_profile(torch, dev, step_ms: dict[str, float]) -> None:
               f"without the profiler (idle share {1 - busy / step_ms[name]:.3f})"
               + ("" if warm is None else f", of {warm:.3f} ms in a warm run "
                                          f"(idle share {1 - busy / warm:.3f})")
-              + f"; {res8.timing['ms_per_step']:.3f} ms/iteration under it")
+              + f"; {res8.timing['ms_per_step']:.3f} ms/iteration under it; the cell's "
+              f"profile took {time.perf_counter() - t_cell:.1f} s of script")
         for kname, ms in top:
             print(f"profile {name}:   {ms:8.4f} ms/iteration ({ms / busy:.3f} of "
                   f"busy)  {kname[:90]}")
@@ -3248,11 +3465,12 @@ def _profile_line(torch, label: str, wall_ms: float, n: int, run
         return sum(ms for name, ms in per_name.items()
                    if (_repo_kernel(name) or "").startswith(prefix))
 
-    scan = own("selective_scan")
+    scan, slstm = own("selective_scan"), own("slstm")
     print(f"{label} profile: {n_act / n:.0f} device activities per call, device "
           f"busy {busy / n:.2f} ms of {wall_ms:.2f} ms (idle share "
           f"{1 - busy / n / wall_ms:.3f}); swa_attention {own('swa_') / n:.2f} ms"
-          + (f", selective_scan {scan / n:.2f} ms" if scan else ""))
+          + (f", selective_scan {scan / n:.2f} ms" if scan else "")
+          + (f", slstm {slstm / n:.2f} ms" if slstm else ""))
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"{label} profile:   {ms / n:9.3f} ms per call  {name[:90]}")
     return _repo_counts(count)
@@ -3289,15 +3507,18 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     serves the model's dtype (the tensor-core kernel in bf16, the
     split-TF32 one in fp32) once in each windowed layer and no other SWA
     kernel, and the selective scan once in each layer with a Mamba branch
-    (``serve_layers``); the first windowed layer's SWA output is held
-    against the plain version on ``heads``, the first Mamba layer's scan
-    output on SCAN_CHECK_CHANNELS channels.  The decoded logits must lie
+    (``serve_layers``), and the sLSTM kernel once in each sLSTM layer; the
+    first windowed layer's SWA output is held against the plain version on
+    ``heads``, the first Mamba layer's scan output on SCAN_CHECK_CHANNELS
+    channels, the first sLSTM layer's recurrence on its first
+    SLSTM_CHECK_STEPS steps (``_slstm_check``).  The decoded logits must lie
     within relative L2 5e-2 of ``forward``'s on the same tokens; with
     ``fp32_twin`` that gate holds the same weights in fp32 (decode and
     forward), and the bf16 decode's relative L2 against the fp32 forward
     must stay within DECODE_VS_FORWARD x the bf16 forward's own
-    (``_decode_fp32_twin``).  A model with Mamba layers also gets its
-    prefill's device time by block (``_prefill_by_block``).  Returns the
+    (``_decode_fp32_twin``).  A model with Mamba or
+    sLSTM layers also gets its prefill's device time by block
+    (``_prefill_by_block``).  Returns the
     prefill's launch counts and the device activities of each repo kernel
     in a profiled prefill (None off the card or when the profiler saw
     none)."""
@@ -3307,8 +3528,8 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     from repro_torch.data.synthetic import token_dataset
     from repro_torch.kernels.scan import ops as scan_ops
     from repro_torch.kernels.scan.ref import selective_scan_ref
+    from repro_torch.kernels.slstm import ops as slstm_ops
     from repro_torch.kernels.swa import ops as swa_ops
-    from repro_torch.kernels.swa.ref import swa_ref
     from repro_torch.launch import steps
     from repro_torch.models import model as M
 
@@ -3334,9 +3555,12 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     # inputs and output of each wrapper for the check against the plain
     # versions
     windowed, mamba = serve_layers(cfg)
+    slstm = _layer_indices(cfg, lambda bt: bt == "slstm")
     first: list = []
     first_scan: list = []
+    first_slstm: list = []
     real, real_scan = swa_ops.swa_attention, scan_ops.selective_scan
+    real_slstm = slstm_ops.slstm_scan
 
     def capture(q, k, v, **kw):
         out = real(q, k, v, **kw)
@@ -3350,7 +3574,15 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
             first_scan.append((ins, out))
         return out
 
+    def capture_slstm(pre_x, r, b, st):
+        out = real_slstm(pre_x, r, b, st)
+        if not first_slstm:  # the inputs' first SLSTM_CHECK_STEPS steps, the output's
+            first_slstm.append((pre_x[:, :SLSTM_CHECK_STEPS].clone(), r, b, st,
+                                out[0][:, :SLSTM_CHECK_STEPS].clone()))
+        return out
+
     swa_ops.swa_attention, scan_ops.selective_scan = capture, capture_scan
+    slstm_ops.slstm_scan = capture_slstm
     try:
         _reset_launches()
         logits = prefill(params, {"tokens": tokens})
@@ -3358,9 +3590,13 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
         counts = _launches()
     finally:
         swa_ops.swa_attention, scan_ops.selective_scan = real, real_scan
-    check(bool(first), "serve prefill: the SWA wrapper was never called")
-    route = swa_route(torch, first[0][0].dtype)  # the kernel that serves q's dtype
-    launches = counts[route]
+        slstm_ops.slstm_scan = real_slstm
+    check(bool(first) == bool(windowed),
+          f"serve prefill: the SWA wrapper was called {len(first)} times, the model has "
+          f"{len(windowed)} windowed layers")
+    # the kernel that serves q's dtype
+    route = swa_route(torch, first[0][0].dtype) if first else None
+    launches = counts[route] if route else 0
     other = sum(counts[k] for k in swa_ops.LAUNCHES if k != route)
     check(launches == len(windowed) and other == 0,
           f"serve prefill: expected {len(windowed)} SWA launches (the windowed "
@@ -3368,6 +3604,9 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     check(counts["selective_scan"] == len(mamba),
           f"serve prefill: expected {len(mamba)} selective_scan launches (the Mamba "
           f"layers), got {counts}")
+    check(counts["slstm"] == len(slstm),
+          f"serve prefill: expected {len(slstm)} slstm launches (the sLSTM layers), "
+          f"got {counts}")
     check(tuple(logits.shape) == (1, seq, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           f"serve prefill: logits {tuple(logits.shape)} not finite or misshaped")
@@ -3383,24 +3622,9 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
                      f"{err:.3g}, logits std {float(logits.std()):.3g} (tol atol=rtol 1e-4)")
         del other
     del logits
-    q, k, v, out, win = first.pop()
-    group = cfg.n_heads // cfg.n_kv_heads
-    tol = "bf16" if out.dtype == torch.bfloat16 else "fp32"
-    errs, rels, scales = [], [], []
-    for hh in heads:
-        gg = hh // group
-        ref = swa_ref(q[:, :, hh:hh + 1].transpose(1, 2),
-                      k[:, :, gg:gg + 1].transpose(1, 2),
-                      v[:, :, gg:gg + 1].transpose(1, 2), window=win).transpose(1, 2)
-        ok, err, rel, scale = swa_close(torch, out[:, :, hh:hh + 1], ref, tol)
-        errs.append(err)
-        rels.append(rel)
-        scales.append(scale)
-        check(ok, f"serve prefill: layer {windowed[0]} head {hh} outside "
-                  f"{swa_tol_text(tol)} of the plain version (max abs err {err:.3g}, "
-                  f"rel L2 {rel:.3g})")
-        del ref
-    del q, k, v, out
+    swa_text = ""
+    if first:
+        swa_text = _swa_heads_check(torch, cfg, first.pop(), heads, windowed[0])
     scan_text = ""
     if mamba:
         (x, dt, b, c, a_log), y = first_scan.pop()
@@ -3417,6 +3641,8 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
                      f"plain: max abs err {scan_err:.3g} of max|y| {scale:.3g} (tol rtol "
                      f"{SCAN_RTOL}, atol {SCAN_ATOL} x max|y|)")
         del x, dt, b, c, a_log, y, ref
+    if slstm:
+        scan_text += _slstm_check(torch, first_slstm.pop(), slstm[0], counts["slstm"])
 
     if on_card:
         torch.cuda.empty_cache()
@@ -3428,11 +3654,9 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     state = card_state() if on_card else "not measured"
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
     del logits
-    print(f"serve prefill {cfg.name} B=1 S={seq}: {launches} {route} launches; logits "
-          f"finite; layer {windowed[0]} heads {list(heads)} vs plain: max abs err "
-          f"{max(errs):.3g}, rel L2 {max(rels):.3g}, output std "
-          f"{min(scales):.3g}-{max(scales):.3g} (tol {swa_tol_text(tol)}){scan_text}"
-          f"{twin_text}; "
+    swa_launches = f"{launches} {route} launches" if route else "no windowed layer"
+    print(f"serve prefill {cfg.name} B=1 S={seq}: {swa_launches}; logits "
+          f"finite{swa_text}{scan_text}{twin_text}; "
           f"{prefill_ms:.1f} ms "
           f"({seq / prefill_ms * 1e3:.0f} tokens/s, host clock to a sync, second "
           f"run); peak memory {peak:.2f} GB; card right after (SM clock, power, "
@@ -3441,12 +3665,45 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
     if on_card:
         seen = _profile_line(torch, "serve prefill", prefill_ms, 1,
                              lambda: prefill(params, {"tokens": tokens}))
-        if mamba:
+        if mamba or slstm:
             _prefill_by_block(torch, cfg, lambda: prefill(params, {"tokens": tokens}),
                               prefill_ms)
 
     # (b) decode: prompts replayed into the ring-buffer cache, then greedy
     serve = steps.make_serve_step(cfg)
+    fed, dec, cache, replay_ms, step_ms = _decode_requests(
+        torch, dev, cfg, params, serve, n_req, prompt, new, cache_len, seed)
+    fwd = prefill(params, {"tokens": fed}).float()
+    rel = float(_rel_l2(dec, fwd).max())
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(dec).all()), "serve decode: decode logits not finite")
+    twin_text = _decode_gate(torch, dev, cfg, params, fed, cache_len, dec, fwd, rel, fp32_twin)
+    print(f"serve decode B={n_req} cache_len={cache_len}: {prompt} prompt tokens "
+          f"replayed in {replay_ms:.2f} ms/step, {new} greedy steps "
+          f"at {step_ms:.2f} ms/step ({n_req * 1e3 / step_ms:.1f} tokens/s); "
+          f"logits at {prompt + new} positions vs forward: max relative L2 "
+          f"{rel:.3g} ({'see the fp32 twin' if twin_text else 'tol 5e-2'}), argmax "
+          f"agreement {agree:.3f}{twin_text}")
+    if on_card:
+        _profile_line(torch, "serve decode", step_ms, 4, lambda: [
+            serve(params, cache, fed[:, -1], t)
+            for t in range(prompt + new, prompt + new + 4)])
+    del params, cache, dec, fwd
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts, seen
+
+
+def _decode_requests(torch, dev, cfg, params, serve, n_req: int, prompt: int, new: int,
+                     cache_len: int, seed: int):
+    """n_req requests through ``serve`` (``launch.steps.make_serve_step``):
+    ``prompt`` seeded tokens each replayed one at a time into a fresh cache,
+    then ``new`` greedy tokens.  Returns the tokens fed (n_req, prompt +
+    new), the decode logits at every position (fp32), the cache, and the
+    ms a step of the replay and of the greedy steps (host clock to a sync)."""
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.models import model as M
+
     prompts = token_dataset(n_req * prompt, vocab=cfg.vocab, seed=seed + 1)
     fed = torch.zeros((n_req, prompt + new), dtype=torch.int64, device=dev)
     fed[:, :prompt] = torch.as_tensor(prompts.reshape(n_req, prompt))
@@ -3464,81 +3721,153 @@ def phase_serve(torch, dev, cfg=None, seq: int = 32768, n_req: int = 4,
         dec.append(lg)
     _sync(torch, dev)
     t2 = time.perf_counter()
-    dec = torch.stack(dec, 1).float()
-    fwd = prefill(params, {"tokens": fed}).float()
-    rel = float(_rel_l2(dec, fwd).max())
-    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
-    check(bool(torch.isfinite(dec).all()), "serve decode: decode logits not finite")
+    return (fed, torch.stack(dec, 1).float(), cache, (t1 - t0) * 1e3 / prompt,
+            (t2 - t1) * 1e3 / new)
+
+
+def _swa_heads_check(torch, cfg, captured, heads, layer: int) -> str:
+    """The first windowed layer's SWA kernel output (``captured``: its q, k,
+    v, output and window) against the plain version on ``heads``; returns
+    the line's text."""
+    from repro_torch.kernels.swa.ref import swa_ref
+
+    q, k, v, out, win = captured
+    group = cfg.n_heads // cfg.n_kv_heads
+    tol = "bf16" if out.dtype == torch.bfloat16 else "fp32"
+    errs, rels, scales = [], [], []
+    for hh in heads:
+        gg = hh // group
+        ref = swa_ref(q[:, :, hh:hh + 1].transpose(1, 2),
+                      k[:, :, gg:gg + 1].transpose(1, 2),
+                      v[:, :, gg:gg + 1].transpose(1, 2), window=win).transpose(1, 2)
+        ok, err, rel, scale = swa_close(torch, out[:, :, hh:hh + 1], ref, tol)
+        errs.append(err)
+        rels.append(rel)
+        scales.append(scale)
+        check(ok, f"serve prefill: layer {layer} head {hh} outside "
+                  f"{swa_tol_text(tol)} of the plain version (max abs err {err:.3g}, "
+                  f"rel L2 {rel:.3g})")
+        del ref
+    return (f"; layer {layer} heads {list(heads)} vs plain: max abs err {max(errs):.3g}, "
+            f"rel L2 {max(rels):.3g}, output std {min(scales):.3g}-{max(scales):.3g} (tol "
+            f"{swa_tol_text(tol)})")
+
+
+SLSTM_CHECK_STEPS = 4096  # phase 16: the first sLSTM layer's steps held against the plain loop
+
+
+def _slstm_check(torch, captured, layer: int, launches: int) -> str:
+    """The first sLSTM layer's kernel output on its first SLSTM_CHECK_STEPS
+    steps (``captured``: that slice of pre_x, R, the bias, the initial
+    state and the kernel's hs) against the plain loop in the model's dtype
+    and in fp32: the kernel no farther from the fp32 recurrence than
+    SLSTM_FP64_VS_PLAIN x the plain loop in the model's dtype (phase 2's
+    gate).  Returns the line's text."""
+    from repro_torch.kernels.slstm.ref import slstm_scan_ref
+
+    pre, r, b, st, hs = captured
+    plain = slstm_scan_ref(pre, r, b, st)[0]
+    exact = slstm_scan_ref(pre.float(), r.float(), b.float(), st)[0]
+    d_kernel = float((hs - exact).abs().max())
+    d_plain = float((plain - exact).abs().max())
+    err = float((hs - plain).abs().max())
+    limit = max(SLSTM_FP64_VS_PLAIN * d_plain, SLSTM_FLOOR)
+    check(d_kernel <= limit,
+          f"serve prefill: layer {layer}'s sLSTM on its first {pre.shape[1]} steps: max abs "
+          f"err against the fp32 recurrence {d_kernel:.3g} > {limit:.3g} (the plain "
+          f"{str(pre.dtype)[6:]} loop's {d_plain:.3g})")
+    return (f"; {launches} slstm launches, layer {layer}'s sLSTM on its first "
+            f"{pre.shape[1]} steps: max abs err vs the plain {str(pre.dtype)[6:]} loop {err:.3g}, "
+            f"vs the fp32 recurrence {d_kernel:.3g} (plain loop {d_plain:.3g}, limit "
+            f"{limit:.3g}), max|h| {float(exact.abs().max()):.3g}")
+
+
+def _decode_gate(torch, dev, cfg, params, fed, cache_len, dec, fwd, rel: float,
+                 fp32_twin: bool) -> str:
+    """The decode check: relative L2 ``rel`` of the decode logits against
+    ``forward``'s within 5e-2 (phase 8's gate), or, with ``fp32_twin``, the
+    fp32 twin's form (``_decode_fp32_twin``).  Returns the twin's text, ""
+    without it."""
     if fp32_twin:
-        twin_text = _decode_fp32_twin(torch, dev, cfg, params, fed, cache_len, dec, fwd)
-    else:
-        check(rel <= 5e-2, f"serve decode: decode logits vs forward relative L2 {rel:.3g} "
-                           f"> 5e-2")
-        twin_text = ""
-    step_ms = (t2 - t1) * 1e3 / new
-    print(f"serve decode B={n_req} cache_len={cache_len}: {prompt} prompt tokens "
-          f"replayed in {(t1 - t0) * 1e3 / prompt:.2f} ms/step, {new} greedy steps "
-          f"at {step_ms:.2f} ms/step ({n_req * 1e3 / step_ms:.1f} tokens/s); "
-          f"logits at {prompt + new} positions vs forward: max relative L2 "
-          f"{rel:.3g} ({'see the fp32 twin' if fp32_twin else 'tol 5e-2'}), argmax "
-          f"agreement {agree:.3f}{twin_text}")
-    if on_card:
-        _profile_line(torch, "serve decode", step_ms, 4, lambda: [
-            serve(params, cache, fed[:, -1], t)
-            for t in range(prompt + new, prompt + new + 4)])
-    del params, cache, dec, fwd
-    if on_card:
-        torch.cuda.empty_cache()
-    return counts, seen
+        return _decode_fp32_twin(torch, dev, cfg, params, fed, cache_len, dec, fwd)
+    check(rel <= 5e-2, f"serve decode: decode logits vs forward relative L2 {rel:.3g} > 5e-2")
+    return ""
+
+
+BY_BLOCK = "by block: "  # the prefix of _prefill_by_block's profiler ranges
 
 
 def _prefill_by_block(torch, cfg, run, prefill_ms: float) -> None:
-    """One more prefill, ``run()``, with CUDA events around every block and
-    around each block's attention and Mamba branches: the device time of
-    each block type and of its branches, summed over its layers, and what
-    lies outside the blocks (embedding, final norm, head).  The prefill is
-    device-bound, so the time between a call's two events is its device
-    time."""
+    """One more prefill, ``run()``, under ``torch.profiler`` (host ops and
+    device activities) with a ``record_function`` range around every block
+    and around each block's attention and Mamba branches: the device time
+    of each block type and of its branches, summed over its layers, and of
+    what lies outside the blocks (embedding, final norm, head).  A device
+    activity counts in every range that holds the host op that launched it
+    (tied by correlation id, as in ``_op_kernels``), so a host-bound
+    prefill's blocks get their device time, not their dispatch time.  The
+    repo's kernels, launched through ctypes, are tied to no host op: on the
+    one stream an activity tied to none takes the host op of the activity
+    before it (the ops that make a kernel's inputs run in its range)."""
+    import bisect
+    import itertools
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     from repro_torch.models import attention, blocks, ssm
 
-    spans: list = []  # (label, start event, end event)
-
-    def timed(label_of, fn):
+    def ranged(label_of, fn):
         def call(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            spans.append((label_of(*args, **kw), start, end))
-            return out
+            with record_function(BY_BLOCK + label_of(*args, **kw)):
+                return fn(*args, **kw)
         return call
 
     real = blocks.block_seq, attention.attention_seq, ssm.mamba_seq
-    blocks.block_seq = timed(lambda cfg, bt, *a, **kw: bt, real[0])
-    attention.attention_seq = timed(
+    blocks.block_seq = ranged(lambda cfg, bt, *a, **kw: bt, real[0])
+    attention.attention_seq = ranged(
         lambda *a, layer_window=None, **kw: "attention " + (
             "global" if layer_window is None else f"window {layer_window}"), real[1])
-    ssm.mamba_seq = timed(lambda *a, **kw: "mamba", real[2])
+    ssm.mamba_seq = ranged(lambda *a, **kw: "mamba", real[2])
     try:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
     finally:
         blocks.block_seq, attention.attention_seq, ssm.mamba_seq = real
-    total = start.elapsed_time(end)
+    raw = prof.profiler.kineto_results.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()[len(BY_BLOCK):])
+             for e in raw if e.device_type() == cpu and e.name().startswith(BY_BLOCK)]
+    host = {e.correlation_id(): e.start_ns() for e in raw
+            if e.device_type() == cpu and e.linked_correlation_id() == 0}
+    dev = [e for e in raw if e.device_type() == cuda and not e.name().startswith(BY_BLOCK)]
+    tied, placed, last = [], 0, None
+    for e in sorted(dev, key=lambda e: e.start_ns()):
+        t = host.get(e.linked_correlation_id())
+        if t is None and last is not None:
+            t, placed = last, placed + e.duration_ns()
+        if t is not None:
+            tied.append((t, e.duration_ns()))
+            last = t
+    tied.sort()
+    starts = [t for t, _ in tied]
+    cum = list(itertools.accumulate((d for _, d in tied), initial=0))
+    busy = sum(e.duration_ns() for e in dev) / 1e6
     ms: dict[str, float] = {}
     calls: dict[str, int] = {}
-    for label, a, b in spans:
-        ms[label] = ms.get(label, 0.0) + a.elapsed_time(b)
+    for a, b, label in spans:
+        lo, hi = bisect.bisect_left(starts, a), bisect.bisect_right(starts, b)
+        ms[label] = ms.get(label, 0.0) + (cum[hi] - cum[lo]) / 1e6
         calls[label] = calls.get(label, 0) + 1
     types = {bt for cycle, _ in cfg.layer_plan for bt in cycle}
     in_blocks = sum(v for k, v in ms.items() if k in types)
-    print(f"serve prefill by block ({cfg.name}, CUDA events, {total:.1f} ms of which "
-          f"{total - in_blocks:.1f} ms outside the blocks; the timed prefill "
-          f"{prefill_ms:.1f} ms): " + ", ".join(
+    untied = busy - cum[-1] / 1e6
+    print(f"serve prefill by block ({cfg.name}, device time from the profiler's records, "
+          f"each activity in the ranges of the host op that launched it; device busy "
+          f"{busy:.1f} ms, of which {busy - untied - in_blocks:.1f} ms outside the blocks, "
+          f"{placed / 1e6:.1f} ms tied through the activity before it and {untied:.1f} ms "
+          f"not at all; the timed prefill {prefill_ms:.1f} ms on the host clock): " + ", ".join(
               f"{k} x{calls[k]} {v:.1f} ms" for k, v in sorted(ms.items(), key=lambda kv: -kv[1])))
 
 
@@ -3593,15 +3922,30 @@ def _decode_fp32_twin(torch, dev, cfg, params, fed, cache_len, dec, fwd) -> str:
             f"(tol {DECODE_VS_FORWARD} x)")
 
 
+def _frontend_batch(torch, cfg, tokens, seed: int) -> dict:
+    """The prefill batch of ``tokens`` (B, S): with a modality frontend, the
+    stub's embeddings beside them, seeded normal fp32 (B, T, dim) on the
+    tokens' device (T the vision patches, or S audio frames)."""
+    batch = {"tokens": tokens}
+    if cfg.frontend is not None:
+        nt = cfg.frontend.tokens if cfg.frontend.kind == "vision" else tokens.shape[1]
+        gen = torch.Generator(device=tokens.device).manual_seed(seed)
+        batch["frontend"] = torch.randn((tokens.shape[0], nt, cfg.frontend.dim),
+                                        generator=gen, device=tokens.device)
+    return batch
+
+
 def phase_serve_cpu(torch, dev, arch: str = "starcoder2-15b", seq: int = 128,
                     seed: int = 0) -> tuple[dict[str, int], dict[str, int] | None]:
     """The smoke configuration of ``arch`` (fp32, pallas_swa) on the card
     (the split-TF32 SWA kernel in each windowed layer; hymba's selective
-    scan in each layer) and on the CPU (plain versions), one set of
-    weights, logits within atol=rtol 1e-4.  Returns the card prefill's
-    launch counts and the device activities of each repo kernel in that
-    prefill, which runs under the profiler (None off the card or when the
-    profiler saw none)."""
+    scan in each layer; xlstm's sLSTM kernel in each sLSTM layer; for a
+    model with a modality frontend, seeded stub embeddings beside the
+    tokens) and on the CPU (plain versions), one set of weights, logits
+    within atol=rtol 1e-4.  Returns the card prefill's launch counts and
+    the device activities of each repo kernel in that prefill, which runs
+    under the profiler (None off the card or when the profiler saw
+    none)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -3611,34 +3955,140 @@ def phase_serve_cpu(torch, dev, arch: str = "starcoder2-15b", seq: int = 128,
 
     cfg = dataclasses.replace(smoke_config(arch), attn_impl="pallas_swa")
     windowed, mamba = serve_layers(cfg)
+    slstm = _layer_indices(cfg, lambda bt: bt == "slstm")
     cpu_params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     card_params = M.tree_map(lambda t: t.to(dev), cpu_params)
     tokens = torch.as_tensor(token_dataset(2 * seq, vocab=cfg.vocab, seed=seed),
                              dtype=torch.int64).reshape(2, seq)
+    batch = _frontend_batch(torch, cfg, tokens, seed)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
     prefill = steps.make_prefill_step(cfg)
     _reset_launches()
     if torch.device(dev).type == "cuda":
         out: dict = {}
         n_act, _, _, count = _device_activity(torch, lambda: out.setdefault(
-            "logits", prefill(card_params, {"tokens": tokens.to(dev)})))
+            "logits", prefill(card_params, card_batch)))
         card, seen = out["logits"], _repo_counts(count) if n_act else None
     else:
-        card, seen = prefill(card_params, {"tokens": tokens.to(dev)}), None
+        card, seen = prefill(card_params, card_batch), None
     counts = _launches()
     launches = counts["swa_attention_tf32"]  # fp32: the split-TF32 kernel
     check(launches == len(windowed) and counts["swa_attention_tc"] == 0
-          and counts["selective_scan"] == len(mamba),
+          and counts["selective_scan"] == len(mamba) and counts["slstm"] == len(slstm),
           f"serve_cpu {cfg.name}: expected {len(windowed)} swa_attention_tf32 launches, no "
-          f"swa_attention_tc launch and {len(mamba)} selective_scan launches, got {counts}")
-    cpu = prefill(cpu_params, {"tokens": tokens})
+          f"swa_attention_tc launch, {len(mamba)} selective_scan and {len(slstm)} slstm "
+          f"launches, got {counts}")
+    cpu = prefill(cpu_params, batch)
+    check(tuple(cpu.shape) == (2, seq, cfg.vocab),
+          f"serve_cpu {cfg.name}: logits {tuple(cpu.shape)}, expected {(2, seq, cfg.vocab)}")
     err = float((card.cpu() - cpu).abs().max())
     check(bool(torch.allclose(card.cpu(), cpu, atol=1e-4, rtol=1e-4)),
           f"serve_cpu {cfg.name}: card vs cpu logits outside atol=rtol 1e-4 (max abs err "
           f"{err:.3g})")
-    print(f"serve card vs cpu {cfg.name} fp32 S={seq}: {launches} swa_attention_tf32 "
-          f"and {counts['selective_scan']} selective_scan launches on the card, logits "
-          f"max abs err {err:.3g} (tol atol=rtol 1e-4)")
+    fe = (f", {cfg.frontend.kind} frontend ({tuple(batch['frontend'].shape)} stub "
+          f"embeddings)" if cfg.frontend is not None else "")
+    print(f"serve card vs cpu {cfg.name} fp32 S={seq}{fe}: {launches} swa_attention_tf32, "
+          f"{counts['selective_scan']} selective_scan and {counts['slstm']} slstm launches on "
+          f"the card, logits max abs err {err:.3g} (tol atol=rtol 1e-4)")
     return counts, seen
+
+
+# phase 17's cells: S cut from the reference's prefill_32k for chip time
+# (width and depth are not cut); paligemma's 256 patches + 7936 text tokens
+FRONTEND_SEQ = {"paligemma-3b": 8192, "hubert-xlarge": 8192}
+
+
+def phase_serve_frontends(torch, dev, arch: str, seq: int | None = None, n_req: int = 4,
+                          prompt: int = 16, new: int = 16, cache_len: int = 4096,
+                          seed: int = 0, cfg=None) -> None:
+    """A model with a modality frontend at full size (``arch``'s config, or
+    ``cfg``), bf16, B=1: one prefill of ``seq`` positions through
+    ``launch.steps`` (vision: the config's patches of seeded stub
+    embeddings, then seq - patches text tokens, logits over the text;
+    audio: seq frames, logits over all), finite, timed (second run) with
+    peak memory and one profiled run; then, where the model decodes, n_req
+    text-only requests decoded as in phase 8 (prompt tokens replayed, new
+    greedy tokens), held against the backbone's forward on the same tokens
+    without the frontend (the config with ``frontend=None``: the reference's
+    ``forward`` drops the logits of the first patches' positions even
+    without patches) at relative L2 5e-2, or in the fp32 twin's form where
+    the bf16 decode misses that (``_decode_gate``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or get_config(arch)
+    seq = seq or FRONTEND_SEQ[arch]
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    _sync(torch, dev)
+    leaves: list = []
+    M.tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"serve {cfg.name}: {cfg.n_layers} layers, {n_params} parameters "
+          f"({n_bytes / 1e9:.2f} GB {cfg.dtype}) drawn on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    vision = cfg.frontend.kind == "vision"
+    n_text = seq - cfg.frontend.tokens if vision else seq
+    tokens = torch.as_tensor(token_dataset(n_text, vocab=cfg.vocab, seed=seed),
+                             dtype=torch.int64, device=dev)[None]
+    batch = _frontend_batch(torch, cfg, tokens, seed)
+    prefill = steps.make_prefill_step(cfg)
+    _reset_launches()
+    logits = prefill(params, batch)
+    _sync(torch, dev)
+    counts = {k: n for k, n in _launches().items() if n}
+    want = (1, n_text, cfg.vocab)
+    check(tuple(logits.shape) == want and bool(torch.isfinite(logits).all()),
+          f"serve prefill {cfg.name}: logits {tuple(logits.shape)} (expected {want}) not "
+          f"finite or misshaped")
+    std = float(logits.float().std())
+    del logits
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    _sync(torch, dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    state = card_state() if on_card else "not measured"
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    del logits
+    what = (f"{cfg.frontend.tokens} patch embeddings + {n_text} text tokens" if vision
+            else f"{seq} frames")
+    print(f"serve prefill {cfg.name} B=1 S={seq} ({what}, dim {cfg.frontend.dim}): logits "
+          f"{want} finite, std {std:.3g}; repo kernel launches {counts or 'none'} (attention "
+          f"through the chunked path: {'a prefix' if vision else 'bidirectional'}); "
+          f"{prefill_ms:.1f} ms ({seq / prefill_ms * 1e3:.0f} positions/s, host clock to a "
+          f"sync, second run); peak memory {peak:.2f} GB; card right after (SM clock, power, "
+          f"temperature): {state}")
+    if on_card:
+        _profile_line(torch, f"serve prefill {cfg.name}", prefill_ms, 1,
+                      lambda: prefill(params, batch))
+    if cfg.supports_decode:
+        fed, dec, cache, replay_ms, step_ms = _decode_requests(
+            torch, dev, cfg, params, steps.make_serve_step(cfg), n_req, prompt, new, cache_len,
+            seed)
+        text_cfg = dataclasses.replace(cfg, frontend=None)
+        fwd = steps.make_prefill_step(text_cfg)(params, {"tokens": fed}).float()
+        rel = float(_rel_l2(dec, fwd).max())
+        check(bool(torch.isfinite(dec).all()), "serve decode: decode logits not finite")
+        twin_text = _decode_gate(torch, dev, text_cfg, params, fed, cache_len, dec, fwd, rel,
+                                 fp32_twin=False)
+        print(f"serve decode {cfg.name} B={n_req} cache_len={cache_len} (text-only "
+              f"prompts): {prompt} prompt tokens replayed in {replay_ms:.2f} ms/step, {new} greedy steps at {step_ms:.2f} ms/step "
+              f"({n_req * 1e3 / step_ms:.1f} tokens/s); logits at {prompt + new} positions "
+              f"vs the forward without the frontend: max relative L2 {rel:.3g} "
+              f"({'see the fp32 twin' if twin_text else 'tol 5e-2'}){twin_text}")
+        del cache, dec, fwd
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
 
 
 def simt_launches(runs: dict[str, tuple[int, str, dict[str, int] | None]]
@@ -4388,36 +4838,19 @@ def phase_serve_moe(torch, dev, cfg, seq: int) -> None:
           f"card {card_state() if on_card else 'not measured'}", flush=True)
 
     serve = steps.make_serve_step(cfg)
-    prompts = token_dataset(n_req * prompt, vocab=cfg.vocab, seed=seed + 1)
-    fed = torch.zeros((n_req, prompt + new), dtype=torch.int64, device=dev)
-    fed[:, :prompt] = torch.as_tensor(prompts.reshape(n_req, prompt))
-    cache = M.init_cache(cfg, n_req, cache_len, device=dev)
-    dec = []
     with _moe_drops() as seen:
-        t0 = time.perf_counter()
-        for t in range(prompt):
-            lg, cache = serve(params, cache, fed[:, t], t)
-            dec.append(lg)
-        _sync(torch, dev)
-        t1 = time.perf_counter()
-        for t in range(prompt, prompt + new):
-            fed[:, t] = dec[-1].argmax(-1)
-            lg, cache = serve(params, cache, fed[:, t], t)
-            dec.append(lg)
-        _sync(torch, dev)
-        t2 = time.perf_counter()
+        fed, dec, cache, replay_ms, step_ms = _decode_requests(
+            torch, dev, cfg, params, serve, n_req, prompt, new, cache_len, seed)
     dec_drop, _ = _drop_share(seen)
     check(dec_drop == 0.0, f"{label} decode: capacity dropped {dec_drop:.3g} of the pairs")
-    dec = torch.stack(dec, 1).float()
     fwd = steps.make_prefill_step(_no_drop(cfg))(params, {"tokens": fed}).float()
     rel = float(((dec - fwd).norm(dim=(1, 2)) / fwd.norm(dim=(1, 2))).max())
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
     check(bool(torch.isfinite(dec).all()) and rel <= 5e-2,
           f"{label} decode: decode logits vs forward relative L2 {rel:.3g} > 5e-2")
-    step_ms = (t2 - t1) * 1e3 / new
     attn_kind = "absorbed MLA" if n_mla else "KV"
     print(f"{label} decode B={n_req} cache_len={cache_len} ({attn_kind} cache): {prompt} "
-          f"prompt tokens replayed in {(t1 - t0) * 1e3 / prompt:.2f} ms/step, {new} greedy "
+          f"prompt tokens replayed in {replay_ms:.2f} ms/step, {new} greedy "
           f"steps at {step_ms:.2f} ms/step ({n_req * 1e3 / step_ms:.1f} "
           f"tokens/s), no pair dropped; logits at {prompt + new} positions vs forward "
           f"(no-drop capacity): max relative L2 {rel:.3g} (tol 5e-2), argmax agreement "
@@ -4683,7 +5116,7 @@ REPO_KERNELS = ("trigger_sq_slab_kernel", "trigger_sq_rows_kernel", "mix_kernel"
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
                 "swa_tc_kernel", "swa_tf32_kernel", "mix_bf16_kernel",
                 "mix_sparse_bf16_kernel", "selective_scan_state_kernel",
-                "selective_scan_carry_kernel", "selective_scan_out_kernel")
+                "selective_scan_carry_kernel", "selective_scan_out_kernel", "slstm_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -4711,6 +5144,8 @@ KERNEL_SOURCES = {
     # no TPU kernel: the reference's XLA associative scan
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/models/ssm.py:87"),
+    # no TPU kernel: the reference's lax.scan over time
+    "slstm": ("src/repro_torch/kernels/csrc/slstm.cu", "none: src/repro/models/ssm.py:336"),
 }
 
 
@@ -4819,6 +5254,10 @@ def main() -> int:
         lap("phase 9")
         smoke, seen_smoke = phase_serve_cpu(torch, dev)
         hymba_smoke, seen_hymba_smoke = phase_serve_cpu(torch, dev, "hymba-1.5b")
+        rows["slstm"]["serve_cpu_launches"] = phase_serve_cpu(torch, dev, "xlstm-125m")[0][
+            "slstm"]
+        phase_serve_cpu(torch, dev, "paligemma-3b")
+        phase_serve_cpu(torch, dev, "hubert-xlarge")
         phase_serve_cpu_moe(torch, dev)
         lap("phase 10")
         torch.cuda.empty_cache()  # the serve phases' weights are gone
@@ -4842,6 +5281,12 @@ def main() -> int:
         launches["selective_scan"] = hybrid["selective_scan"]
         rows["swa_attention_tc"]["hybrid_launches"] = hybrid["swa_attention_tc"]
         lap("phase 15")
+        xlstm, _ = phase_serve(torch, dev, get_config("xlstm-125m"), fp32_twin=True)
+        launches["slstm"] = xlstm["slstm"]
+        lap("phase 16")
+        phase_serve_frontends(torch, dev, "paligemma-3b")
+        phase_serve_frontends(torch, dev, "hubert-xlarge")
+        lap("phase 17")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
@@ -4888,9 +5333,11 @@ def main() -> int:
                                    "shape_hymba", "ms_hymba", "device_ms_hymba",
                                    "library_ms_hymba", "bound_ms_hymba",
                                    "bound_share_hymba", "hybrid_launches", "chunks",
+                                   "serial_floor_ms", "sync_loop_ms", "fp64_reference",
+                                   "serve_cpu_launches",
                                    *(f"{k}{suffix}" for suffix in TRIGGER_SUFFIXES
                                      for k in TRIGGER_FIELDS),
-                                   *(f"{k}_fp32" for k in SCAN_FIELDS))
+                                   *(f"{k}_fp32" for k in SCAN_FIELDS + SLSTM_FIELDS))
                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

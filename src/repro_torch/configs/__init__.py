@@ -3,32 +3,32 @@
 ``get_config(arch_id)`` returns the full-size ArchConfig; ``smoke_config``
 returns the reduced same-family variant (<= 2 layers, d_model 128) the
 CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m,
-deepseek-v3-671b and hymba-1.5b; the other six architectures of the JAX
-package raise ``NotImplementedError`` naming the ROADMAP item (Queue 1)
-that ports what they need.
+deepseek-v3-671b, hymba-1.5b, xlstm-125m, paligemma-3b and hubert-xlarge;
+the other three architectures of the JAX package raise
+``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.common import ArchConfig, MLAConfig
+from repro_torch.models.common import ArchConfig, FrontendStub, MLAConfig
 
 _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "starcoder2-15b": "starcoder2_15b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "hymba-1.5b": "hymba_1_5b",
+    "xlstm-125m": "xlstm_125m",
+    "paligemma-3b": "paligemma_3b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 # architectures of the JAX package not ported yet -> their ROADMAP item
 _NOT_PORTED = {
     "deepseek-coder-33b": "item 17 (the other configs)",
     "phi3-medium-14b": "item 17 (the other configs)",
-    "xlstm-125m": "item 15 (xLSTM blocks)",
-    "paligemma-3b": "item 16 (modality frontends)",
     "qwen2-72b": "item 17 (the other configs)",
-    "hubert-xlarge": "item 16 (modality frontends)",
 }
 
 ARCH_IDS: list[str] = list(_MODULES)
@@ -52,6 +52,9 @@ _SMOKE_PLANS = {
     "starcoder2-15b": ((("attn",), 2),),
     "deepseek-v3-671b": ((("mla",), 1), (("mla_moe",), 1)),
     "hymba-1.5b": ((("hybrid_g",), 1), (("hybrid",), 1)),
+    "xlstm-125m": ((("mlstm", "slstm"), 1),),
+    "paligemma-3b": ((("attn",), 2),),
+    "hubert-xlarge": ((("attn",), 2),),
 }
 
 
@@ -86,4 +89,9 @@ def smoke_config(arch_id: str) -> ArchConfig:
         updates["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
                                    qk_nope_head_dim=16, qk_rope_head_dim=8,
                                    v_head_dim=16)
+    if cfg.frontend is not None:
+        updates["frontend"] = FrontendStub(
+            kind=cfg.frontend.kind,
+            tokens=4 if cfg.frontend.kind == "vision" else 0,
+            dim=32)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **updates)

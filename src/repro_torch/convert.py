@@ -9,8 +9,9 @@ reference's pytree) and returns the port's tree of tensors;
 test can start both implementations from one state.
 ``arch_params_from_jax`` carries an architecture model's nested parameter
 tree (``repro_torch.models.model``) across, bf16 leaves included (the Mamba
-leaves of hybrid blocks too), and ``mamba_cache_from_jax`` a Mamba decode
-cache.
+leaves of hybrid blocks and the xLSTM cores' too), and
+``mamba_cache_from_jax``, ``mlstm_cache_from_jax`` and
+``slstm_state_from_jax`` a Mamba, mLSTM or sLSTM decode state.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import efhc
-from repro_torch.models.ssm import MambaCache
+from repro_torch.models.ssm import MambaCache, MLSTMCache, SLSTMState
 from repro_torch.tree import tree_map
 
 
@@ -66,6 +67,18 @@ def mamba_cache_from_jax(cache, device):
     ``models.ssm.MambaCache`` of tensors on ``device`` (copies)."""
     return MambaCache(conv=tensor_from_numpy(cache.conv).to(device),
                       ssm=tensor_from_numpy(cache.ssm).to(device))
+
+
+def mlstm_cache_from_jax(cache, device):
+    """A reference ``MLSTMCache`` (c (B, H, dh, dh), n (B, H, dh), m (B, H),
+    fp32) -> the port's ``models.ssm.MLSTMCache`` on ``device`` (copies)."""
+    return MLSTMCache(*(tensor_from_numpy(t).to(device) for t in cache))
+
+
+def slstm_state_from_jax(state, device):
+    """A reference ``SLSTMState`` (c, n, h, m, fp32 (B, H, dh) each) -> the
+    port's ``models.ssm.SLSTMState`` on ``device`` (copies)."""
+    return SLSTMState(*(tensor_from_numpy(t).to(device) for t in state))
 
 
 def state_from_jax(state, device, *, opt_state=None) -> efhc.EFHCState:

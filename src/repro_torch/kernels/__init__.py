@@ -6,10 +6,12 @@ the JAX package:
   swa/     - sliding-window causal attention with GQA    (model prefill):
              tensor cores for bf16 (wgmma + TMA) and for fp32 (split TF32)
 
-and one that replaces no TPU kernel:
+and two that replace no TPU kernel:
 
   scan/    - the Mamba selective scan of hybrid blocks    (model prefill),
              where the reference runs an XLA associative scan
+  slstm/   - the sLSTM recurrence of xLSTM blocks         (model prefill
+             and decode), where the reference runs a lax.scan over time
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (built on first
 use by ``build.py`` from ``csrc/``) and counts the launch in its module's

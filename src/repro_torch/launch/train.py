@@ -106,14 +106,24 @@ def init_state(cfg: ArchConfig, m: int, seed: int, device) -> tuple[Any, Any]:
 
 def _batches(cfg: ArchConfig, m: int, batch: int, seq: int, seed: int, device):
     """The reference's batch stream: each replica's ``lm_batches`` over its
-    contiguous shard of ``token_dataset``, stacked (m, batch // m, seq)."""
+    contiguous shard of ``token_dataset``, stacked (m, batch // m, seq);
+    with a modality frontend, fp32 zeros for its embeddings (m, batch // m,
+    T, dim) (T the vision patches, or seq audio frames) and a ``loss_mask``
+    of ones."""
     stream = token_dataset(STREAM_TOKENS, vocab=cfg.vocab, seed=seed)
     shards = np.array_split(stream, m)
     iters = [lm_batches(s, batch // m, seq, seed=seed + i) for i, s in enumerate(shards)]
     while True:
         per = [next(it) for it in iters]
-        yield {k: torch.as_tensor(np.stack([p[k] for p in per]), dtype=torch.int64,
+        out = {k: torch.as_tensor(np.stack([p[k] for p in per]), dtype=torch.int64,
                                   device=device) for k in per[0]}
+        if cfg.frontend is not None:
+            b, s = out["tokens"].shape[1:]
+            nt = cfg.frontend.tokens if cfg.frontend.kind == "vision" else s
+            out["frontend"] = torch.zeros((m, b, nt, cfg.frontend.dim), dtype=torch.float32,
+                                          device=device)
+            out["loss_mask"] = torch.ones((m, b, s), dtype=torch.float32, device=device)
+        yield out
 
 
 def _restore(ckpt: str, device) -> tuple[Any, Any, int]:

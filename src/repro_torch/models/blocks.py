@@ -2,12 +2,13 @@
 type, with uniform signatures so a stage runs as a loop over its stacked
 per-layer params (port of ``repro/models/blocks.py``).
 
-The port runs block types ``attn`` and ``attn_g`` (the ``_g`` suffix =
-global attention, ignores cfg.window), ``moe`` (attention + MoE FFN),
-``mla`` (MLA + dense MLP), ``mla_moe`` (MLA + MoE FFN), ``mamba`` (a Mamba
-SSM alone) and hymba's ``hybrid`` / ``hybrid_g`` (attention and Mamba heads
-on the same normed input, averaged, + dense MLP).  ``mlstm`` and ``slstm``
-raise ``NotImplementedError`` naming their ROADMAP item (Queue 1).
+Block types: ``attn`` and ``attn_g`` (the ``_g`` suffix = global
+attention, ignores cfg.window), ``moe`` (attention + MoE FFN), ``mla`` (MLA
++ dense MLP), ``mla_moe`` (MLA + MoE FFN), ``mamba`` (a Mamba SSM alone),
+hymba's ``hybrid`` / ``hybrid_g`` (attention and Mamba heads on the same
+normed input, averaged, + dense MLP), and xLSTM's ``mlstm`` and ``slstm``
+(the recurrent core on the normed input + the residual; the core carries
+its own projections, so no second norm and no FFN).
 """
 from __future__ import annotations
 
@@ -22,19 +23,17 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp, init_norm,
                                        split_keys)
 
-_NOT_PORTED = {
-    "mlstm": "item 15 (xLSTM blocks)",
-    "slstm": "item 15 (xLSTM blocks)",
+_BLOCK_TYPES = ("attn", "attn_g", "moe", "mla", "mla_moe", "hybrid", "hybrid_g", "mamba",
+                "mlstm", "slstm")
+# xLSTM blocks: (init, sequence form, decode, cache init) of the core
+_XLSTM = {
+    "mlstm": (ssm.init_mlstm, ssm.mlstm_seq, ssm.mlstm_decode, ssm.init_mlstm_cache),
+    "slstm": (ssm.init_slstm, ssm.slstm_seq, ssm.slstm_decode, ssm.init_slstm_cache),
 }
-_PORTED = ("attn", "attn_g", "moe", "mla", "mla_moe", "hybrid", "hybrid_g", "mamba")
 
 
-def _check_ported(block_type: str) -> None:
-    if block_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block type {block_type!r} is not ported to repro_torch yet: "
-            f"ROADMAP Queue 1 {_NOT_PORTED[block_type]}")
-    if block_type not in _PORTED:
+def _check_known(block_type: str) -> None:
+    if block_type not in _BLOCK_TYPES:
         raise ValueError(f"unknown block type {block_type!r}")
 
 
@@ -69,10 +68,14 @@ def _has_mamba(block_type: str) -> bool:
 # ---------------------------------------------------------------------------
 
 def init_block(cfg: ArchConfig, block_type: str, gen, dtype, device="cpu") -> dict:
-    _check_ported(block_type)
-    # the reference's split: ks[0] attention, ks[1] mamba, ks[2] ffn
+    _check_known(block_type)
+    # the reference's split: ks[0] attention (or the xLSTM core), ks[1]
+    # mamba, ks[2] ffn
     ks = split_keys(gen, 6)
     p: dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dtype, device)}
+    if block_type in _XLSTM:
+        p["core"] = _XLSTM[block_type][0](cfg, ks[0], dtype, device)
+        return p
     if _is_mla(block_type):
         p["attn"] = attn.init_mla(cfg, ks[0], dtype, device)
     elif _has_attn(block_type):
@@ -117,8 +120,10 @@ def block_seq(
     prefix_len=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, aux_loss)."""
-    _check_ported(block_type)
+    _check_known(block_type)
     h = apply_norm(cfg, p["norm1"], x)
+    if block_type in _XLSTM:
+        return _ffn(cfg, block_type, p, x + _XLSTM[block_type][1](cfg, p["core"], h))
     if block_type == "mamba":
         return _ffn(cfg, block_type, p, x + ssm.mamba_seq(cfg, p["mamba"], h))
     if _is_mla(block_type):
@@ -138,7 +143,9 @@ def block_seq(
 
 def init_block_cache(cfg: ArchConfig, block_type: str, batch: int, cache_len: int,
                      dtype, device="cpu"):
-    _check_ported(block_type)
+    _check_known(block_type)
+    if block_type in _XLSTM:
+        return {block_type: _XLSTM[block_type][3](cfg, batch, dtype, device)}
     cache: dict[str, Any] = {}
     if _is_mla(block_type):
         cache["mla"] = attn.init_mla_cache(cfg, batch, cache_len, dtype, device)
@@ -161,10 +168,13 @@ def block_decode(
     t: int,
 ) -> tuple[torch.Tensor, Any]:
     """One-token block step; the KV (or MLA latent) cache and the Mamba
-    cache are updated in place."""
-    _check_ported(block_type)
+    and xLSTM states are updated in place."""
+    _check_known(block_type)
     h = apply_norm(cfg, p["norm1"], x_t)
     new_cache = dict(cache)
+    if block_type in _XLSTM:
+        y, new_cache[block_type] = _XLSTM[block_type][2](cfg, p["core"], h, cache[block_type])
+        return x_t + y, new_cache
     if block_type == "mamba":
         y, new_cache["mamba"] = ssm.mamba_decode(cfg, p["mamba"], h, cache["mamba"])
         return x_t + y, new_cache

@@ -17,9 +17,7 @@ Block types:
   mlstm       - xLSTM matrix-memory block (no separate FFN)
   slstm       - xLSTM scalar-memory block (no separate FFN)
 
-The port runs ``attn``, ``attn_g``, ``moe``, ``mla``, ``mla_moe``,
-``hybrid``, ``hybrid_g`` and ``mamba``; ``mlstm`` and ``slstm`` raise
-``NotImplementedError`` in ``models/blocks.py``.
+The port runs every block type (``models/blocks.py``).
 """
 from __future__ import annotations
 

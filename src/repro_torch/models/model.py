@@ -9,11 +9,15 @@ a dict {block_name_i: stacked_params} with leading axis ``repeat``; a stage
 runs as a Python loop over ``range(repeat)`` on views of the stacked leaves
 (the reference's ``lax.scan``).
 
-Batch dict: ``tokens`` (B, S) integer ids, and for ``loss_fn`` ``targets``
-(B, S) ids and an optional fp32 ``loss_mask`` (B, S).  ``loss_fn`` adds
-the MoE router's aux loss and deepseek-v3's MTP loss (one extra block
-predicting token t+2) as the reference does; modality frontends are
-ROADMAP Queue 1 item 16.  Under autograd with ``cfg.remat`` each layer of a
+Batch dict: ``tokens`` (B, S) integer ids (the text part for a vision
+model), for ``loss_fn`` ``targets`` (B, S) ids and an optional fp32
+``loss_mask`` (B, S), and for a model with a modality frontend
+``frontend`` (B, T, dim) fp32, the stub's embeddings: a vision model's T
+patches are a prefix before the text (prefix-LM attention, logits over the
+text only); an audio model's frames are the whole sequence (its tokens are
+not read).  ``loss_fn`` adds the MoE router's aux loss and deepseek-v3's
+MTP loss (one extra block predicting token t+2) as the reference does.
+Under autograd with ``cfg.remat`` each layer of a
 stage runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` around its scan body): its activations are recomputed
 in the backward pass instead of kept.
@@ -39,12 +43,6 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.frontend is not None:
-        raise NotImplementedError("modality frontends are not ported to "
-                                  "repro_torch yet: ROADMAP Queue 1 item 16")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -58,7 +56,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
 
     ``generator`` may instead be a ``repro_torch.prng`` key: the draws are
     then the reference's ``init_params(cfg, key)``, bit for bit."""
-    _check_supported(cfg)
     if generator is not None and is_key(generator):
         return _init_params_key(cfg, generator, resolve_device(device))
     dtype = _dtype(cfg)
@@ -171,18 +168,32 @@ def backbone_seq(cfg: ArchConfig, params, x, positions, prefix_len=None):
 
 
 def _embed_inputs(cfg: ArchConfig, params, batch):
-    """Returns (x (B,S,D), positions (S,), prefix_len or None); tokens only."""
-    _check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens)
+    """Returns (x (B,S,D), positions (S,), prefix_len or None).  The
+    frontend's embeddings are projected in fp32 (jax promotes the fp32
+    stub embeddings @ a bf16 projection to fp32), then cast to the model's
+    dtype."""
+    if cfg.frontend is not None and "frontend" in batch:
+        proj = params["embed"]["frontend_proj"]
+        fe = (batch["frontend"].float() @ proj.float()).to(_dtype(cfg))
+        if cfg.frontend.kind == "vision":
+            # image patches prefix + text suffix; tokens hold the text part
+            x = torch.cat([fe, embed_tokens(params["embed"], batch["tokens"])], dim=1)
+            return x, torch.arange(x.shape[1], device=x.device), cfg.frontend.tokens
+        # audio: frames *are* the sequence
+        return fe, torch.arange(fe.shape[1], device=fe.device), None
+    x = embed_tokens(params["embed"], batch["tokens"])
     return x, torch.arange(x.shape[1], device=x.device), None
 
 
 def _forward(cfg: ArchConfig, params, batch):
-    """(logits (B,S,V), aux_loss, the backbone's output h, positions)."""
+    """(logits (B,S,V), aux_loss, the backbone's output h, positions); a
+    vision model's logits cover the text suffix only."""
     x, positions, prefix_len = _embed_inputs(cfg, params, batch)
     h, aux = backbone_seq(cfg, params, x, positions, prefix_len)
-    logits = apply_head(cfg, params["head"], params["embed"], h)
+    h_text = h
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        h_text = h[:, cfg.frontend.tokens:]  # logits over the text suffix only
+    logits = apply_head(cfg, params["head"], params["embed"], h_text)
     return logits, aux, h, positions
 
 
@@ -244,8 +255,9 @@ def _mtp_loss(cfg: ArchConfig, params, batch, h, positions, mask):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    """Empty KV (or MLA latent) caches, and Mamba caches for hybrid
-    blocks, one stacked (repeat, ...) tree per stage."""
+    """Empty KV (or MLA latent) caches, Mamba caches for hybrid blocks and
+    xLSTM states for mLSTM and sLSTM blocks, one stacked (repeat, ...) tree
+    per stage."""
     device = resolve_device(device)
     dtype = _dtype(cfg)
     caches = []

@@ -18,6 +18,8 @@ from repro_torch.kernels.mixing import plan as tplan  # noqa: E402
 from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref  # noqa: E402
 from repro_torch.kernels.scan import ops as tscan  # noqa: E402
 from repro_torch.kernels.scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.kernels.slstm import ops as tslstm  # noqa: E402
+from repro_torch.kernels.slstm.ref import slstm_scan_ref  # noqa: E402
 from repro_torch.kernels.swa import ops as tswa  # noqa: E402
 from repro_torch.kernels.swa.ref import swa_ref  # noqa: E402
 from repro_torch.kernels.trigger import ops as ttrig  # noqa: E402
@@ -619,3 +621,107 @@ def test_selective_scan_wrapper_refuses_autograd_and_wide_states(cuda):
     x, dt, b, c, a_log = _scan_inputs(cuda, (1, 64, 32, 16), torch.float32, 0)
     with pytest.raises(ValueError, match="contiguous"):
         tscan.selective_scan(x, dt, torch.zeros((1, 64, 32), device=cuda)[..., ::2], c, a_log)
+
+
+# ---- the sLSTM recurrence (xLSTM's sLSTM blocks) -----------------------------
+
+def _slstm_inputs(cuda, b, s, h, dh, dtype, seed: int, zero_state: bool = False):
+    """pre_x (B, S, 4, H, dh), r (4, H, dh, dh) of the model's 1/sqrt(dh)
+    scale, a small bias, in ``dtype``, and an fp32 state (c, n, h, m):
+    nonzero (n > 0), or the model's initial one (zeros, m = -1e30)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pre = torch.randn((b, s, 4, h, dh), generator=g, device=cuda)
+    r = torch.randn((4, h, dh, dh), generator=g, device=cuda) / dh ** 0.5
+    bias = 0.1 * torch.randn((4, h, dh), generator=g, device=cuda)
+    if zero_state:
+        z = torch.zeros((b, h, dh), device=cuda)
+        st = (z, z.clone(), z.clone(), torch.full((b, h, dh), -1e30, device=cuda))
+    else:
+        st = (torch.randn((b, h, dh), generator=g, device=cuda),
+              0.5 + torch.rand((b, h, dh), generator=g, device=cuda),
+              0.5 * torch.randn((b, h, dh), generator=g, device=cuda),
+              torch.randn((b, h, dh), generator=g, device=cuda))
+    return [t.to(dtype).contiguous() for t in (pre, r, bias)], st
+
+
+def _slstm_max_err(got, want):
+    hs, st = got
+    whs, wst = want
+    return max(float((a - w).abs().max()) for a, w in zip((hs, *st), (whs, *wst)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 1), (4, 1), (1, 257), (4, 257), (1, 4096), (4, 4096)])
+@pytest.mark.parametrize("dh", [192, 64, 32])
+def test_slstm_kernel_matches_plain(cuda, dh, b, s, dtype):
+    """xlstm-125m's 4 heads of dh 192 (a cluster of 4 CTAs a head), 64 and 32
+    (one CTA), from a nonzero state: one launch, the same bits from two
+    calls; fp32 within 1e-4 of the plain loop (hs and the final state, the
+    recurrent sums in another order); bf16 (where a sum that rounds the
+    other way stays in the state) no farther from the fp32 plain loop than
+    2 x the bf16 plain loop's distance from it, and 1e-3."""
+    h = 4
+    (pre, r, bias), st = _slstm_inputs(cuda, b, s, h, dh, dtype, dh + b + s)
+    before = tslstm.LAUNCHES["slstm"]
+    got = tslstm.slstm_scan(pre, r, bias, st)
+    assert tslstm.LAUNCHES["slstm"] == before + 1
+    hs, out = got
+    assert hs.dtype == torch.float32 and tuple(hs.shape) == (b, s, h, dh)
+    again = tslstm.slstm_scan(pre, r, bias, st)
+    assert all(torch.equal(x, y) for x, y in zip((hs, *out), (again[0], *again[1])))
+    plain = slstm_scan_ref(pre, r, bias, st)
+    if dtype == torch.float32:
+        assert _slstm_max_err(got, plain) <= 1e-4, _slstm_max_err(got, plain)
+    else:
+        exact = slstm_scan_ref(pre.float(), r.float(), bias.float(), st)
+        limit = max(2 * _slstm_max_err(plain, exact), 1e-3)
+        assert _slstm_max_err(got, exact) <= limit, (_slstm_max_err(got, exact), limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_kernel_from_the_model_state_at_dh_128(cuda, dtype):
+    """dh 128 (a cluster of 2 CTAs) from the model's initial state (zeros,
+    m = -1e30), 300 steps."""
+    (pre, r, bias), st = _slstm_inputs(cuda, 2, 300, 3, 128, dtype, 5, zero_state=True)
+    got = tslstm.slstm_scan(pre, r, bias, st)
+    exact = slstm_scan_ref(pre.float(), r.float(), bias.float(), st)
+    plain = slstm_scan_ref(pre, r, bias, st)
+    limit = 1e-4 if dtype == torch.float32 else max(2 * _slstm_max_err(plain, exact), 1e-3)
+    assert _slstm_max_err(got, exact if dtype != torch.float32 else plain) <= limit
+
+
+@pytest.mark.gpu
+def test_slstm_kernel_nan_where_plain_is(cuda):
+    """A NaN in one forget pre-activation: NaN in that unit from its step,
+    in its whole head from the next, and nowhere else, as in the plain
+    loop."""
+    (pre, r, bias), st = _slstm_inputs(cuda, 2, 40, 4, 192, torch.float32, 9)
+    pre[1, 20, 1, 2, 7] = float("nan")
+    got, _ = tslstm.slstm_scan(pre, r, bias, st)
+    want, _ = slstm_scan_ref(pre, r, bias, st)
+    assert int(want.isnan().sum()) == 1 + 19 * 192
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+@pytest.mark.gpu
+def test_slstm_wrapper_refuses_on_the_card(cuda):
+    (pre, r, bias), st = _slstm_inputs(cuda, 1, 8, 4, 64, torch.float32, 0)
+    r.requires_grad_()
+    before = tslstm.LAUNCHES["slstm"]
+    with pytest.raises(NotImplementedError, match="item K4"):
+        tslstm.slstm_scan(pre, r, bias, st)
+    with torch.no_grad():
+        tslstm.slstm_scan(pre, r, bias, st)
+    assert tslstm.LAUNCHES["slstm"] == before + 1
+    (pre, r, bias), st = _slstm_inputs(cuda, 1, 8, 4, 48, torch.float32, 0)
+    with pytest.raises(ValueError, match="dh in"):
+        tslstm.slstm_scan(pre, r, bias, st)
+    (pre, r, bias), st = _slstm_inputs(cuda, 1, 8, 4, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tslstm.slstm_scan(pre, r.transpose(2, 3), bias, st)
+    with pytest.raises(TypeError, match="one dtype"):
+        tslstm.slstm_scan(pre, r.bfloat16(), bias, st)
+    with pytest.raises(ValueError, match="lie on different|all on one"):
+        tslstm.slstm_scan(pre, r, bias, tuple(t.cpu() for t in st))

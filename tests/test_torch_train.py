@@ -193,14 +193,6 @@ def test_pallas_swa_refuses_under_autograd(ref_params):
         TM.loss_fn(tcfg, params, batch)
 
 
-def test_loss_refuses_what_is_not_ported():
-    from repro_torch.models.common import FrontendStub
-
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TM.loss_fn(dataclasses.replace(tcfg, frontend=FrontendStub("vision", 4, 32)), {}, {})
-
-
 # ---------------------------------------------------------------------------
 # the kernels' pytree wrappers
 # ---------------------------------------------------------------------------
