@@ -40,7 +40,9 @@ error:
    the selective scan (hybrid blocks' Mamba heads; no TPU kernel) at
    hymba's prefill (1, 32768, 3200, 16) in bf16 and at (1, 8192, 3200, 16)
    in fp32, each against its plain version and an fp64 recurrence on 256
-   channels, bit-equal from run to run, with its registers and stack; the
+   channels, bit-equal from run to run, with its registers and stack (none
+   required) and its ``MUFU.EX2`` count a (step, state) in the step loop's
+   SASS (one required); the
    sLSTM recurrence (xLSTM's sLSTM blocks; no TPU kernel) at xlstm-125m's
    heads (1, 4096, 4, 4, 192) in bf16 and fp32, against its plain per-step
    loop, bit-equal from run to run, the fp32 kernel's error against an fp64
@@ -338,11 +340,47 @@ def card_line(query: str = "name,power.limit") -> str:
     return out.stdout.strip()
 
 
+def _loop_count(sass: str, opcode: str) -> int:
+    """Occurrences of ``opcode`` in the innermost loop of a function's SASS
+    (the span from a label to the last backward branch to it) that holds
+    any, or 0."""
+    import re
+
+    at: dict[str, int] = {}
+    pending: list[str] = []
+    code: list[tuple[int, str]] = []
+    for line in sass.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            at.update((name, addr) for name in pending)
+            pending = []
+            code.append((addr, ins.group(2)))
+    loops = []
+    for addr, text in code:
+        bra = re.search(r"\bBRA\b[^`0]*(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+        if bra:
+            target = at.get(bra.group(1)) if bra.group(1) else int(bra.group(2), 16)
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+    pattern = re.compile(rf"\b{re.escape(opcode)}\b")
+    counts = sorted((end - start, sum(1 for a, t in code if start <= a <= end
+                                      and pattern.search(t)))
+                    for start, end in loops)
+    return next((n for _, n in counts if n), 0)
+
+
 def kernel_resources(lib: Path) -> dict[str, dict]:
     """Per kernel function of the built library (mangled names shortened to
     the function's name and template argument): registers from
-    ``cuobjdump -res-usage`` (and its stack frame, where spills go) and the
-    tensor-core instructions in its SASS (``cuobjdump -sass``), by opcode."""
+    ``cuobjdump -res-usage`` (and its stack frame, where spills go), the
+    tensor-core instructions in its SASS (``cuobjdump -sass``), by opcode,
+    and its ``MUFU.EX2`` instructions, in all and in the innermost loop
+    that holds one (``_loop_count``)."""
     import re
 
     from repro_torch.kernels import build
@@ -380,6 +418,8 @@ def kernel_resources(lib: Path) -> dict[str, dict]:
         ops = re.findall(r"\b((?:HGMMA|HMMA)\.[A-Z0-9x.]+)", block)
         facts.setdefault(name, {})["tensor_ops"] = dict(
             sorted((op, ops.count(op)) for op in set(ops)))
+        facts[name]["mufu_ex2"] = len(re.findall(r"\bMUFU\.EX2\b", block))
+        facts[name]["mufu_ex2_loop"] = _loop_count(block, "MUFU.EX2")
     return facts
 
 
@@ -670,7 +710,7 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     rows.update(_swa_fp32_rows(torch, dev, gen, res, variant_libs))
     rows.update(_swa_rows(torch, dev, gen, variant_libs["swa_attention_tc"]))
     rows["swa_attention_tc"].update(_swa_hymba_row(torch, dev, gen))
-    rows.update(_scan_rows(torch, dev, gen))
+    rows.update(_scan_rows(torch, dev, gen, res))
     rows.update(_slstm_rows(torch, dev, gen, res, variant_libs["slstm_sync_probe"]))
     return rows
 
@@ -1497,7 +1537,8 @@ def _swa_hymba_row(torch, dev, gen) -> dict:
 # the selective-scan kernel (hybrid blocks' Mamba heads; no TPU kernel) at
 # hymba-1.5b's prefill, (B, S, d_inner, n), in bf16, and an fp32 shape;
 # against its plain version within rtol SCAN_RTOL and SCAN_ATOL of the
-# output's scale (the chunk carries multiply the decays in another order),
+# output's scale (the kernel's exps are MUFU.EX2's of dt a log2(e), its
+# products fused, its sums in another order),
 # and against an fp64 recurrence on the first SCAN_CHECK_CHANNELS channels
 # within max(SCAN_FP64_VS_PLAIN x the plain version's error, SCAN_FP64_FLOOR
 # of the scale)
@@ -1513,7 +1554,7 @@ MUFU_PER_CLOCK = 16
 # dtx b, the add, h c and its sum
 SCAN_FLOPS = 6
 SCAN_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "ms", "device_ms", "plain_ms",
-               "bound_ms", "bound_by")
+               "bound_ms", "bound_by", "plan", "registers", "mufu_ex2_step")
 
 
 def _scan_inputs(torch, dev, gen, shape, dtype):
@@ -1569,12 +1610,14 @@ def scan_bound(torch, dev, shape, elem_bytes: int) -> tuple[float, str, str]:
     return max(t_exp, t_ops), "operations", text
 
 
-def _scan_row(torch, dev, gen, shape, dtype) -> dict:
+def _scan_row(torch, dev, gen, shape, dtype, res: dict[str, dict]) -> dict:
     """The scan wrapper at ``shape`` in ``dtype`` against its plain version
     (timed once: one launch a step and op) and an fp64 recurrence on a
     channel slice, the same bits from two calls, with its event-timed
-    ``ms``, ``device_ms`` (the profiler's records of its passes) and the
-    bound."""
+    ``ms``, ``device_ms`` (the profiler's records of its launch), the
+    bound, and from ``res`` (``kernel_resources``) its registers, stack (none
+    allowed) and MUFU.EX2 count in the step loop (one a step and state
+    required)."""
     from repro_torch.kernels.scan import ops as scan_ops
     from repro_torch.kernels.scan.ref import selective_scan_ref
 
@@ -1605,22 +1648,32 @@ def _scan_row(torch, dev, gen, shape, dtype) -> dict:
     check(same, f"{label}: not the same bits from run to run")
     check(fp64["kernel"] <= limit, f"{label}: max abs err against fp64 {fp64['kernel']:.3g} "
                                    f"> {limit:.3g} (plain version's {fp64['plain']:.3g})")
-    bsz, s, di, _ = shape
-    _, n_chunks = scan_ops.device_plan(bsz, s, di, dev)
-    names = scan_ops.kernel_names(n_chunks)
+    bsz, _, di, _ = shape
+    plan = scan_ops.device_plan(bsz, di, x.element_size(), dev)
+    slots = scan_ops.MAX_STATE // scan_ops.LANES
+    fn = f"{scan_ops.KERNEL}<{'bf16' if dtype == torch.bfloat16 else 'float'}>"
+    facts = res.get(fn, {})
+    per_step = facts.get("mufu_ex2_loop", 0) / (scan_ops.TILE * slots)
+    check(facts.get("stack") == 0, f"{label}: {fn} has a stack frame of {facts.get('stack')} B "
+                                   f"(spills) or none was read: {facts}")
+    check(per_step == 1, f"{label}: {facts.get('mufu_ex2_loop')} MUFU.EX2 in {fn}'s step loop "
+                         f"of {scan_ops.TILE} steps x {slots} states, not one each")
     b_ms, b_by, b_text = scan_bound(torch, dev, shape, x.element_size())
     row = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
            "fp64_max_abs_err": fp64["kernel"], "fp64_max_abs_err_plain": fp64["plain"],
            "tolerance": f"rtol {SCAN_RTOL}, atol {SCAN_ATOL} x max|y|",
-           "chunks": list(scan_ops.device_plan(bsz, s, di, dev)),
+           "plan": list(plan), "registers": facts.get("registers"), "mufu_ex2_step": per_step,
            "ms": time_ms(torch, lambda: scan_ops.selective_scan(*ins)),
-           "device_ms": kernel_device_ms(torch, lambda: scan_ops.selective_scan(*ins), names,
-                                         launches=len(names)),
+           "device_ms": kernel_device_ms(torch, lambda: scan_ops.selective_scan(*ins),
+                                         (scan_ops.KERNEL,)),
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     print(f"kernel {label}: max abs err {err:.3g} of max|y| {scale:.3g} (tol rtol {SCAN_RTOL}, "
           f"atol {SCAN_ATOL} x max|y|), against fp64 on {SCAN_CHECK_CHANNELS} channels "
           f"{fp64['kernel']:.3g} (plain {fp64['plain']:.3g}, limit {limit:.3g}), two calls "
-          f"bit-equal; {n_chunks} chunks of {row['chunks'][0]} steps; kernel_ms "
+          f"bit-equal; {plan.groups} blocks a row of {plan.warps} warps, {slots} states a "
+          f"lane; {fn}: {facts.get('registers')} registers, stack {facts.get('stack')} B, "
+          f"{facts.get('mufu_ex2_loop')} MUFU.EX2 in the step loop ({per_step:g} a step and "
+          f"state; {facts.get('mufu_ex2')} in all); kernel_ms "
           f"{row['ms']:.4f} device_ms {row['device_ms']:.4f} plain_ms {plain_ms:.1f} (one "
           f"call: a loop over S) library_ms null (no PyTorch call computes a selective scan) "
           f"bound_ms {b_ms:.4f} ({b_by}; {b_text}); device {b_ms / row['device_ms']:.3f} of "
@@ -1629,11 +1682,12 @@ def _scan_row(torch, dev, gen, shape, dtype) -> dict:
     return row
 
 
-def _scan_rows(torch, dev, gen) -> dict[str, dict]:
+def _scan_rows(torch, dev, gen, res: dict[str, dict]) -> dict[str, dict]:
     """The scan kernel's row: hymba's prefill shape in bf16, and an fp32
     shape (suffix ``_fp32``)."""
-    row = {"name": "selective_scan", **_scan_row(torch, dev, gen, SCAN_SHAPE, torch.bfloat16)}
-    fp32 = _scan_row(torch, dev, gen, SCAN_FP32_SHAPE, torch.float32)
+    row = {"name": "selective_scan",
+           **_scan_row(torch, dev, gen, SCAN_SHAPE, torch.bfloat16, res)}
+    fp32 = _scan_row(torch, dev, gen, SCAN_FP32_SHAPE, torch.float32, res)
     row.update({f"{k}_fp32": fp32[k] for k in SCAN_FIELDS})
     return {"selective_scan": row}
 
@@ -5115,8 +5169,7 @@ REPO_KERNELS = ("trigger_sq_slab_kernel", "trigger_sq_rows_kernel", "mix_kernel"
                 "mix_sparse_kernel", "compact_slots_kernel", "mix_sparse_wide_kernel",
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
                 "swa_tc_kernel", "swa_tf32_kernel", "mix_bf16_kernel",
-                "mix_sparse_bf16_kernel", "selective_scan_state_kernel",
-                "selective_scan_carry_kernel", "selective_scan_out_kernel", "slstm_kernel")
+                "mix_sparse_bf16_kernel", "selective_scan_kernel", "slstm_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -5332,7 +5385,8 @@ def main() -> int:
                                    "library_ms_router", "bound_ms_router",
                                    "shape_hymba", "ms_hymba", "device_ms_hymba",
                                    "library_ms_hymba", "bound_ms_hymba",
-                                   "bound_share_hymba", "hybrid_launches", "chunks",
+                                   "bound_share_hymba", "hybrid_launches", "plan",
+                                   "registers", "mufu_ex2_step",
                                    "serial_floor_ms", "sync_loop_ms", "fp64_reference",
                                    "serve_cpu_launches",
                                    *(f"{k}{suffix}" for suffix in TRIGGER_SUFFIXES

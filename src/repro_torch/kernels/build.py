@@ -44,8 +44,8 @@ _SIGNATURES = {
     "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tc_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tf32_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
-    "repro_selective_scan_f32": (*(_P,) * 7, *(_I64,) * 6, _P),
-    "repro_selective_scan_bf16": (*(_P,) * 7, *(_I64,) * 6, _P),
+    "repro_selective_scan_f32": (*(_P,) * 6, *(_I64,) * 7, _P),
+    "repro_selective_scan_bf16": (*(_P,) * 6, *(_I64,) * 7, _P),
     "repro_slstm_f32": (*(_P,) * 12, *(_I64,) * 4, _P),
     "repro_slstm_bf16": (*(_P,) * 12, *(_I64,) * 4, _P),
 }

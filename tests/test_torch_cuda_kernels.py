@@ -555,9 +555,15 @@ def test_bf16_wrappers_reject_other_dtypes(cuda):
 
 # ---- the selective scan (hybrid blocks' Mamba heads) ------------------------
 
-# (B, S, di, n): one step, several batch rows, n = 8, and hymba's channels
-# with S off the chunk and di off the block
-SCAN_SHAPES = [(1, 1, 8, 16), (2, 300, 96, 16), (3, 1000, 200, 8), (1, 4097, 3200, 16)]
+# (B, S, di, n): one step, several batch rows, n = 8, hymba's channels with
+# S off the 32-step tile; B = 8 (more recurrences than the card holds lanes
+# at once), n = 5 (odd: a lane's second state empty), di off the blocks'
+# 4-channel units (a last unit of one channel; rows off 16-byte bounds, so
+# the wrapper pads them for the TMA), and B = 5 and 16 at hymba's channels
+# (the plan's widest blocks: 7 warps in fp32, 8 in bf16)
+SCAN_SHAPES = [(1, 1, 8, 16), (2, 300, 96, 16), (3, 1000, 200, 8), (1, 4097, 3200, 16),
+               (8, 300, 3200, 16), (2, 500, 64, 5), (1, 700, 1001, 16), (5, 64, 3200, 16),
+               (16, 40, 3200, 16)]
 
 
 def _scan_inputs(cuda, shape, dtype, seed: int):
@@ -577,9 +583,10 @@ def _scan_inputs(cuda, shape, dtype, seed: int):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
 def test_selective_scan_kernel_matches_plain(cuda, shape, dtype):
-    """Within rtol 1e-4 and 1e-5 of the output's scale (the chunk carries
-    multiply the decays in another order than the plain loop), and the same
-    bits from two calls."""
+    """Within rtol 1e-4 and 1e-5 of the output's scale (the kernel's exps
+    are MUFU.EX2's of dt a log2(e), its products fused and its sums in
+    another order than the plain loop's), and the same bits from two
+    calls."""
     ins = _scan_inputs(cuda, shape, dtype, sum(shape))
     before = tscan.LAUNCHES["selective_scan"]
     got = tscan.selective_scan(*ins)
@@ -603,6 +610,48 @@ def test_selective_scan_kernel_nan_where_plain_is(cuda, shape, dtype):
     want = selective_scan_ref(x, dt, b, c, a_log)
     assert int(want.isnan().sum()) == s - s // 2
     assert torch.equal(got.isnan(), want.isnan())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 300, 96, 16), (2, 500, 64, 5)])
+def test_selective_scan_kernel_non_finite_where_plain_is(cuda, shape, dtype):
+    """An inf in x at one (t, d) of the last batch row, and a dt there at
+    the next step whose decays lie below 2^-126 for the smallest |a|: the
+    outputs are non-finite where the plain loop's are (from t on in channel
+    d), and equal within the kernel's tolerance elsewhere.  The kernel
+    flushes those decays to 0, so an inf state there turns NaN where the
+    plain loop may keep it inf."""
+    bsz, s, di, _ = shape
+    x, dt, b, c, a_log = _scan_inputs(cuda, shape, dtype, 9)
+    x[bsz - 1, s // 2, di // 3] = float("inf")
+    dt[bsz - 1, s // 2 + 1, di // 3] = 95.0
+    got = tscan.selective_scan(x, dt, b, c, a_log)
+    want = selective_scan_ref(x, dt, b, c, a_log)
+    assert int((~want.isfinite()).sum()) == s - s // 2
+    assert torch.equal(got.isfinite(), want.isfinite())
+    fin = want.isfinite()
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4,
+                               atol=1e-5 * float(want[fin].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_rows_off_16_byte_bounds(cuda, dtype):
+    """x and dt starting one element past a 16-byte bound (contiguous views
+    into a larger buffer): the wrapper copies them into rows the TMA takes,
+    and the output has the same bits as from aligned copies."""
+    shape = (2, 300, 96, 16)
+    ins = _scan_inputs(cuda, shape, dtype, 3)
+    off = []
+    for t in ins[:2]:
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        off.append(view)
+    got = tscan.selective_scan(*off, *ins[2:])
+    assert torch.equal(got, tscan.selective_scan(*ins))
 
 
 @pytest.mark.gpu

@@ -5,8 +5,10 @@ CPU.
 ``_mamba_inner`` (the conv output bit-equal in bf16), ``mamba_seq`` and
 ``mamba_decode`` (step by step from a reference cache carried across); the
 selective-scan wrapper's plain version against an fp64 recurrence, its NaN
-propagation, its refusals, the kernel's chunk plan and a numpy replay of
-the kernel's three passes; the block types ``hybrid``, ``hybrid_g`` and
+propagation, its refusals, the kernel's launch plan (every channel and
+state on one lane of one block) and a numpy replay of the kernel's lane
+arithmetic (exps of dt a log2(e), fused products, y summed over a lane's
+states, then pairwise over the lanes); the block types ``hybrid``, ``hybrid_g`` and
 ``mamba`` (init bits, ``block_seq``, ``block_decode``); then hymba-1.5b's
 smoke configuration end to end with ``attn_impl="pallas_swa"`` (the
 reference's Pallas kernel in interpret mode, the port's plain versions):
@@ -326,60 +328,105 @@ PLAN_SHAPES = [(1, 1, 8), (2, 300, 96), (3, 1000, 200), (1, 4097, 3200), (1, 327
 
 
 @pytest.mark.parametrize("b,s,di", PLAN_SHAPES)
-def test_chunk_plan_covers_time_in_whole_tiles(b, s, di):
-    chunk, n_chunks = tscan.chunk_plan(b, s, di, 132)
-    assert 1 <= n_chunks <= 65535
-    assert (n_chunks - 1) * chunk < s <= n_chunks * chunk  # the last chunk non-empty
-    assert n_chunks == 1 or chunk >= tscan.MIN_CHUNK
-    if (b, s, di) == (1, 32768, 3200):  # hymba's prefill: 25 x 85 blocks
-        assert (chunk, n_chunks) == (386, 85)
-    assert tscan.kernel_names(n_chunks) == (tscan.KERNELS if n_chunks > 1 else
-                                            ("selective_scan_out_kernel",))
+def test_scan_plan_covers_every_state_once(b, s, di):
+    """The kernel's grid on 132 SMs, for fp32 and bf16 inputs: each batch
+    row's channels cut into contiguous ranges of whole units of CHANNELS
+    (but the last) that each fit a block and fill its warps, a warp a unit,
+    within the shared memory a block may take; a channel's states on LANES
+    lanes of one warp (a lane holds MAX_STATE // LANES consecutive ones),
+    LANES dividing a warp; the grid within its limits; at hymba's prefill
+    one block an SM, of 6 or 7 units (24 or 28 channels)."""
+    assert 32 % tscan.LANES == 0 and tscan.CHANNELS * tscan.LANES == 32
+    units = -(-di // tscan.CHANNELS)
+    slots = tscan.MAX_STATE // tscan.LANES
+    for itemsize in (4, 2):
+        plan = tscan.scan_plan(b, di, itemsize, 132)
+        assert 1 <= plan.warps <= tscan.MAX_WARPS
+        assert tscan.smem_bytes(plan.warps, itemsize) <= tscan.SMEM_LIMIT
+        assert 1 <= plan.groups <= min(units, 2 ** 31 - 1) and b <= 65535
+        ubounds = np.array([g * units // plan.groups for g in range(plan.groups + 1)])
+        bounds = np.minimum(ubounds * tscan.CHANNELS, di)  # channels
+        sizes = np.diff(ubounds)
+        assert bounds[0] == 0 and bounds[-1] == di and np.diff(bounds).min() >= 1
+        assert sizes.max() == plan.warps  # the widest block's units fill its warps
+        if (b, s, di) == (1, 32768, 3200):
+            assert plan.groups == 132 and set(np.diff(bounds).tolist()) == {24, 28}
+    for n in (1, 5, 8, 9, 16):
+        owner = [(j // slots, j % slots) for j in range(n)]  # (lane, slot)
+        assert len(set(owner)) == n and max(lane for lane, _ in owner) < tscan.LANES
 
 
-def _chunked_replay(x, dt, b, c, a_log, chunk: int, n_chunks: int) -> np.ndarray:
-    """The kernel's three passes in numpy fp32: each chunk but the last from
-    a zero state (its end state H_k and decay product P_k), the carry (slot
-    k holds the state entering chunk k + 1: H_0, then P_k slot(k-1) + H_k),
-    and every chunk again from its carried state."""
-    f = lambda t: t.float().numpy()  # noqa: E731
-    dtx, dtf, bf, cf = f(dt * x), f(dt), f(b), f(c)
-    a = -np.exp(f(a_log))
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("b,di", [(5, 3200), (16, 3200), (1024, 28), (1024, 3200)])
+def test_scan_plan_fits_shared_memory(b, di, itemsize):
+    """Shapes whose plan takes the widest blocks: their shared memory (as
+    the kernel lays it out) within the H100's 227 KiB a block.  In fp32 a
+    block of MAX_WARPS warps would not fit (235776 bytes), so fp32 blocks
+    stop at 7 warps and bf16 ones at 8."""
+    plan = tscan.scan_plan(b, di, itemsize, 132)
+    widest = 7 if itemsize == 4 else 8
+    assert plan.warps == min(widest, -(-di // tscan.CHANNELS))
+    assert tscan.smem_bytes(plan.warps, itemsize) <= tscan.SMEM_LIMIT
+    assert tscan.smem_bytes(tscan.MAX_WARPS, 4) == 235776 > tscan.SMEM_LIMIT
+    assert tscan.smem_bytes(tscan.MAX_WARPS, 2) == 170240
+
+
+def _fma(p, q, r) -> np.ndarray:
+    """fma(p, q, r) on fp32 values: the fp64 product and sum, rounded once
+    to fp32."""
+    return (p.astype(np.float64) * q.astype(np.float64) + r).astype(np.float32)
+
+
+def _lane_replay(x, dt, b, c, a_log) -> np.ndarray:
+    """The kernel's arithmetic in numpy: a2 = fp32(a log2(e)); the decay is
+    2^fp32(dt a2) (exp2 rounded to fp32, flushed to 0 below 2^-126 as
+    ex2.approx.ftz flushes); h = fma(decay, h, fp32(dt x b)); each lane's
+    part of y sums its MAX_STATE // LANES consecutive states in order (fma after
+    the first product), and the LANES parts of a channel sum pairwise in
+    lane order."""
+    f32 = np.float32
+    dtx, dtf = (dt * x).float().numpy(), dt.float().numpy()
+    a = -np.exp(a_log.float().numpy())
     bsz, s, di = x.shape
-
-    def run(k, h, out):
-        p = np.ones_like(h)
-        for t in range(k * chunk, min(s, (k + 1) * chunk)):
-            decay = np.exp(dtf[:, t, :, None] * a)
-            h = decay * h + dtx[:, t, :, None] * bf[:, t, None, :]
-            p = p * decay
-            if out is not None:
-                out[:, t] = (h * cf[:, t, None, :]).sum(-1)
-        return h, p
-
-    zero = np.zeros((bsz, di, a.shape[1]), np.float32)
-    ends = [run(k, zero, None) for k in range(n_chunks - 1)]
-    slots = []
-    for k, (h_end, p) in enumerate(ends):
-        slots.append(h_end if k == 0 else p * slots[-1] + h_end)
-    y = np.zeros(x.shape, np.float32)
-    for k in range(n_chunks):
-        run(k, zero if k == 0 else slots[k - 1], y)
+    n = a.shape[1]
+    slots = tscan.MAX_STATE // tscan.LANES
+    pad = ((0, 0), (0, 0), (0, tscan.LANES * slots - n))
+    a2 = np.pad((a * f32(np.log2(np.e))).astype(f32)[None], pad)[0]
+    bp, cp = (np.pad(t.float().numpy(), pad) for t in (b, c))
+    h = np.zeros((bsz, di, tscan.LANES * slots), f32)
+    y = np.empty((bsz, s, di), f32)
+    for t in range(s):
+        decay = np.exp2((dtf[:, t, :, None] * a2).astype(np.float64)).astype(f32)
+        decay[decay < 2.0 ** -126] = 0.0
+        h = _fma(decay, h, dtx[:, t, :, None] * bp[:, t, None, :])
+        hl = h.reshape(bsz, di, tscan.LANES, slots)
+        cl = np.broadcast_to(cp[:, t, None, :], h.shape).reshape(hl.shape)
+        part = hl[..., 0] * cl[..., 0]
+        for k in range(1, slots):
+            part = _fma(cl[..., k], hl[..., k], part)
+        while part.shape[-1] > 1:  # pairwise in lane order
+            part = part[..., 0::2] + part[..., 1::2]
+        y[:, t] = part[..., 0]
     return y
 
 
-@pytest.mark.parametrize("shape,sms", [((2, 300, 96, 16), 132), ((1, 257, 8, 16), 132),
-                                       ((3, 200, 40, 8), 4)])
-def test_chunked_passes_replay_the_recurrence(shape, sms):
-    """The kernel's chunk plan and passes, replayed in numpy, against the
-    sequential plain version: the carried states multiply the decays in
-    another order, so within rtol 1e-4 and 1e-5 of the output's scale."""
-    ins = _scan_inputs(shape, torch.float32, 5)
-    chunk, n_chunks = tscan.chunk_plan(*shape[:3], sms)
-    assert n_chunks > 1
-    got = _chunked_replay(*ins, chunk, n_chunks)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 70, 24, 16), (3, 40, 12, 8), (1, 45, 10, 5),
+                                   (2, 33, 6, 12)])
+def test_lane_arithmetic_replays_the_recurrence(shape, dtype):
+    """The kernel's arithmetic, replayed in numpy, against the sequential
+    plain version within the kernel's tolerance on the card (rtol 1e-4 and
+    1e-5 of the output's scale: the exps are of dt a log2(e), the products
+    fused, the sums in another order), and no farther from an fp64
+    recurrence than 2 x the plain version or 1e-6 of the scale (the card's
+    fp64 gate)."""
+    ins = _scan_inputs(shape, dtype, 5)
+    got = _lane_replay(*ins)
     want = selective_scan_ref(*ins).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+    exact = _scan_fp64(*ins)
+    limit = max(2 * np.abs(want - exact).max(), 1e-6 * np.abs(exact).max())
+    assert np.abs(got - exact).max() <= limit
 
 
 # ---------------------------------------------------------------------------
