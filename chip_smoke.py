@@ -48,9 +48,9 @@ error:
    loop, bit-equal from run to run, the fp32 kernel's error against an fp64
    recurrence within 2 x the plain fp32 loop's and the bf16 kernel's
    distance from the fp32 recurrence within 2 x the plain bf16 loop's, with
-   its registers, the byte and operation bound and the serial floor (S x
+   its registers, the byte and operation bound and two serial floors (S x
    one step's product + the per-step signalling between the cluster's
-   CTAs alone, timed);
+   CTAs alone, timed: at a fixed yardstick shape and at the kernel's own);
 3. golden: the m=8 golden configurations of
    ``tests/test_golden_trajectory.py`` (svm and ``mlp_blocks``) on the
    card under ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
@@ -1698,8 +1698,14 @@ SLSTM_SHAPE = (1, 4096, 4, 192)  # xlstm-125m's sLSTM heads: B, S, H, dh
 # floor
 SLSTM_FP64_VS_PLAIN, SLSTM_FLOOR = 2.0, 1e-6
 SLSTM_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "fp64_max_abs_err_plain", "ms",
-                "device_ms", "plain_ms", "bound_ms", "bound_by", "serial_floor_ms",
-                "sync_loop_ms")
+                "device_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
+                "serial_floor_ms", "sync_loop_ms", "serial_floor_ms_design",
+                "sync_loop_ms_design")
+# the serial floor's yardstick, fixed across designs: the first sLSTM
+# kernel's launch shape at dh 192, a cluster of 4 CTAs of 12 warps meeting
+# at a block barrier a step (the kernel's own shape gives
+# serial_floor_ms_design beside it)
+SLSTM_FLOOR_CLUSTER, SLSTM_FLOOR_WARPS = 4, 12
 
 
 def _slstm_inputs(torch, dev, gen, shape, dtype):
@@ -1735,26 +1741,28 @@ def slstm_fp64(torch, pre, r, b, st):
     return hs
 
 
-def slstm_bound(torch, dev, shape, elem_bytes: int) -> tuple[float, str, float, str]:
+def slstm_bound(torch, dev, shape, elem_bytes: int, clusters: tuple[int, ...]
+                ) -> tuple[float, str, list[float], str]:
     """The sLSTM kernel's two bounds at ``shape``: (bound_ms, bound_by), the
     bytes (pre_x, R and the bias read once, hs and the state written once,
     the state read once) over the memory rate against 2 x 4 H dh^2 S B fp32
-    operations at the fp32 peak; and the serial floor's product part: S
-    times one step's product on one CTA of the cluster, 4 dh (dh / cluster)
-    FMAs at one SM's share of the fp32 peak (the signalling part is timed)."""
-    from repro_torch.kernels.slstm import ops as slstm_ops
-
+    operations at the fp32 peak; and the serial floor's product part for
+    each cluster size in ``clusters``: S times one step's product on one
+    CTA of the cluster, 4 dh (dh / cluster) FMAs at one SM's share of the
+    fp32 peak (the signalling part is timed)."""
     bsz, s, h, dh = shape
     nbytes = (bsz * s * 4 * h * dh + 4 * h * dh * dh + 4 * h * dh) * elem_bytes \
         + bsz * s * h * dh * 4 + 2 * 4 * bsz * h * dh * 4
     flops = 2 * 4 * h * dh * dh * s * bsz
     b_ms, b_by = bound(nbytes, flops)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_step = 2 * 4 * dh * (dh // slstm_ops.CLUSTER[dh]) / (FP32_FLOPS / sms) * 1e3
+    per_step = [2 * 4 * dh * (dh // nc) / (FP32_FLOPS / sms) * 1e3 for nc in clusters]
     text = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}, fp32 operations "
-            f"{flops / FP32_FLOPS * 1e3:.4f}; serial product floor {s} x {per_step * 1e3:.4f} "
-            f"us (4 x {dh} x {dh // slstm_ops.CLUSTER[dh]} FMAs at 1/{sms} of the fp32 peak)")
-    return b_ms, b_by, s * per_step, text
+            f"{flops / FP32_FLOPS * 1e3:.4f}; serial product floor "
+            + ", ".join(f"{s} x {ps * 1e3:.4f} us (4 x {dh} x {dh // nc} FMAs at 1/{sms} of "
+                        f"the fp32 peak, a cluster of {nc})"
+                        for nc, ps in zip(clusters, per_step)))
+    return b_ms, b_by, [s * ps for ps in per_step], text
 
 
 def _timed_plain(torch, ins):
@@ -1769,24 +1777,27 @@ def _timed_plain(torch, ins):
     return hs, (time.perf_counter() - t0) * 1e3
 
 
-def _slstm_sync_ms(torch, dev, path: Path, shape) -> float:
-    """Event-timed ms of the sLSTM kernel's launch shape running S steps of
-    its per-step synchronisation alone, no arithmetic (the serial floor's
-    signalling part): ``repro_slstm_sync_loop`` of ``slstm.cu`` built with
-    -DSLSTM_SYNC_PROBE (``VARIANT_BUILDS``) at ``path``."""
+def _slstm_sync_ms(torch, dev, path: Path, shape, cluster: int, warps: int,
+                   per_warp: bool) -> float:
+    """Event-timed ms of a launch shape (``cluster`` CTAs of ``warps`` warps
+    for each (row, head) of ``shape``) running S steps of a per-step
+    synchronisation alone, no arithmetic (a serial floor's signalling part):
+    ``repro_slstm_sync_loop`` of ``slstm.cu`` built with -DSLSTM_SYNC_PROBE
+    (``VARIANT_BUILDS``) at ``path``.  ``per_warp`` False: the yardstick's
+    protocol (a block barrier, then one thread sends a value to every
+    CTA); True: this kernel's (each warp waits, then for each of its 4
+    units one lane a CTA sends 4 bytes to that CTA)."""
     import ctypes
 
-    from repro_torch.kernels.slstm import ops as slstm_ops
-
-    bsz, s, h, dh = shape
+    bsz, s, h, _ = shape
     fn = ctypes.CDLL(str(path)).repro_slstm_sync_loop
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    scratch = torch.empty((bsz * h * slstm_ops.CLUSTER[dh],), dtype=torch.float32, device=dev)
+    scratch = torch.empty((bsz * h * cluster,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        err = fn(scratch.data_ptr(), bsz, s, h, dh, stream)
+        err = fn(scratch.data_ptr(), bsz, s, h, cluster, warps, int(per_warp), stream)
         check(err == 0, f"slstm sync probe: launch error {err}")
 
     return time_ms(torch, launch, reps=10)
@@ -1800,9 +1811,13 @@ def _slstm_row(torch, dev, ins, res: dict, sync_lib: Path, plain=None, exact=Non
     against an fp64 recurrence within SLSTM_FP64_VS_PLAIN x the plain fp32
     loop's; bf16, its distance from the fp32 recurrence (``exact``) within
     that multiple of the plain bf16 loop's.  Event-timed ``ms``,
-    ``device_ms`` from the profiler, the bound and the serial floor (S x
-    one step's product + the kernel's per-step synchronisation alone,
-    timed on the probe build at ``sync_lib``: ``_slstm_sync_ms``)."""
+    ``device_ms`` from the profiler, the bound and two serial floors (S x
+    one step's product + a per-step synchronisation alone, timed on the
+    probe build at ``sync_lib``: ``_slstm_sync_ms``): the fixed yardstick
+    (``serial_floor_ms``: SLSTM_FLOOR_CLUSTER CTAs of SLSTM_FLOOR_WARPS
+    warps, a block barrier a step) and this design's own
+    (``serial_floor_ms_design``: its cluster and warps, its per-warp
+    sends)."""
     from repro_torch.kernels.slstm import ops as slstm_ops
 
     pre, r, b, st = ins
@@ -1830,8 +1845,15 @@ def _slstm_row(torch, dev, ins, res: dict, sync_lib: Path, plain=None, exact=Non
                                    f"{dist['kernel']:.3g} > {limit:.3g} (plain loop's "
                                    f"{dist['plain']:.3g})")
     bsz, s, h, dh = shape
-    b_ms, b_by, floor_ms, b_text = slstm_bound(torch, dev, shape, pre.element_size())
-    sync_ms = _slstm_sync_ms(torch, dev, sync_lib, shape)
+    built = slstm_ops.built_layout(dh)  # the design floor's shape, as the kernel is built
+    check(built == slstm_ops.layout(dh), f"{label}: the built layout {built} is not ops' "
+                                         f"mirror {slstm_ops.layout(dh)}")
+    nc, warps = built[:2]
+    b_ms, b_by, (floor_ms, floor_design), b_text = slstm_bound(
+        torch, dev, shape, pre.element_size(), (SLSTM_FLOOR_CLUSTER, nc))
+    sync_ms = _slstm_sync_ms(torch, dev, sync_lib, shape, SLSTM_FLOOR_CLUSTER,
+                             SLSTM_FLOOR_WARPS, per_warp=False)
+    sync_design = _slstm_sync_ms(torch, dev, sync_lib, shape, nc, warps, per_warp=True)
     fn = lambda: slstm_ops.slstm_scan(pre, r, b, st)  # noqa: E731
     row = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
            "fp64_max_abs_err": dist["kernel"], "fp64_max_abs_err_plain": dist["plain"],
@@ -1842,19 +1864,27 @@ def _slstm_row(torch, dev, ins, res: dict, sync_lib: Path, plain=None, exact=Non
            "device_ms": kernel_device_ms(torch, fn, (slstm_ops.KERNEL,), reps=10),
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "serial_floor_ms": floor_ms + sync_ms, "sync_loop_ms": sync_ms,
-           "library_ms": None}
+           "serial_floor_ms_design": floor_design + sync_design,
+           "sync_loop_ms_design": sync_design, "library_ms": None}
+    row["us_per_step"] = row["device_ms"] / s * 1e3
     regs = {k: v for k, v in res.items() if k.startswith("slstm_kernel")}
     print(f"kernel {label}: max abs err on hs against the plain loop {err:.3g}; against "
           f"the {kind} recurrence {dist['kernel']:.3g} (plain loop {dist['plain']:.3g}, "
           f"limit {limit:.3g}); two calls bit-equal; a cluster of "
-          f"{slstm_ops.CLUSTER[dh]} CTAs for each of {bsz * h} (row, head); kernel_ms "
-          f"{row['ms']:.4f} device_ms {row['device_ms']:.4f} ({row['device_ms'] / s * 1e3:.3f} "
-          f"us a step) plain_ms {plain_ms:.1f} (one call: a loop over S) library_ms null (no "
-          f"PyTorch call computes an sLSTM: nn.LSTM has sigmoid gates and no normalizer) "
+          f"{nc} CTAs of {warps} + 1 warps for each of {bsz * h} (row, "
+          f"head); kernel_ms {row['ms']:.4f} device_ms {row['device_ms']:.4f} "
+          f"({row['us_per_step']:.3f} us a step) plain_ms {plain_ms:.1f} (one call: a "
+          f"loop over S) library_ms null (no PyTorch call computes an sLSTM: nn.LSTM has "
+          f"sigmoid gates and no normalizer) "
           f"bound_ms {b_ms:.4f} ({b_by}; {b_text}); serial floor {row['serial_floor_ms']:.4f} "
-          f"ms (product {floor_ms:.4f} + the per-step synchronisation alone {sync_ms:.4f}); "
-          f"device {b_ms / row['device_ms']:.4f} of the bound, "
-          f"{row['serial_floor_ms'] / row['device_ms']:.3f} of the serial floor; registers "
+          f"ms at the yardstick shape (product {floor_ms:.4f} at a cluster of "
+          f"{SLSTM_FLOOR_CLUSTER} + "
+          f"its per-step synchronisation alone {sync_ms:.4f}); this design's floor "
+          f"{row['serial_floor_ms_design']:.4f} ms (product {floor_design:.4f} at a cluster of "
+          f"{nc} + its synchronisation alone {sync_design:.4f}); device "
+          f"{b_ms / row['device_ms']:.4f} of the bound, "
+          f"{row['serial_floor_ms'] / row['device_ms']:.3f} of the serial floor "
+          f"({row['serial_floor_ms_design'] / row['device_ms']:.3f} of its own); registers "
           f"{ {k: v.get('registers') for k, v in regs.items()} }; card right after (SM "
           f"clock, power, temperature): {card_state()}", flush=True)
     return row
@@ -1891,8 +1921,8 @@ PROFILE_BUILDS = {
 
 # every build of a kernel's source with a macro, a library of its own each:
 # the SWA profile builds, the split-TF32 kernel with lo rounded to nearest
-# (phase 2's A/B of the split), and the sLSTM kernel's synchronisation probe
-# (its serial floor's signalling part)
+# (phase 2's A/B of the split), and the sLSTM kernel's synchronisation
+# probe (its serial floors' signalling parts)
 VARIANT_BUILDS = {**{name: (source, macro) for name, (source, macro, *_)
                      in PROFILE_BUILDS.items()},
                   "swa_attention_tf32_rna_lo": ("swa_attention_tf32.cu", "SWA_TF32_RNA_LO"),
@@ -5388,7 +5418,8 @@ def main() -> int:
                                    "bound_share_hymba", "hybrid_launches", "plan",
                                    "registers", "mufu_ex2_step",
                                    "serial_floor_ms", "sync_loop_ms", "fp64_reference",
-                                   "serve_cpu_launches",
+                                   "serial_floor_ms_design", "sync_loop_ms_design",
+                                   "us_per_step", "serve_cpu_launches",
                                    *(f"{k}{suffix}" for suffix in TRIGGER_SUFFIXES
                                      for k in TRIGGER_FIELDS),
                                    *(f"{k}_fp32" for k in SCAN_FIELDS + SLSTM_FIELDS))

@@ -30,7 +30,7 @@ NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
-# C entry points: name -> argtypes; each returns cudaGetLastError() as int
+# C entry points: name -> argtypes; each returns a CUDA error code as int
 _SIGNATURES = {
     "repro_trigger_sq_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "repro_trigger_sq_bf16": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "repro_selective_scan_bf16": (*(_P,) * 6, *(_I64,) * 7, _P),
     "repro_slstm_f32": (*(_P,) * 12, *(_I64,) * 4, _P),
     "repro_slstm_bf16": (*(_P,) * 12, *(_I64,) * 4, _P),
+    "repro_slstm_layout": (_I64, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -14,8 +14,26 @@ A CUDA tensor launches the kernel (contiguous inputs, dh in SUPPORTED_DH)
 and counts it in ``LAUNCHES["slstm"]``, once a call; a failed build or
 launch raises, and nothing falls back.  The kernel has no backward pass:
 under autograd on the card the wrapper raises.  CPU tensors run the plain
-per-step loop in ``ref.py``, which autograd can differentiate."""
+per-step loop in ``ref.py``, which autograd can differentiate.
+
+The kernel runs one thread block cluster of CLUSTER[dh] CTAs a (batch row,
+head), each CTA owning dh / CLUSTER[dh] units of the four gates, in
+``consumer_warps(dh)`` warps of UNITS_A_WARP whole units each and one
+producer warp, which stages pre_x in TILE-step tiles through a ring of
+STAGES stages of shared memory.  Lane part + PARTS unit of a warp keeps R
+of every gate for its part of k (the 16-byte chunks part, part + PARTS, ...
+of h) and sums them in a fixed order (two partial sums a gate); the PARTS
+lanes of a unit then reduce and scatter the four sums by shuffles (xor 4,
+2, 1), so lane part ends with gate (part / 2) % 4 and a unit's gates meet
+in its warp, where its 8 lanes combine them with the state alike.  Lane
+part sends the unit's rounded h into a double buffer of CTA part by
+st.async, and a warp starts the next step when its CTA's mbarrier has seen
+all dh values arrive.  Two buffers suffice: h_{t+2} reaches a buffer only
+from a sender that received all of h_{t+1}, which every warp sent after
+reading h_t there."""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -27,11 +45,37 @@ LAUNCHES = {"slstm": 0}
 
 # head widths the kernel is built for (csrc/slstm.cu's instantiations)
 SUPPORTED_DH = (32, 64, 128, 192)
-# CTAs that share one (batch row, head): a thread block cluster, each CTA
-# owning dh / CLUSTER[dh] units of the four gates (csrc/slstm.cu Plan)
-CLUSTER = {32: 1, 64: 1, 128: 2, 192: 4}
+# The kernel's layout, mirrored from csrc/slstm.cu for the host (the CPU
+# model of its protocol, chip_smoke.py's floors); ``built_layout`` reads
+# the library's own, and the card's tests and chip_smoke.py hold the two
+# equal.  CTAs that share one (batch row, head): a thread block cluster,
+# each CTA owning dh / CLUSTER[dh] units of the four gates (Plan)
+CLUSTER = {32: 2, 64: 4, 128: 8, 192: 8}
+PARTS = 8  # lanes a unit, each summing 1 / PARTS of k for the four gates (kParts)
+UNITS_A_WARP = 32 // PARTS
+TILE, STAGES = 32, 4  # the pre_x ring: steps a stage, stages (kTile, kStages)
 KERNEL = "slstm_kernel"  # the kernel function's name, as the profiler shows it
 _MAX_GRID_Y = 65535
+
+
+def consumer_warps(dh: int) -> int:
+    """Consumer warps a CTA (one producer warp beside them)."""
+    return dh // CLUSTER[dh] // UNITS_A_WARP
+
+
+def layout(dh: int) -> tuple[int, ...]:
+    """(cluster, consumer warps, lanes a unit, steps a ring stage, stages) at
+    head width ``dh``, as this module mirrors them."""
+    return CLUSTER[dh], consumer_warps(dh), PARTS, TILE, STAGES
+
+
+def built_layout(dh: int) -> tuple[int, ...]:
+    """``layout(dh)`` as the built kernel has it (``repro_slstm_layout``;
+    builds the library on first call, so on a machine with the CUDA
+    toolkit)."""
+    out = (ctypes.c_int64 * 5)()
+    build.check(build.library().repro_slstm_layout(dh, out), "slstm layout")
+    return tuple(out)
 
 
 def _check_shapes(pre_x, r_gates, b_gates, state) -> None:
@@ -83,6 +127,8 @@ def slstm_scan(pre_x: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor
         for o, t in zip(out, state):
             o.copy_(t)
         return hs, out
+    if pre_x.data_ptr() % 16:  # its rows arrive by 16-byte bulk copies
+        pre_x = pre_x.clone()
     lib = build.library()
     fn = lib.repro_slstm_bf16 if dtype == torch.bfloat16 else lib.repro_slstm_f32
     err = fn(pre_x.data_ptr(), r_gates.data_ptr(), b_gates.data_ptr(),

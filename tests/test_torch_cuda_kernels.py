@@ -699,17 +699,25 @@ def _slstm_max_err(got, want):
     return max(float((a - w).abs().max()) for a, w in zip((hs, *st), (whs, *wst)))
 
 
+# S on either side of a pre_x ring tile and past a whole ring (the kernel
+# stages TILE steps a stage, STAGES stages)
+SLSTM_RING_STEPS = [(1, tslstm.TILE - 1), (4, tslstm.TILE + 1),
+                    (2, tslstm.STAGES * tslstm.TILE + 1)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s", [(1, 1), (4, 1), (1, 257), (4, 257), (1, 4096), (4, 4096)])
-@pytest.mark.parametrize("dh", [192, 64, 32])
+@pytest.mark.parametrize("b,s", [(1, 1), (4, 1), (1, 257), (4, 257), (1, 4096), (4, 4096),
+                                 *SLSTM_RING_STEPS])
+@pytest.mark.parametrize("dh", [192, 64, 32, 128])
 def test_slstm_kernel_matches_plain(cuda, dh, b, s, dtype):
-    """xlstm-125m's 4 heads of dh 192 (a cluster of 4 CTAs a head), 64 and 32
-    (one CTA), from a nonzero state: one launch, the same bits from two
-    calls; fp32 within 1e-4 of the plain loop (hs and the final state, the
-    recurrent sums in another order); bf16 (where a sum that rounds the
-    other way stays in the state) no farther from the fp32 plain loop than
-    2 x the bf16 plain loop's distance from it, and 1e-3."""
+    """xlstm-125m's 4 heads of dh 192 (a cluster of 8 CTAs a head), 128
+    (8), 64 (4) and 32 (2), from a nonzero state, S on either side of
+    the pre_x ring's tile and past the whole ring: one launch, the same bits
+    from two calls; fp32 within 1e-4 of the plain loop (hs and the final
+    state, the recurrent sums in another order); bf16 (where a sum that
+    rounds the other way stays in the state) no farther from the fp32 plain
+    loop than 2 x the bf16 plain loop's distance from it, and 1e-3."""
     h = 4
     (pre, r, bias), st = _slstm_inputs(cuda, b, s, h, dh, dtype, dh + b + s)
     before = tslstm.LAUNCHES["slstm"]
@@ -731,7 +739,7 @@ def test_slstm_kernel_matches_plain(cuda, dh, b, s, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_slstm_kernel_from_the_model_state_at_dh_128(cuda, dtype):
-    """dh 128 (a cluster of 2 CTAs) from the model's initial state (zeros,
+    """dh 128 (a cluster of 8 CTAs) from the model's initial state (zeros,
     m = -1e30), 300 steps."""
     (pre, r, bias), st = _slstm_inputs(cuda, 2, 300, 3, 128, dtype, 5, zero_state=True)
     got = tslstm.slstm_scan(pre, r, bias, st)
@@ -739,6 +747,31 @@ def test_slstm_kernel_from_the_model_state_at_dh_128(cuda, dtype):
     plain = slstm_scan_ref(pre, r, bias, st)
     limit = 1e-4 if dtype == torch.float32 else max(2 * _slstm_max_err(plain, exact), 1e-3)
     assert _slstm_max_err(got, exact if dtype != torch.float32 else plain) <= limit
+
+
+@pytest.mark.gpu
+def test_slstm_kernel_pre_x_off_a_16_byte_bound(cuda):
+    """pre_x whose data starts one element past a 16-byte bound (its rows
+    arrive by 16-byte bulk copies): the same bits as an aligned copy, one
+    launch each."""
+    (pre, r, bias), st = _slstm_inputs(cuda, 2, 70, 4, 192, torch.bfloat16, 3)
+    off = torch.empty(pre.numel() + 1, dtype=pre.dtype, device=cuda)[1:].view(pre.shape)
+    off.copy_(pre)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    before = tslstm.LAUNCHES["slstm"]
+    got, want = tslstm.slstm_scan(off, r, bias, st), tslstm.slstm_scan(pre, r, bias, st)
+    assert tslstm.LAUNCHES["slstm"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((got[0], *got[1]), (want[0], *want[1])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
+def test_slstm_kernel_layout_is_its_host_mirror(cuda, dh):
+    """The built kernel's layout (cluster, consumer warps, lanes a unit, ring
+    tile and stages: ``repro_slstm_layout``) is the one ``ops`` mirrors for
+    the CPU model of its protocol, the ring-edge cases above and
+    chip_smoke.py's design floor."""
+    assert tslstm.built_layout(dh) == tslstm.layout(dh)
 
 
 @pytest.mark.gpu

@@ -12,7 +12,9 @@ the block types ``mlstm`` and ``slstm``; then xlstm-125m's smoke
 configuration end to end: ``forward``, ``decode_step`` replayed over a
 prompt (fp32, and bf16 against the reference's bf16 decode), ``loss_fn``'s
 gradients against ``jax.grad``, and the full parameter tree's shapes with
-nothing allocated.  The reference runs inside
+nothing allocated; and, without the card, a model of the sLSTM kernel's
+step protocol (its h double buffer, mbarrier phases and pre_x ring) under
+random interleavings.  The reference runs inside
 ``jax.threefry_partitionable(False)``.
 
 Tolerances: fp32 the golden rtol 2e-4 / atol 2e-5 (the same products,
@@ -20,6 +22,7 @@ summed in another order); bf16 layer outputs rtol 2^-7 (one bf16 ulp)
 beside an absolute 2e-2, as ``tests/test_torch_ssm.py`` holds hymba's.
 """
 import dataclasses
+import random
 
 import numpy as np
 import pytest
@@ -357,6 +360,213 @@ def test_slstm_wrapper_card_path_refuses_autograd_widths_and_strides(monkeypatch
     assert set(tslstm.SUPPORTED_DH) == set(tslstm.CLUSTER)
     for dh, nc in tslstm.CLUSTER.items():  # a cluster's CTAs split the units
         assert dh % nc == 0 and nc in (1, 2, 4, 8)
+
+
+# ---- the sLSTM kernel's step protocol (csrc/slstm.cu), modelled ----------
+
+
+class _Mbarrier:
+    """An mbarrier: a phase completes when all its arrivals are in and its
+    transaction count is back to 0 (bytes may land before the arrival that
+    expects them); ``done(parity)`` is try_wait.parity."""
+
+    def __init__(self, count: int):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def arrive(self, expect: int = 0):
+        self.tx += expect
+        self.pending -= 1
+        self._complete()
+
+    def complete_tx(self, nbytes: int):
+        self.tx -= nbytes
+        self._complete()
+
+    def _complete(self):
+        assert self.pending >= 0, "more arrivals than the phase takes"
+        if self.pending == 0 and self.tx == 0:
+            self.phase, self.pending = self.phase + 1, self.count
+
+    def done(self, parity: int) -> bool:
+        return (self.phase & 1) != parity
+
+
+class _SlstmProtocol:
+    """The kernel's synchronisation for one (row, head) cluster, its
+    arithmetic left out: ``nc`` CTAs of ``warps`` consumer warps (each of
+    ``units`` units, whose h goes, 4 bytes a unit, into every CTA) and one
+    producer warp, ``steps`` steps, a pre_x ring of ``stages`` stages of
+    ``tile`` steps.  Each actor is a generator yielding after every action
+    on shared state; st.async stores and bulk copies are events that land
+    later, in any order (a warp's stores into one CTA, one instruction's
+    lanes there, land as one event; every (warp, CTA) pair apart).  ``run``
+    interleaves them at random and asserts: no h slot is overwritten before
+    every warp of its CTA has read the step it holds, every wait sees the
+    phase it waits for and not one past it, and a ring stage is read only
+    whole and refilled only after every consumer has released it.
+    ``fault`` plants a break: "one_h_buffer" (every step's h into one
+    buffer) or "no_empty_wait" (the producer refills without waiting)."""
+
+    def __init__(self, nc, warps, steps, tile, stages, fault=None,
+                 units=tslstm.UNITS_A_WARP):
+        self.nc, self.warps, self.units, self.steps = nc, warps, units, steps
+        self.tile, self.stages, self.fault = tile, stages, fault
+        self.tiles = -(-steps // tile)
+        self.nbuf = 1 if fault == "one_h_buffer" else 2
+        self.h_bytes = 4 * nc * warps * units  # a step's h into one CTA
+        self.ctas = []
+        for _ in range(nc):
+            cta = {"full": [_Mbarrier(1) for _ in range(self.nbuf)],
+                   "landed": [_Mbarrier(1) for _ in range(stages)],
+                   "empty": [_Mbarrier(warps) for _ in range(stages)],
+                   # per buffer and sending warp (rank, warp): the step of
+                   # h its units' slots hold, and the buffer's reads (by
+                   # any warp of the CTA) before it landed
+                   "slot_step": [[0 if b == 0 else None] * (nc * warps)
+                                 for b in range(self.nbuf)],
+                   "slot_base": [[0] * (nc * warps) for _ in range(self.nbuf)],
+                   "reads": [0] * self.nbuf,
+                   "ring_tile": [None] * stages, "ring_rows": [0] * stages,
+                   "released": [warps] * stages}
+            for b in range(self.nbuf):  # the first phase of each buffer, armed
+                cta["full"][b].arrive(self.h_bytes)
+            self.ctas.append(cta)
+        self.events = []  # landings: (cta, sender slot, step) or (cta, None, stage)
+
+    def _wait(self, bar, parity, expect_phase):
+        if not bar.done(parity):
+            yield bar, parity  # blocked until the phase completes
+        assert bar.phase == expect_phase, (
+            f"a wait for phase {expect_phase - 1} saw {bar.phase - 1} complete")
+
+    def consumer(self, rank, warp):
+        cta, slot = self.ctas[rank], rank * self.warps + warp
+        for i in range(self.tiles):
+            s = i % self.stages
+            yield from self._wait(cta["landed"][s], (i // self.stages) & 1,
+                                  i // self.stages + 1)
+            assert cta["ring_tile"][s] == i and cta["ring_rows"][s] == 4 * min(
+                self.tile, self.steps - i * self.tile), "a stage handed out before it is full"
+            for t in range(i * self.tile, min((i + 1) * self.tile, self.steps)):
+                assert cta["ring_tile"][s] == i, "a stage refilled while it is read"
+                yield
+                cur = t % self.nbuf
+                if t > 0:
+                    yield from self._wait(cta["full"][cur], ((t - 1) // self.nbuf) & 1,
+                                          (t - 1) // self.nbuf + 1)
+                    if warp == 0 and t + self.nbuf < self.steps:
+                        cta["full"][cur].arrive(self.h_bytes)
+                        yield
+                held = cta["slot_step"][cur]
+                assert held.count(t) == len(held), f"step {t} read h of steps {set(held)}"
+                cta["reads"][cur] += 1  # the product reads all of h_t
+                yield
+                if t + 1 < self.steps:
+                    self.events += [(q, slot, t + 1) for q in range(self.nc)]
+                    yield
+            cta["released"][s] += 1
+            cta["empty"][s].arrive()
+            yield
+
+    def _land_h(self, q, slot, step):
+        cta = self.ctas[q]
+        b = step % self.nbuf
+        if cta["slot_step"][b][slot] is not None:
+            assert cta["reads"][b] - cta["slot_base"][b][slot] == self.warps, (
+                f"h_{step} overwrote h_{cta['slot_step'][b][slot]} before every warp read it")
+        cta["slot_step"][b][slot], cta["slot_base"][b][slot] = step, cta["reads"][b]
+        cta["full"][b].complete_tx(4 * self.units)
+
+    def producer(self, rank):
+        cta = self.ctas[rank]
+        for i in range(self.tiles):
+            s = i % self.stages
+            if i >= self.stages and self.fault != "no_empty_wait":
+                yield from self._wait(cta["empty"][s], (i // self.stages - 1) & 1,
+                                      i // self.stages)
+            assert cta["released"][s] == self.warps, "a stage refilled before its release"
+            rows = 4 * min(self.tile, self.steps - i * self.tile)
+            cta["released"][s], cta["ring_tile"][s], cta["ring_rows"][s] = 0, i, 0
+            cta["landed"][s].arrive(rows * 16)
+            yield
+            for _ in range(rows):
+                self.events.append((rank, None, s))
+                yield
+
+    def _land_row(self, rank, s):
+        cta = self.ctas[rank]
+        cta["ring_rows"][s] += 1
+        cta["landed"][s].complete_tx(16)
+
+    def run(self, rng: random.Random, max_picks: int = 1_000_000):
+        actors = [self.consumer(q, w) for q in range(self.nc) for w in range(self.warps)]
+        actors += [self.producer(q) for q in range(self.nc)]
+        blocked = [None] * len(actors)  # (mbarrier, parity) an actor waits on
+        events, pick = self.events, rng.random
+        for _ in range(max_picks):
+            n = len(actors)
+            if not (n or events):
+                return
+            k = int(pick() * (n + len(events)))
+            if k >= n:
+                q, slot, x = events.pop(k - n)
+                if slot is None:
+                    self._land_row(q, x)
+                else:
+                    self._land_h(q, slot, x)
+                continue
+            if blocked[k] is not None and not blocked[k][0].done(blocked[k][1]):
+                continue
+            try:
+                blocked[k] = next(actors[k])
+            except StopIteration:
+                actors.pop(k)
+                blocked.pop(k)
+        raise AssertionError("no progress: a wait that never completes")
+
+
+# interleavings a layout: a few hundred, the most at xlstm-125m's (dh 192)
+# and the other cluster of 8 (dh 128)
+_PROTOCOL_RUNS = {32: 200, 64: 200, 128: 300, 192: 300}
+
+
+@pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
+def test_slstm_kernel_protocol_holds_under_random_interleavings(dh):
+    """The kernel's step protocol at its cluster and warp layout for ``dh``
+    (``ops.CLUSTER``, ``ops.consumer_warps``), 5 steps through a ring of 2
+    stages of 2 steps (so the h buffers and the ring both wrap, and each h
+    buffer's mbarrier is re-armed), under seeded random interleavings of the
+    warps and of the stores' and copies' landings: no h slot overwritten
+    before every reader of its step has read it, no wait past its phase, no
+    stage handed out before it is full or refilled before every consumer
+    released it, and no deadlock."""
+    nc, warps = tslstm.CLUSTER[dh], tslstm.consumer_warps(dh)
+    assert nc * warps * tslstm.UNITS_A_WARP == dh  # every unit on one warp
+    for seed in range(_PROTOCOL_RUNS[dh]):
+        _SlstmProtocol(nc, warps, steps=5, tile=2, stages=2).run(random.Random(seed))
+
+
+def test_slstm_kernel_protocol_holds_at_the_kernels_ring():
+    """The same at the kernel's own ring (ops.TILE steps, ops.STAGES stages)
+    past one whole ring, at dh 32's layout and at xlstm-125m's (dh 192)."""
+    steps = tslstm.STAGES * tslstm.TILE + 1
+    for dh, seeds in ((32, 3), (192, 2)):
+        for seed in range(seeds):
+            _SlstmProtocol(tslstm.CLUSTER[dh], tslstm.consumer_warps(dh), steps=steps,
+                           tile=tslstm.TILE, stages=tslstm.STAGES).run(random.Random(seed))
+
+
+@pytest.mark.parametrize("fault,match", [("one_h_buffer", "overwrote"),
+                                         ("no_empty_wait", "refilled before")])
+def test_slstm_kernel_protocol_model_catches_a_planted_fault(fault, match):
+    """The model's checks are live: one h buffer in place of two, or a
+    producer that refills a stage without waiting for its release, fails
+    at xlstm-125m's layout (dh 192) within a few interleavings."""
+    nc, warps = tslstm.CLUSTER[192], tslstm.consumer_warps(192)
+    with pytest.raises(AssertionError, match=match):
+        for seed in range(20):
+            _SlstmProtocol(nc, warps, steps=5, tile=2, stages=2, fault=fault).run(
+                random.Random(seed))
 
 
 def test_plain_slstm_scan_has_gradients_on_the_cpu():
