@@ -213,7 +213,23 @@ error:
    hubert-xlarge at full size (48 layers, d 1280, bidirectional, bf16): one
    encoder forward of 8192 seeded frames, logits (1, 8192, 504) finite.
    S is cut from the reference's 32768 for chip time; width and depth are
-   not.
+   not;
+18. serve_dense: deepseek-coder-33b (62 layers, 3.334e10 parameters,
+   66.69 GB in bf16) and phi3-medium-14b (40 layers, 1.466e10) at full
+   size (``DENSE_SERVE``): one prefill of 8192 tokens each (the chunked
+   attention path: no repo kernel runs), then four requests decoded as in
+   8 against ``forward`` (relative L2 5e-2);
+19. train_hybrid: EF-HC training of hymba-1.5b at full size (32 layers,
+   bf16, remat) through ``repro_torch.launch.train.train``, phase 14's
+   cell (``phase_train_hybrid``): exactly leaves x steps launches of each
+   bf16 entry, two launches of the scan's saving forward and one of its
+   backward kernel a Mamba layer, replica and step; ms/step, tokens/s,
+   peak memory; one profiled dense step (the scan kernels' share of
+   busy); the hymba smoke configuration in bf16 on the card and on the
+   CPU, v equal at every step.  Phase 2 holds the backward kernel against
+   its plain version at hymba's train shape (2, 2048, 3200, 16) and at
+   (1, 8192, 3200, 16), bf16 and fp32 (``_scan_bwd_rows``: tolerance,
+   fp64 gate, run-to-run bits, the saving forward's y bit-equal).
 
 Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
 in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
@@ -393,19 +409,25 @@ def kernel_resources(lib: Path) -> dict[str, dict]:
 
     def short(mangled):
         # an identifier is mangled as its length and its name: find the
-        # "<n>..._kernel" whose length prefix ends a run of digits; its
-        # template arguments are integers (Li<n>E) and, first, a type
-        # (f float, t the bf16 words' unsigned short)
+        # "<n>..._kernel" whose length prefix ends a run of digits, the
+        # shortest such (an anonymous namespace's hash may hold a run of
+        # digits that spans the identifier after it too); its template
+        # arguments are integers (Li<n>E) and, first, a type (f float, t
+        # the bf16 words' unsigned short)
+        found = []
         for m in re.finditer(r"\d+", mangled):
             for i in range(len(m.group())):
                 end = m.end() + int(m.group()[i:])
                 name = mangled[m.end():end]
                 if name.endswith("_kernel") and re.fullmatch(r"[a-z_][a-z0-9_]*", name):
-                    tmpl = re.match(r"I(?:[ft]|Li\d+E)+E", mangled[end:])
-                    args = [n or {"f": "float", "t": "bf16"}[t] for t, n in re.findall(
-                        r"(?<=[IE])([ft])|Li(\d+)E", tmpl.group() if tmpl else "")]
-                    return f"{name}<{', '.join(args)}>" if args else name
-        return mangled
+                    found.append((len(name), name, end))
+        if not found:
+            return mangled
+        _, name, end = min(found)
+        tmpl = re.match(r"I(?:[ft]|Li\d+E)+E", mangled[end:])
+        args = [n or {"f": "float", "t": "bf16"}[t] for t, n in re.findall(
+            r"(?<=[IE])([ft])|Li(\d+)E", tmpl.group() if tmpl else "")]
+        return f"{name}<{', '.join(args)}>" if args else name
 
     facts: dict[str, dict] = {}
     for name, regs, stack in re.findall(r"Function (\S+):\s*REG:(\d+)(?:\s+STACK:(\d+))?",
@@ -711,6 +733,7 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     rows.update(_swa_rows(torch, dev, gen, variant_libs["swa_attention_tc"]))
     rows["swa_attention_tc"].update(_swa_hymba_row(torch, dev, gen))
     rows.update(_scan_rows(torch, dev, gen, res))
+    rows.update(_scan_bwd_rows(torch, dev, gen, res))
     rows.update(_slstm_rows(torch, dev, gen, res, variant_libs["slstm_sync_probe"]))
     return rows
 
@@ -1690,6 +1713,174 @@ def _scan_rows(torch, dev, gen, res: dict[str, dict]) -> dict[str, dict]:
     fp32 = _scan_row(torch, dev, gen, SCAN_FP32_SHAPE, torch.float32, res)
     row.update({f"{k}_fp32": fp32[k] for k in SCAN_FIELDS})
     return {"selective_scan": row}
+
+
+# the backward kernel (phase 2): hymba's train shape (a replica's 2 rows of
+# 2048 tokens) and a long one at full width, each in bf16 and fp32
+SCAN_BWD_SHAPE = (2, 2048, 3200, 16)
+SCAN_BWD_LONG = (1, 8192, 3200, 16)
+# against the plain backward: fp32 each gradient within rtol and atol x its
+# largest value (the exps MUFU.EX2's, the products fused, the sums over
+# lanes, channels, blocks and time in other orders); bf16 one bf16 ulp and
+# 2^-7 of the largest value (du and the decay's part of ddt round to bf16
+# before their products and sum); against an fp64 backward within
+# SCAN_FP64_VS_PLAIN x the plain backward's error, or SCAN_FP64_FLOOR of the
+# scale (tests/test_torch_cuda_kernels.py holds the same)
+SCAN_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
+SCAN_BWD_NAMES = ("dx", "ddt", "db", "dc", "da_log")
+# fp32 instructions a (t, d, j) of the gradient besides its exp, each an
+# FMA or a product: the recompute of h 3 (dt a2, u b, h's fma) and the
+# reverse step 9 (g's fma, g h, . decay, the carry, the fmas of du, of
+# ddt's part and of da, and db's g u and dc's dy h each summed over the
+# channels by an fma); as FLOPs, an FMA two, 19
+SCAN_BWD_INSTRUCTIONS = 12
+SCAN_BWD_FLOPS = 19
+# fp32 add, multiply and FMA results a clock on an SM (compute capability
+# 9.0, CUDA C++ Programming Guide, arithmetic instructions table)
+FP32_LANES_PER_CLOCK = 128
+SCAN_BWD_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "fp64_max_abs_err_plain",
+                   "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                   "plan", "registers")
+
+
+def scan_bwd_bound(torch, dev, shape, elem_bytes: int, groups: int
+                   ) -> tuple[float, str, str]:
+    """Least time in ms of one scan backward of ``shape``, and what bounds
+    it, with the parts: the bytes the function must move, x, dt
+    (elem_bytes), dy (fp32), b, c and a_log read, the forward's checkpoints
+    (fp32, one state a channel every TILE steps: the backward's input in
+    this contract) read, and dx, ddt, db, dc and da_log written, each once,
+    over the memory rate; B S di n exps at MUFU_PER_CLOCK a clock on each
+    SM at the card's maximum SM clock; SCAN_BWD_INSTRUCTIONS fp32
+    instructions a (t, d, j) at FP32_LANES_PER_CLOCK a clock on each SM at
+    that clock, and SCAN_BWD_FLOPS FLOPs at the fp32 peak, the larger of
+    the two.  The blocks' partials of db and dc (2 x ``groups`` B S n fp32,
+    written and read again) are this design's scratch: named in the text,
+    not counted."""
+    from repro_torch.kernels.scan import ops as scan_ops
+
+    bsz, s, di, n = shape
+    tiles = -(-s // scan_ops.TILE)
+    nbytes = (bsz * s * di * (4 * elem_bytes + 4) + 4 * bsz * s * n * elem_bytes
+              + 2 * di * n * elem_bytes + bsz * tiles * di * n * 4)
+    scratch = 2 * 2 * groups * bsz * s * n * 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hz = float(card_line("clocks.max.sm").split()[0]) * 1e6
+    cells = bsz * s * di * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = cells / (MUFU_PER_CLOCK * sms * hz) * 1e3
+    t_issue = SCAN_BWD_INSTRUCTIONS * cells / (FP32_LANES_PER_CLOCK * sms * hz) * 1e3
+    t_flops = SCAN_BWD_FLOPS * cells / FP32_FLOPS * 1e3
+    t_ops = max(t_exp, t_issue, t_flops)
+    text = (f"bytes {t_bytes:.4f} ({nbytes / 1e9:.4f} GB; the partials of {groups} blocks a "
+            f"row, {scratch / 1e9:.4f} GB written and read, not counted), exps {t_exp:.4f}, "
+            f"fp32 instructions {t_issue:.4f}, FLOPs {t_flops:.4f}")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", text
+    return t_ops, "operations", text
+
+
+def _scan_bwd_row(torch, dev, gen, shape, dtype, res: dict[str, dict]) -> dict:
+    """The backward wrapper (``scan_ops._launch_bwd``) at ``shape`` in
+    ``dtype`` from the saving forward's checkpoints (its y bit-equal to
+    the no-grad launch's): each gradient against the plain backward (timed
+    once) within SCAN_BWD_TOL and against its fp64 mode within
+    SCAN_FP64_VS_PLAIN x the plain backward's error, the same bits from two
+    calls and through autograd of the wrapper, with its event-timed ``ms``,
+    ``device_ms`` (the profiler's records of its two launches), the bound
+    and the registers of its kernel function (no stack allowed)."""
+    from repro_torch.kernels.scan import ops as scan_ops
+    from repro_torch.kernels.scan.ref import selective_scan_bwd_ref
+
+    name = str(dtype)[6:]
+    label = f"selective_scan_bwd {tuple(shape)} {name}"
+    ins = _scan_inputs(torch, dev, gen, shape, dtype)
+    dy = torch.randn(shape[:3], generator=gen, device=dev)
+    y0 = scan_ops.selective_scan(*ins)
+    y, ckpt = scan_ops._launch(*ins, save=True)
+    check(torch.equal(y, y0), f"{label}: the saving forward's y is not the no-grad forward's")
+    del y, y0
+    before = scan_ops.LAUNCHES["selective_scan_bwd"]
+    got = scan_ops._launch_bwd(*ins, dy, ckpt)
+    check(scan_ops.LAUNCHES["selective_scan_bwd"] == before + 1, f"{label}: no launch counted")
+    same = all(torch.equal(a, b) for a, b in zip(got, scan_ops._launch_bwd(*ins, dy, ckpt)))
+    leaves = [t.detach().requires_grad_() for t in ins]
+    wired = all(torch.equal(a, b) for a, b in zip(got, torch.autograd.grad(
+        scan_ops.selective_scan(*leaves), leaves, dy)))
+    del leaves
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = selective_scan_bwd_ref(*ins, dy)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    exact = selective_scan_bwd_ref(*ins, dy, acc=torch.float64)
+    rtol, atol = SCAN_BWD_TOL[name]
+    errs, fp64, fp64_plain, texts = {}, {}, {}, []
+    for gname, g, w, e in zip(SCAN_BWD_NAMES, got, want, exact):
+        scale = float(w.float().abs().max())
+        errs[gname] = float((g.float() - w.float()).abs().max())
+        ok = bool(torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol * scale))
+        check(ok, f"{label}: {gname} outside rtol {rtol:.3g} / atol {atol:.3g} x {scale:.3g} of "
+                  f"the plain backward (max abs err {errs[gname]:.3g})")
+        fp64[gname], fp64_plain[gname] = (float((t.double() - e).abs().max()) for t in (g, w))
+        limit = max(SCAN_FP64_VS_PLAIN * fp64_plain[gname],
+                    SCAN_FP64_FLOOR * float(e.abs().max()))
+        check(fp64[gname] <= limit, f"{label}: {gname} against fp64 {fp64[gname]:.3g} > "
+                                    f"{limit:.3g} (the plain backward's {fp64_plain[gname]:.3g})")
+        texts.append(f"{gname} {errs[gname]:.3g} of {scale:.3g} (fp64: {fp64[gname]:.3g}, "
+                     f"plain {fp64_plain[gname]:.3g})")
+    del want, exact
+    check(same, f"{label}: not the same bits from run to run")
+    check(wired, f"{label}: autograd of the wrapper gave other bits than the backward wrapper")
+    bsz, _, di, _ = shape
+    plan = scan_ops.device_plan(bsz, di, ins[0].element_size(), dev, backward=True)
+    fn = f"{scan_ops.BWD_KERNEL}<{'bf16' if dtype == torch.bfloat16 else 'float'}>"
+    facts = res.get(fn, {})
+    check(facts.get("stack") == 0, f"{label}: {fn} has a stack frame of {facts.get('stack')} B "
+                                   f"(spills) or none was read: {facts}")
+    built = scan_ops.built_bwd_layout(plan.warps, ins[0].element_size())
+    check(built == scan_ops.bwd_layout(plan.warps, ins[0].element_size()),
+          f"{label}: the built layout {built} is not ops' mirror "
+          f"{scan_ops.bwd_layout(plan.warps, ins[0].element_size())}")
+    b_ms, b_by, b_text = scan_bwd_bound(torch, dev, shape, ins[0].element_size(), plan.groups)
+
+    def call():
+        return scan_ops._launch_bwd(*ins, dy, ckpt)
+
+    row = {"shape": list(shape), "dtype": name, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_gradient": errs, "fp64_max_abs_err": max(fp64.values()),
+           "fp64_max_abs_err_plain": max(fp64_plain.values()),
+           "tolerance": f"rtol {rtol:.3g}, atol {atol:.3g} x max|gradient|",
+           "plan": list(plan), "registers": facts.get("registers"), "ms": time_ms(torch, call),
+           "device_ms": kernel_device_ms(torch, call, (scan_ops.BWD_KERNEL,
+                                                        scan_ops.BWD_SUM_KERNEL), launches=2),
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    row["bound_share"] = b_ms / row["device_ms"]
+    print(f"kernel {label}: the saving forward's y bit-equal to the no-grad one; max abs err "
+          f"against the plain backward (tol rtol {rtol:.3g}, atol {atol:.3g} x max|gradient|; "
+          f"fp64 limit {SCAN_FP64_VS_PLAIN:g} x the plain's or {SCAN_FP64_FLOOR:g} x max): "
+          + "; ".join(texts) + f"; two calls and autograd of the wrapper bit-equal; "
+          f"{plan.groups} blocks a row of {plan.warps} warps; {fn}: {facts.get('registers')} "
+          f"registers, stack {facts.get('stack')} B; kernel_ms {row['ms']:.4f} device_ms "
+          f"{row['device_ms']:.4f} plain_ms {plain_ms:.1f} (one call: loops over S) "
+          f"library_ms null (no PyTorch call computes a selective scan's gradient) bound_ms "
+          f"{b_ms:.4f} ({b_by}; {b_text}); device {row['bound_share']:.3f} of the bound; card "
+          f"right after (SM clock, power, temperature): {card_state()}", flush=True)
+    return row
+
+
+def _scan_bwd_rows(torch, dev, gen, res: dict[str, dict]) -> dict[str, dict]:
+    """The backward kernel's row: hymba's train shape in bf16 (the main
+    path's), in fp32 (suffix ``_fp32``), and the long shape in both
+    (``_long``, ``_long_fp32``)."""
+    row = {"name": "selective_scan_bwd",
+           **_scan_bwd_row(torch, dev, gen, SCAN_BWD_SHAPE, torch.bfloat16, res)}
+    for suffix, shape, dtype in (("_fp32", SCAN_BWD_SHAPE, torch.float32),
+                                 ("_long", SCAN_BWD_LONG, torch.bfloat16),
+                                 ("_long_fp32", SCAN_BWD_LONG, torch.float32)):
+        other = _scan_bwd_row(torch, dev, gen, shape, dtype, res)
+        row.update({f"{k}{suffix}": other[k] for k in SCAN_BWD_FIELDS})
+    return {"selective_scan_bwd": row}
 
 
 SLSTM_SHAPE = (1, 4096, 4, 192)  # xlstm-125m's sLSTM heads: B, S, H, dh
@@ -5031,6 +5222,41 @@ def _moe_repeats(torch, dev, cfg, tokens: int) -> float:
     return drop
 
 
+def _train_legs(torch, dev, cfg, seq: int, label: str):
+    """Phases 14 and 19's run: TRAIN_DENSE dense then TRAIN_NEIGHBOR
+    neighbor steps of ``cfg`` through ``repro_torch.launch.train.train``
+    (TRAIN_M replicas, TRAIN_PODS pods, global batch TRAIN_BATCH at ``seq``
+    tokens), the launches and the peak memory counted from zero.  Returns
+    the two runs, the launches, the legs' wall seconds, the peak GiB (nan
+    off the card) and the median ms/step of each schedule (the first step,
+    which warms the libraries, left out)."""
+    from repro_torch.launch import train as T
+
+    def log(line: str) -> None:
+        print(f"{label}: {line}", flush=True)
+
+    kw = dict(m=TRAIN_M, batch=TRAIN_BATCH, seq=seq, pods=TRAIN_PODS, seed=TRAIN_SEED,
+              device=dev, log=log, log_every=1)
+    _reset_launches()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.zeros(1, device=dev)  # the allocator's stats exist once it has run
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first = T.train(cfg, steps=TRAIN_DENSE, **kw)
+    t1 = time.perf_counter()
+    run = T.train(cfg, steps=TRAIN_NEIGHBOR, mix="neighbor",
+                  state=(first.params, first.w_hat, first.step), **kw)
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    counts = {k: n for k, n in _launches().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else float("nan")
+    ms = {"dense": statistics.median(first.step_ms[1:]) if TRAIN_DENSE > 1 else float("nan"),
+          "neighbor": statistics.median(run.step_ms)}
+    return first, run, counts, (t1 - t0, t2 - t1), peak, ms
+
+
 def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
                     ) -> tuple[dict[str, int], dict[str, dict]]:
     """EF-HC training of granite-moe-3b-a800m at full width and depth (32
@@ -5062,25 +5288,7 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
     cfg = cfg or get_config("granite-moe-3b-a800m")
     label = (f"train_moe {cfg.name} {cfg.n_layers}L m={m} pods={TRAIN_PODS} "
              f"B={TRAIN_BATCH} S={seq}")
-
-    def log(line: str) -> None:
-        print(f"{label}: {line}", flush=True)
-
-    kw = dict(m=m, batch=TRAIN_BATCH, seq=seq, pods=TRAIN_PODS, seed=TRAIN_SEED, device=dev,
-              log=log, log_every=1)
-    _reset_launches()
-    if on_card:
-        torch.zeros(1, device=dev)  # the allocator's stats exist once it has run
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    first = T.train(cfg, steps=dense, **kw)
-    t1 = time.perf_counter()
-    run = T.train(cfg, steps=neighbor, mix="neighbor",
-                  state=(first.params, first.w_hat, first.step), **kw)
-    _sync(torch, dev)
-    t2 = time.perf_counter()
-    counts = {k: n for k, n in _launches().items() if n}
+    first, run, counts, (leg1, leg2), peak, ms = _train_legs(torch, dev, cfg, seq, label)
     leaves = tree_leaves(run.params)
     n16 = sum(t.dtype == torch.bfloat16 for t in leaves)
     n32 = sum(t.dtype == torch.float32 for t in leaves)
@@ -5098,10 +5306,7 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
         check(np.isfinite(r["loss"]) and r["aux"] > 0 and 0.0 <= r["trigger_rate"] <= 1.0,
               f"{label}: step {r['k']} loss {r['loss']}, aux {r['aux']}, trigger_rate "
               f"{r['trigger_rate']}")
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else float("nan")
     warm = first.step_ms[1:] + run.step_ms  # the first step warms the libraries
-    ms = {"dense": statistics.median(first.step_ms[1:]) if dense > 1 else float("nan"),
-          "neighbor": statistics.median(run.step_ms)}
     n_par = cfg.n_params
     print(f"{label}: {n_par} parameters a replica ({sum(t[0].numel() * t.element_size() for t in leaves) / 1e9:.3f} GB), "
           f"{n16} bf16 + {n32} fp32 leaves, the largest {tuple(max(leaves, key=torch.numel).shape)}; "
@@ -5110,7 +5315,7 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
           f"tokens/s {run.tokens_per_step / statistics.median(warm) * 1e3:.0f} "
           f"({run.tokens_per_step} tokens a step); peak memory allocated {peak:.2f} GiB "
           f"(params and w_hat {2 * sum(t.numel() * t.element_size() for t in leaves) / 2 ** 30:.2f} GiB); "
-          f"dense leg {t1 - t0:.1f} s (init, {dense} steps), neighbor leg {t2 - t1:.1f} s; "
+          f"dense leg {leg1:.1f} s (init, {dense} steps), neighbor leg {leg2:.1f} s; "
           f"launches {counts}, exactly leaves x steps per dtype; trigger rates "
           f"{[r['trigger_rate'] for r in records]}; ce {[round(r['ce'], 4) for r in records]}; "
           f"aux {[round(r['aux'], 4) for r in records]}; card "
@@ -5194,12 +5399,104 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phases 18-19: the dense configs' serving, hymba's training
+# ---------------------------------------------------------------------------
+
+# phase 18's cells: full-attention configs at full width and depth, S cut
+# from the reference's prefill_32k (PERF.md section 4 reckons the memory)
+DENSE_SERVE = {"deepseek-coder-33b": 8192, "phi3-medium-14b": 8192}
+
+
+def phase_train_hybrid(torch, dev, cfg=None, seq: int = 2048
+                       ) -> tuple[dict[str, int], dict[str, float]]:
+    """EF-HC training of hymba-1.5b at full width and depth (32 layers,
+    bf16, remat on, attention through ``xla`` at S=2048) through
+    ``repro_torch.launch.train.train``, phase 14's cell: TRAIN_M replicas on
+    a ring over TRAIN_PODS pods, global batch TRAIN_BATCH at ``seq``
+    tokens, TRAIN_DENSE dense then TRAIN_NEIGHBOR neighbor steps.  Each bf16
+    entry of the trigger and mixing wrappers must launch once a leaf a step
+    (by schedule), the scan's saving forward twice a Mamba layer, replica
+    and step (the forward and remat's recompute) and its backward once, and
+    no SWA kernel.  Then one profiled dense step (busy, idle, the scan
+    kernels' and Events 2-3's shares) and the smoke configuration's
+    card-vs-CPU twin.  Returns the launches and the step's figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    m, dense, neighbor = TRAIN_M, TRAIN_DENSE, TRAIN_NEIGHBOR
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or get_config("hymba-1.5b")
+    label = (f"train_hybrid {cfg.name} {cfg.n_layers}L m={m} pods={TRAIN_PODS} "
+             f"B={TRAIN_BATCH} S={seq}")
+    first, run, counts, (leg1, leg2), peak, ms = _train_legs(torch, dev, cfg, seq, label)
+    leaves = tree_leaves(run.params)
+    check(all(t.dtype == torch.bfloat16 for t in leaves), f"{label}: a leaf not in bf16")
+    _, mamba = serve_layers(cfg)
+    steps = dense + neighbor
+    n = len(leaves)
+    want = {"trigger_sq_bf16": n * steps, "mix_bf16": n * dense, "mix_sparse_bf16": n * neighbor,
+            "selective_scan": len(mamba) * m * steps * (1 + bool(cfg.remat)),
+            "selective_scan_bwd": len(mamba) * m * steps}
+    check(counts == want, f"{label}: launches {counts}, expected {want} ({n} bf16 leaves, "
+                          f"{len(mamba)} Mamba layers)")
+    records = first.records + run.records
+    for r in records:
+        check(np.isfinite(r["loss"]) and 0.0 <= r["trigger_rate"] <= 1.0,
+              f"{label}: step {r['k']} loss {r['loss']}, trigger_rate {r['trigger_rate']}")
+    warm = first.step_ms[1:] + run.step_ms  # the first step warms the libraries
+    tokens_s = run.tokens_per_step / statistics.median(warm) * 1e3
+    rep_bytes = sum(t[0].numel() * t.element_size() for t in leaves)
+    print(f"{label}: {cfg.n_params} parameters a replica ({rep_bytes / 1e9:.3f} GB), {n} bf16 "
+          f"leaves; step ms {[round(x, 1) for x in first.step_ms + run.step_ms]} (first "
+          f"includes warm-up); median ms/step dense {ms['dense']:.1f}, neighbor "
+          f"{ms['neighbor']:.1f}; tokens/s {tokens_s:.0f} ({run.tokens_per_step} tokens a "
+          f"step); peak memory allocated {peak:.2f} GiB (params and w_hat "
+          f"{2 * m * rep_bytes / 2 ** 30:.2f} GiB); dense leg {leg1:.1f} s (init, {dense} "
+          f"steps), neighbor leg {leg2:.1f} s; launches {counts}, as expected; trigger "
+          f"rates {[r['trigger_rate'] for r in records]}; loss "
+          f"{[round(r['loss'], 4) for r in records]}; card "
+          f"{card_state() if on_card else 'not measured'}", flush=True)
+    figures = {"ms_per_step": ms["dense"], "tokens_per_s": tokens_s, "peak_gib": peak}
+    if not on_card:
+        return counts, figures
+
+    step = steps_mod.make_train_step(run.setup, n_model_params=cfg.n_params)
+    b = next(T._batches(cfg, m, TRAIN_BATCH, seq, TRAIN_SEED, dev))
+    params, w_hat = run.params, run.w_hat
+    n_act, busy, per_name, _ = _device_activity(torch, lambda: step(params, w_hat, b, run.step))
+    if not n_act:
+        print(f"{label} profile: the profiler saw no device activity; busy share not measured")
+    else:
+        own: dict[str, float] = {}
+        for name, t in per_name.items():
+            if fn := _repo_kernel(name):
+                own[fn] = own.get(fn, 0.0) + t
+        scan = sum(t for fn, t in own.items() if fn.startswith("selective_scan"))
+        events = sum(t for fn, t in own.items() if fn.startswith(("trigger", "mix")))
+        figures.update(busy_ms=busy, scan_share=scan / busy)
+        print(f"{label} profile: one dense step, {n_act} device activities, device busy "
+              f"{busy:.1f} ms of {ms['dense']:.1f} ms/step without the profiler (idle share "
+              f"{1 - busy / ms['dense']:.3f}); the scan kernels {scan:.1f} ms ({scan / busy:.3f} "
+              f"of busy), Events 2-3 kernels {events:.3f} ms ({events / busy:.4f} of busy): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(own.items())), flush=True)
+        for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"{label} profile:   {t:9.3f} ms ({t / busy:.3f} of busy)  {name[:90]}")
+    del first, run, params, w_hat, leaves, step, b
+    torch.cuda.empty_cache()
+    _train_twin(torch, dev, "hymba-1.5b")
+    return counts, figures
+
+
 # kernel functions of csrc/ (the names the profiler shows)
 REPO_KERNELS = ("trigger_sq_slab_kernel", "trigger_sq_rows_kernel", "mix_kernel",
                 "mix_sparse_kernel", "compact_slots_kernel", "mix_sparse_wide_kernel",
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
                 "swa_tc_kernel", "swa_tf32_kernel", "mix_bf16_kernel",
-                "mix_sparse_bf16_kernel", "selective_scan_kernel", "slstm_kernel")
+                "mix_sparse_bf16_kernel", "selective_scan_kernel", "selective_scan_save_kernel",
+                "selective_scan_bwd_kernel", "selective_scan_bwd_sum_kernel", "slstm_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -5229,6 +5526,9 @@ KERNEL_SOURCES = {
                        "src/repro/models/ssm.py:87"),
     # no TPU kernel: the reference's lax.scan over time
     "slstm": ("src/repro_torch/kernels/csrc/slstm.cu", "none: src/repro/models/ssm.py:336"),
+    # no TPU kernel: jax.grad through the reference's XLA associative scan
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                           "none: jax.grad of src/repro/models/ssm.py:87"),
 }
 
 
@@ -5370,6 +5670,14 @@ def main() -> int:
         phase_serve_frontends(torch, dev, "paligemma-3b")
         phase_serve_frontends(torch, dev, "hubert-xlarge")
         lap("phase 17")
+        torch.cuda.empty_cache()  # 62.1 GiB of deepseek-coder's weights come next
+        for arch, seq in DENSE_SERVE.items():
+            phase_serve(torch, dev, get_config(arch), seq=seq)
+        lap("phase 18")
+        hybrid_train, _ = phase_train_hybrid(torch, dev)
+        launches["selective_scan_bwd"] = hybrid_train["selective_scan_bwd"]
+        rows["selective_scan"]["train_hybrid_launches"] = hybrid_train["selective_scan"]
+        lap("phase 19")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
@@ -5419,10 +5727,14 @@ def main() -> int:
                                    "registers", "mufu_ex2_step",
                                    "serial_floor_ms", "sync_loop_ms", "fp64_reference",
                                    "serial_floor_ms_design", "sync_loop_ms_design",
-                                   "us_per_step", "serve_cpu_launches",
+                                   "us_per_step", "serve_cpu_launches", "device_ms",
+                                   "bound_share", "train_hybrid_launches",
+                                   *(f"{k}{suffix}" for suffix in ("_long", "_long_fp32")
+                                     for k in SCAN_BWD_FIELDS),
                                    *(f"{k}{suffix}" for suffix in TRIGGER_SUFFIXES
                                      for k in TRIGGER_FIELDS),
-                                   *(f"{k}_fp32" for k in SCAN_FIELDS + SLSTM_FIELDS))
+                                   *(f"{k}_fp32" for k in SCAN_FIELDS + SLSTM_FIELDS
+                                     + SCAN_BWD_FIELDS))
                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 ``get_config(arch_id)`` returns the full-size ArchConfig; ``smoke_config``
 returns the reduced same-family variant (<= 2 layers, d_model 128) the
 CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m,
-deepseek-v3-671b, hymba-1.5b, xlstm-125m, paligemma-3b and hubert-xlarge;
-the other three architectures of the JAX package raise
-``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports them.
+deepseek-v3-671b, hymba-1.5b, xlstm-125m, paligemma-3b, hubert-xlarge,
+deepseek-coder-33b and phi3-medium-14b; on the card every block type
+trains but xLSTM's sLSTM, whose kernel has no backward (ROADMAP Queue 2
+item K4).  qwen2-72b, whose weights need more than one card, raises
+``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports it.
 """
 from __future__ import annotations
 
@@ -22,13 +24,14 @@ _MODULES = {
     "xlstm-125m": "xlstm_125m",
     "paligemma-3b": "paligemma_3b",
     "hubert-xlarge": "hubert_xlarge",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "phi3-medium-14b": "phi3_medium_14b",
 }
 
 # architectures of the JAX package not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "deepseek-coder-33b": "item 17 (the other configs)",
-    "phi3-medium-14b": "item 17 (the other configs)",
-    "qwen2-72b": "item 17 (the other configs)",
+    # 145.4 GB of bf16 weights: more than one card holds
+    "qwen2-72b": "item 19 (sharding across cards)",
 }
 
 ARCH_IDS: list[str] = list(_MODULES)
@@ -55,6 +58,8 @@ _SMOKE_PLANS = {
     "xlstm-125m": ((("mlstm", "slstm"), 1),),
     "paligemma-3b": ((("attn",), 2),),
     "hubert-xlarge": ((("attn",), 2),),
+    "deepseek-coder-33b": ((("attn",), 2),),
+    "phi3-medium-14b": ((("attn",), 2),),
 }
 
 

@@ -8,8 +8,9 @@ the JAX package:
 
 and two that replace no TPU kernel:
 
-  scan/    - the Mamba selective scan of hybrid blocks    (model prefill),
-             where the reference runs an XLA associative scan
+  scan/    - the Mamba selective scan of hybrid blocks    (model prefill,
+             and its gradient for training), where the reference runs
+             an XLA associative scan and its transpose
   slstm/   - the sLSTM recurrence of xLSTM blocks         (model prefill
              and decode), where the reference runs a lax.scan over time
 

@@ -24,8 +24,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu",
                              "swa_attention.cu", "swa_attention_tc.cu",
-                             "swa_attention_tf32.cu", "selective_scan.cu", "slstm.cu")
-HEADERS: tuple[str, ...] = ("bf16.cuh",)  # included by the sources
+                             "swa_attention_tf32.cu", "selective_scan.cu",
+                             "selective_scan_bwd.cu", "slstm.cu")
+HEADERS: tuple[str, ...] = ("bf16.cuh", "scan.cuh")  # included by the sources
 NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,8 +45,11 @@ _SIGNATURES = {
     "repro_swa_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tc_bf16": (_P, _P, _P, _P, *(_I64,) * 6, _P),
     "repro_swa_attention_tf32_f32": (_P, _P, _P, _P, *(_I64,) * 6, _P),
-    "repro_selective_scan_f32": (*(_P,) * 6, *(_I64,) * 7, _P),
-    "repro_selective_scan_bf16": (*(_P,) * 6, *(_I64,) * 7, _P),
+    "repro_selective_scan_f32": (*(_P,) * 7, *(_I64,) * 7, _P),
+    "repro_selective_scan_bf16": (*(_P,) * 7, *(_I64,) * 7, _P),
+    "repro_selective_scan_bwd_f32": (*(_P,) * 14, *(_I64,) * 8, _P),
+    "repro_selective_scan_bwd_bf16": (*(_P,) * 14, *(_I64,) * 8, _P),
+    "repro_selective_scan_bwd_layout": (_I64, _I64, _I64, _P),
     "repro_slstm_f32": (*(_P,) * 12, *(_I64,) * 4, _P),
     "repro_slstm_bf16": (*(_P,) * 12, *(_I64,) * 4, _P),
     "repro_slstm_layout": (_I64, _P),

@@ -57,6 +57,11 @@
 // instructions beside each exp and on shared-memory traffic (each lane
 // reads its states' b and c every step, so the bf16 pairs are packed to
 // halve those bytes).
+// Under autograd the wrapper launches selective_scan_save_kernel: the same
+// body (scan_block<T, true>, the same y bit for bit) that also stores h at
+// each tile's start, the checkpoints that selective_scan_bwd.cu recomputes
+// a tile's states from; selective_scan_kernel (scan_block<T, false>, the
+// launch that serves) stores none.
 // No block-wide barrier inside the loop: warps meet only on the ring's
 // mbarriers.  No atomics and fixed orders: the same inputs give the same bits
 // from run to run.  Decays below 2^-126 flush to 0 (ftz) where expf keeps a
@@ -65,104 +70,18 @@
 // So an output is non-finite where the plain loop's is, but an inf there may
 // read NaN here.  An a that overflows a2 is held at -FLT_MAX (dt = 0 still
 // gives a decay of 1).
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
-
-#include "bf16.cuh"
+#include "scan.cuh"
 
 namespace {
 
-constexpr int kLanes = 8;              // lanes of a channel
-constexpr int kChans = 32 / kLanes;    // channels a warp: a unit of a block's range
-constexpr int kMaxWarps = 8;           // consumer warps a block (and one producer)
-constexpr int kTile = 32;              // steps a tile: one packed row a producer lane
 constexpr int kStages = 8;             // the ring's tiles
 constexpr int kLag = 2;                // tiles in flight before the producer packs one
 constexpr int kStepsPerLane = kTile / kLanes;  // steps of y each lane sums
 constexpr int kRow = kTile + 4;        // floats of a lane's parts of y, padded off the banks
 constexpr int kPreRow = 2 * kTile + 4; // floats of a channel's (dt, dt x) pairs, padded
-constexpr int kMaxState = 16;
-constexpr int kSlots = kMaxState / kLanes;  // states a lane
-constexpr int kBarBytes = 256;         // the mbarriers: full, empty, landed x kStages
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kTile == 32 && kStepsPerLane == 4, "one row a producer lane; 4 steps of y a lane");
-static_assert(kSlots == 2, "a lane loads its pairs in one 8- or 16-byte load");
 static_assert(kLag < kStages, "the producer reuses a stage only after packing its tile");
 static_assert(3 * 8 * kStages <= kBarBytes, "the mbarriers fit their bytes");
-
-// an input dtype: its widening and rounding, and a (b, c) pair as staged
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  using Pair = float2;
-  static __device__ __forceinline__ float widen(float v) { return v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ Pair pack(float b, float c) { return make_float2(b, c); }
-  static __device__ __forceinline__ float b_of(Pair p) { return p.x; }
-  static __device__ __forceinline__ float c_of(Pair p) { return p.y; }
-  static __device__ __forceinline__ Pair zero() { return make_float2(0.f, 0.f); }
-  // a lane's kSlots pairs at p (16-byte aligned)
-  static __device__ __forceinline__ void load(const Pair* p, Pair (&out)[kSlots]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = make_float2(v.x, v.y), out[1] = make_float2(v.z, v.w);
-  }
-  // NP pairs from the 16-byte aligned rows b and c of NP values each
-  template <int NP>
-  static __device__ __forceinline__ void pack_row(const float* b, const float* c, Pair* out) {
-#pragma unroll
-    for (int k = 0; k < NP; k += 4) {
-      const float4 u = *reinterpret_cast<const float4*>(b + k);
-      const float4 v = *reinterpret_cast<const float4*>(c + k);
-      reinterpret_cast<float4*>(out + k)[0] = make_float4(u.x, v.x, u.y, v.y);
-      reinterpret_cast<float4*>(out + k)[1] = make_float4(u.z, v.z, u.w, v.w);
-    }
-  }
-};
-
-template <>
-struct Elem<uint16_t> {
-  using Pair = uint32_t;  // b in the low half, c in the high half
-  static __device__ __forceinline__ float widen(uint16_t v) { return bf16rows::widen(v); }
-  static __device__ __forceinline__ float round(float v) {
-    return bf16rows::widen(bf16rows::narrow(v));
-  }
-  static __device__ __forceinline__ Pair pack(uint16_t b, uint16_t c) {
-    return (uint32_t)b | ((uint32_t)c << 16);
-  }
-  static __device__ __forceinline__ float b_of(Pair p) { return __uint_as_float(p << 16); }
-  static __device__ __forceinline__ float c_of(Pair p) {
-    return __uint_as_float(p & 0xFFFF0000u);
-  }
-  static __device__ __forceinline__ Pair zero() { return 0u; }
-  // a lane's kSlots pairs at p (8-byte aligned)
-  static __device__ __forceinline__ void load(const Pair* p, Pair (&out)[kSlots]) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    out[0] = v.x, out[1] = v.y;
-  }
-  // NP pairs from the 16-byte aligned rows b and c of NP values each
-  template <int NP>
-  static __device__ __forceinline__ void pack_row(const uint16_t* b, const uint16_t* c,
-                                                  Pair* out) {
-#pragma unroll
-    for (int k = 0; k < NP; k += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(b + k);
-      const uint4 v = *reinterpret_cast<const uint4*>(c + k);
-      const uint32_t bw[4] = {u.x, u.y, u.z, u.w}, cw[4] = {v.x, v.y, v.z, v.w};
-      uint32_t w[8];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {  // (b, c) of the low halves, then the high ones
-        w[2 * m] = __byte_perm(bw[m], cw[m], 0x5410);
-        w[2 * m + 1] = __byte_perm(bw[m], cw[m], 0x7632);
-      }
-      reinterpret_cast<uint4*>(out + k)[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      reinterpret_cast<uint4*>(out + k)[1] = make_uint4(w[4], w[5], w[6], w[7]);
-    }
-  }
-};
 
 // byte offsets of a block's shared memory (kernels/scan/ops.py::smem_bytes
 // sums the same): the ring's mbarriers; kStages stages, each the raw dt and
@@ -173,8 +92,6 @@ struct Elem<uint16_t> {
 struct Smem {
   uint32_t row, box, tile, pairs, pair_row, stage, dt, x, b, c, bc, pre, red, total;
 };
-
-__host__ __device__ inline uint32_t align128(uint32_t v) { return (v + 127) & ~127u; }
 
 // a row slot holds the block's channels from the 16-byte bound below the
 // first, as a TMA box (`box` 4-byte words) lays them
@@ -199,80 +116,21 @@ __host__ __device__ inline Smem smem_layout(int warps, int n, int m, int elem, i
   return s;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.  A wait
-// that cannot complete (a fault in the pipeline) traps after 2^32 clocks
-// (~2 s), so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - start > (1ll << 32)) __trap();
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
-// TMA: the box at (column c0, step c1, batch row c2) of a 3-D tensor map
-// into shared memory, completing `bar`'s transaction count
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                        int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(bar), "r"(c0), "r"(c1), "r"(c2) : "memory");
-}
-
-// TMA, 1-D: `bytes` (a multiple of 16) from 16-byte aligned global memory
-__device__ __forceinline__ void tma_bulk(uint32_t dst, uintptr_t src, uint32_t bytes,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(reinterpret_cast<const void*>(src)), "r"(bytes), "r"(bar) : "memory");
-}
-
-// 2^v in one MUFU.EX2, subnormal results flushed to 0
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
 // grid (groups, B); block g holds the units [g U / groups, (g + 1) U /
 // groups) of kChans channels (U = ceil(di / kChans)) of batch row
 // blockIdx.y: warps 0 .. busy - 1 consume (one a unit), warp `busy`
-// produces; dt and x arrive through the tensor maps tm_dt and tm_x
-template <typename T>
-__global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1) selective_scan_kernel(
-    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dt,
-    const T* __restrict__ bm, const T* __restrict__ cm, const T* __restrict__ a_log,
-    float* __restrict__ y, int64_t S, int64_t di, int n, int64_t groups) {
+// produces; dt and x arrive through the tensor maps tm_dt and tm_x.  With
+// kSave the consumers also store each tile's starting state into ckpt
+// (B, ceil(S / kTile), di, n) fp32, the backward's checkpoints; without it
+// (selective_scan_kernel, the launch that serves) ckpt is not touched.
+template <typename T, bool kSave>
+__device__ __forceinline__ void scan_block(
+    const CUtensorMap& tm_x, const CUtensorMap& tm_dt, const T* __restrict__ bm,
+    const T* __restrict__ cm, const T* __restrict__ a_log, float* __restrict__ y,
+    float* __restrict__ ckpt, int64_t S, int64_t di, int n, int64_t groups,
+    unsigned char* smem) {
   using E = Elem<T>;
   using P = typename E::Pair;
-  extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ES = sizeof(T);
   const int warps = blockDim.x / 32 - 1;
   constexpr int M = kSlots;
@@ -407,6 +265,14 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1) selective_scan_kernel
     const int64_t t0 = i * kTile;
     if (i + 1 < tiles)
       mbar_wait(bars + 8 * ((i + 1) % kStages), (uint32_t)(((i + 1) / kStages) & 1));
+    if constexpr (kSave) {  // h is tile i's starting state
+      if (i < tiles && ch < cb) {
+        float* cp = ckpt + (((int64_t)blockIdx.y * tiles + i) * di + d_lo + ch) * n;
+#pragma unroll
+        for (int k = 0; k < M; ++k)
+          if (l * M + k < n) cp[l * M + k] = h[k];
+      }
+    }
     __syncwarp();
 
     // One block of code, no branch: tile i's steps (past S: dt = dt x = 0,
@@ -476,60 +342,35 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1) selective_scan_kernel
   }
 }
 
-// cuTensorMapEncodeTiled, from the CUDA driver at run time (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// error codes of this file beside the cudaError_t values
-constexpr int ERR_NO_ENCODE = 9999;     // no cuTensorMapEncodeTiled in the CUDA driver
-constexpr int ERR_ENCODE_BASE = 10000;  // + the CUresult of a failed encode
-
-int encode_fn(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return ERR_NO_ENCODE;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// a (B, S, ld) row-major array of T as a 3-D tensor map of 4-byte words
-// (a row of ld E / 4: the boxes copy bytes) with boxes of `box` words x
-// kTile steps of one batch row, zeros outside
 template <typename T>
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
-           int64_t ld, uint32_t box) {
-  const cuuint64_t dims[3] = {(cuuint64_t)(ld * sizeof(T) / 4), (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(T), (cuuint64_t)(S * ld) * sizeof(T)};
-  const cuuint32_t boxes[3] = {box, (cuuint32_t)kTile, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                        3, const_cast<void*>(ptr), dims, strides, boxes, elem_strides,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE_BASE + (int)r;
+__global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1) selective_scan_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dt,
+    const T* __restrict__ bm, const T* __restrict__ cm, const T* __restrict__ a_log,
+    float* __restrict__ y, float* __restrict__ ckpt, int64_t S, int64_t di, int n,
+    int64_t groups) {  // ckpt unused: the saving variant's signature
+  extern __shared__ __align__(128) unsigned char smem[];
+  scan_block<T, false>(tm_x, tm_dt, bm, cm, a_log, y, nullptr, S, di, n, groups, smem);
 }
+
+template <typename T>
+__global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1) selective_scan_save_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dt,
+    const T* __restrict__ bm, const T* __restrict__ cm, const T* __restrict__ a_log,
+    float* __restrict__ y, float* __restrict__ ckpt, int64_t S, int64_t di, int n,
+    int64_t groups) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  scan_block<T, true>(tm_x, tm_dt, bm, cm, a_log, y, ckpt, S, di, n, groups, smem);
+}
+
 
 // ld: elements between rows of x and dt, ld E a multiple of 16 and their
 // bases 16-byte aligned (the TMA's bounds); warps: consumer warps a block,
-// at least the largest block's units
+// at least the largest block's units; ckpt: null, or the (B, ceil(S /
+// kTile), di, n) fp32 checkpoints the saving kernel fills
 template <typename T>
 int launch(const void* x, const void* dt, const void* bm, const void* cm, const void* a_log,
-           void* y, int64_t B, int64_t S, int64_t di, int64_t ld, int64_t n, int64_t groups,
-           int64_t warps, void* stream) {
+           void* y, void* ckpt, int64_t B, int64_t S, int64_t di, int64_t ld, int64_t n,
+           int64_t groups, int64_t warps, void* stream) {
   if (B <= 0 || S <= 0 || di <= 0) return (int)cudaSuccess;
   const int64_t units = (di + kChans - 1) / kChans;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dt);
@@ -539,21 +380,24 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm, const 
       (units + groups - 1) / groups > warps)
     return (int)cudaErrorInvalidValue;
   EncodeTiled fn;
-  int err = encode_fn(&fn);
-  if (err != 0) return err;
+  int err = ckpt != nullptr ? context_current() : 0;  // the saving forward runs under autograd
+  if (err != 0 || (err = encode_fn(&fn)) != 0) return err;
   const Smem L = smem_layout((int)warps, (int)n, kSlots, (int)sizeof(T),
                              (int)sizeof(typename Elem<T>::Pair));
   CUtensorMap tm_x, tm_dt;
   if ((err = encode<T>(fn, &tm_x, x, B, S, ld, L.box)) != 0) return err;
   if ((err = encode<T>(fn, &tm_dt, dt, B, S, ld, L.box)) != 0) return err;
-  auto kernel = selective_scan_kernel<T>;
+  const dim3 grid((unsigned)groups, (unsigned)B);
+  const unsigned threads = (unsigned)((warps + 1) * 32);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = ckpt == nullptr ? selective_scan_kernel<T> : selective_scan_save_kernel<T>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((unsigned)groups, (unsigned)B), (unsigned)((warps + 1) * 32), L.total,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, L.total, st>>>(
       tm_x, tm_dt, static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<const T*>(a_log), static_cast<float*>(y), S, di, (int)n, groups);
+      static_cast<const T*>(a_log), static_cast<float*>(y), static_cast<float*>(ckpt), S, di,
+      (int)n, groups);
   return (int)cudaGetLastError();
 }
 
@@ -561,18 +405,21 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm, const 
 
 extern "C" {
 
+// ckpt: null for the serving launch (selective_scan_kernel), else the
+// checkpoints the saving launch fills (selective_scan_save_kernel)
 int repro_selective_scan_f32(const void* x, const void* dt, const void* bm, const void* cm,
-                             const void* a_log, void* y, int64_t B, int64_t S, int64_t di,
-                             int64_t ld, int64_t n, int64_t groups, int64_t warps,
+                             const void* a_log, void* y, void* ckpt, int64_t B, int64_t S,
+                             int64_t di, int64_t ld, int64_t n, int64_t groups, int64_t warps,
                              void* stream) {
-  return launch<float>(x, dt, bm, cm, a_log, y, B, S, di, ld, n, groups, warps, stream);
+  return launch<float>(x, dt, bm, cm, a_log, y, ckpt, B, S, di, ld, n, groups, warps, stream);
 }
 
 int repro_selective_scan_bf16(const void* x, const void* dt, const void* bm, const void* cm,
-                              const void* a_log, void* y, int64_t B, int64_t S, int64_t di,
-                              int64_t ld, int64_t n, int64_t groups, int64_t warps,
+                              const void* a_log, void* y, void* ckpt, int64_t B, int64_t S,
+                              int64_t di, int64_t ld, int64_t n, int64_t groups, int64_t warps,
                               void* stream) {
-  return launch<uint16_t>(x, dt, bm, cm, a_log, y, B, S, di, ld, n, groups, warps, stream);
+  return launch<uint16_t>(x, dt, bm, cm, a_log, y, ckpt, B, S, di, ld, n, groups, warps,
+                          stream);
 }
 
 }  // extern "C"

@@ -12,8 +12,13 @@ line also carries ``loss_fn``'s ``ce`` and ``aux`` terms.  ``--data`` is the
 number of replicas (FL devices) on the card; the reference's mesh axes
 across cards (``--model > 1``, ``--devices``) are ROADMAP Queue 1 item
 19 and raise.  ``--device`` defaults to ``cuda`` and raises without a
-card.  Each replica trains on its own contiguous shard of a synthetic
-token stream (non-iid); the run logs loss, trigger rate and the EF-HC
+card.  On the card every architecture whose weights it holds trains
+through the kernels (hymba's Mamba branches through the selective scan's
+backward kernel) but xlstm-125m: the sLSTM kernel has no backward
+(ROADMAP Queue 2 item K4), so its wrapper raises under autograd there and
+an xLSTM model trains on the CPU.  Each replica trains on its own
+contiguous shard of a synthetic token stream (non-iid); the run logs
+loss, trigger rate and the EF-HC
 consensus distance, and checkpoints through
 ``repro_torch.checkpoint.msgpack_ckpt`` (the reference's format, bf16
 leaves included).  Unlike the reference, whose resume draws the batches

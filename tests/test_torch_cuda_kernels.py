@@ -17,7 +17,7 @@ from repro_torch.kernels.mixing import ops as tmix  # noqa: E402
 from repro_torch.kernels.mixing import plan as tplan  # noqa: E402
 from repro_torch.kernels.mixing.ref import mix_ref, mix_sparse_ref  # noqa: E402
 from repro_torch.kernels.scan import ops as tscan  # noqa: E402
-from repro_torch.kernels.scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.kernels.scan.ref import selective_scan_bwd_ref, selective_scan_ref  # noqa: E402
 from repro_torch.kernels.slstm import ops as tslstm  # noqa: E402
 from repro_torch.kernels.slstm.ref import slstm_scan_ref  # noqa: E402
 from repro_torch.kernels.swa import ops as tswa  # noqa: E402
@@ -656,21 +656,153 @@ def test_selective_scan_kernel_rows_off_16_byte_bounds(cuda, dtype):
 
 @pytest.mark.gpu
 def test_selective_scan_wrapper_refuses_autograd_and_wide_states(cuda):
-    ins = _scan_inputs(cuda, (1, 64, 32, 16), torch.float32, 0)
-    ins[1].requires_grad_()
-    before = tscan.LAUNCHES["selective_scan"]
-    with pytest.raises(NotImplementedError, match="item K3"):
-        tscan.selective_scan(*ins)
-    with torch.no_grad():
-        tscan.selective_scan(*ins)
-    assert tscan.LAUNCHES["selective_scan"] == before + 1
+    """States past n = 16 and non-contiguous inputs raise, with or without
+    autograd (the backward kernel lifted the refusal of autograd)."""
     wide = _scan_inputs(cuda, (1, 64, 32, 17), torch.float32, 0)
+    with pytest.raises(ValueError, match="n <= 16"):
+        tscan.selective_scan(*wide)
+    wide[1].requires_grad_()
     with pytest.raises(ValueError, match="n <= 16"):
         tscan.selective_scan(*wide)
     x, dt, b, c, a_log = _scan_inputs(cuda, (1, 64, 32, 16), torch.float32, 0)
     with pytest.raises(ValueError, match="contiguous"):
         tscan.selective_scan(x, dt, torch.zeros((1, 64, 32), device=cuda)[..., ::2], c, a_log)
 
+
+# ---- the selective scan's backward (hymba training) -------------------------
+
+# the backward kernel against the plain backward: fp32 each gradient within
+# rtol and atol x its largest value (the exps are MUFU.EX2's, the products
+# fused, the sums over lanes, channels, blocks and time in other orders);
+# bf16 within one bf16 ulp and 2^-7 of the largest value (du and the decay's
+# part of ddt round to bf16 before their products and sum, so a sum on the
+# other side of a rounding moves a value by an ulp of its terms); against an
+# fp64 backward within 2 x the plain backward's error, or 1e-6 of the scale
+SCAN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
+SCAN_BWD_NAMES = ("dx", "ddt", "db", "dc", "da_log")
+# one step, a tile's worth, n = 8 and 5, di off the 4-channel units (rows
+# off 16-byte bounds), the plan's 7-warp blocks at hymba's channels, and
+# hymba's train shape
+SCAN_BWD_SHAPES = [(1, 1, 8, 16), (2, 32, 24, 16), (2, 300, 96, 16), (3, 1000, 200, 8),
+                   (2, 500, 64, 5), (1, 700, 1001, 16), (5, 64, 3200, 16), (2, 2048, 3200, 16)]
+
+
+def _scan_grads(ins, dy):
+    """y and the gradients of every input through the wrapper's Function."""
+    leaves = [t.detach().requires_grad_() for t in ins]
+    y = tscan.selective_scan(*leaves)
+    return y, torch.autograd.grad(y, leaves, dy)
+
+
+def _bwd_close(got, want, dtype, label=""):
+    rtol, atol = SCAN_BWD_TOL[dtype]
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        assert g.dtype == w.dtype == dtype, name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol * float(w.float().abs().max()),
+                                   msg=f"{label} {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+def test_selective_scan_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """Under autograd: one saving forward launch (y bit-equal to the no-grad
+    launch's) and one backward launch; the gradients against the plain
+    backward within SCAN_BWD_TOL and against fp64 within 2 x its error, the
+    same bits from two calls."""
+    ins = _scan_inputs(cuda, shape, dtype, sum(shape))
+    dy = torch.randn(shape[:3], device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+    before = dict(tscan.LAUNCHES)
+    y, got = _scan_grads(ins, dy)
+    assert tscan.LAUNCHES["selective_scan"] == before["selective_scan"] + 1
+    assert tscan.LAUNCHES["selective_scan_bwd"] == before["selective_scan_bwd"] + 1
+    with torch.no_grad():
+        assert torch.equal(y, tscan.selective_scan(*ins))
+    _, again = _scan_grads(ins, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = selective_scan_bwd_ref(*ins, dy)
+    _bwd_close(got, want, dtype, str(shape))
+    exact = selective_scan_bwd_ref(*ins, dy, acc=torch.float64)
+    for name, g, w, e in zip(SCAN_BWD_NAMES, got, want, exact):
+        err_k, err_p = (float((t.double() - e).abs().max()) for t in (g, w))
+        assert err_k <= max(2 * err_p, 1e-6 * float(e.abs().max())), (name, err_k, err_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 300, 96, 16), (2, 500, 64, 5), (1, 700, 1001, 16)])
+def test_selective_scan_bwd_kernel_nan_where_plain_is(cuda, shape, dtype):
+    """A NaN in dt at one (t, d) of the last batch row: each gradient NaN
+    exactly where the plain backward's is (h from t on, g before t, the
+    sums over channels and time that take them)."""
+    bsz, s, di, _ = shape
+    x, dt, b, c, a_log = _scan_inputs(cuda, shape, dtype, 7)
+    dt[bsz - 1, s // 2, di // 3] = float("nan")
+    dy = torch.randn(shape[:3], device=cuda)
+    _, got = _scan_grads([x, dt, b, c, a_log], dy)
+    want = selective_scan_bwd_ref(x, dt, b, c, a_log, dy)
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        assert bool(w.isnan().any()), name
+        assert torch.equal(g.isnan(), w.isnan()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 300, 96, 16), (2, 500, 64, 5)])
+def test_selective_scan_bwd_kernel_non_finite_where_plain_is(cuda, shape, dtype):
+    """An inf in x at one (t, d) of the last batch row and a dt at the next
+    step whose decays flush to 0 in the kernel: each gradient non-finite
+    exactly where the plain backward's is (an inf there may read NaN), and
+    within tolerance elsewhere."""
+    bsz, s, di, _ = shape
+    x, dt, b, c, a_log = _scan_inputs(cuda, shape, dtype, 9)
+    x[bsz - 1, s // 2, di // 3] = float("inf")
+    dt[bsz - 1, s // 2 + 1, di // 3] = 95.0
+    dy = torch.randn(shape[:3], device=cuda)
+    _, got = _scan_grads([x, dt, b, c, a_log], dy)
+    want = selective_scan_bwd_ref(x, dt, b, c, a_log, dy)
+    rtol, atol = SCAN_BWD_TOL[dtype]
+    assert not all(bool(w.isfinite().all()) for w in want)
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        fin = w.isfinite()
+        assert torch.equal(g.isfinite(), fin), name
+        torch.testing.assert_close(g[fin].float(), w[fin].float(), rtol=rtol,
+                                   atol=atol * float(w[fin].float().abs().max()), msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_kernel_rows_off_16_byte_bounds(cuda, dtype):
+    """x, dt and dy starting one element past a 16-byte bound (contiguous
+    views into a larger buffer): the wrapper copies them into rows the TMA
+    takes, and the gradients have the same bits as from aligned copies."""
+    shape = (2, 300, 96, 16)
+    ins = _scan_inputs(cuda, shape, dtype, 3)
+    dy = torch.randn(shape[:3], device=cuda)
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    _, want = _scan_grads(ins, dy)
+    _, got = _scan_grads([off(ins[0]), off(ins[1]), *ins[2:]], off(dy))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("warps", range(1, tscan.BWD_MAX_WARPS + 1))
+def test_selective_scan_bwd_kernel_layout_is_its_host_mirror(cuda, warps, itemsize):
+    """The built backward's layout (a block's shared memory, ring stages and
+    most consumer warps: ``repro_selective_scan_bwd_layout``) is the one
+    ``ops.bwd_layout`` mirrors for ``scan_plan`` at every block width."""
+    assert tscan.built_bwd_layout(warps, itemsize) == tscan.bwd_layout(warps, itemsize)
 
 # ---- the sLSTM recurrence (xLSTM's sLSTM blocks) -----------------------------
 

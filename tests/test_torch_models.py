@@ -37,7 +37,11 @@ ARCH = "starcoder2-15b"
 # test_torch_moe.py, test_torch_mla.py, test_torch_ssm.py, test_torch_xlstm.py
 # and test_torch_frontends.py
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b")
-OTHER_ARCHS = (*MOE_ARCHS, "hymba-1.5b", "xlstm-125m", "paligemma-3b", "hubert-xlarge")
+# deepseek-coder-33b and phi3-medium-14b: full-attention stacks of the blocks
+# ARCH has (their forward, decode and init bits are below)
+DENSE_ARCHS = ("deepseek-coder-33b", "phi3-medium-14b")
+OTHER_ARCHS = (*MOE_ARCHS, "hymba-1.5b", "xlstm-125m", "paligemma-3b", "hubert-xlarge",
+               *DENSE_ARCHS)
 TOL = 1e-4  # fp32 logits: the same products, summed in another order
 
 
@@ -86,7 +90,7 @@ def test_configs_equal_reference(arch, make):
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
                                   if a != ARCH and a not in OTHER_ARCHS])
 def test_unported_configs_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 19"):
         tconfigs.get_config(arch)
 
 
@@ -113,6 +117,54 @@ def test_full_param_tree_matches_reference_shapes_unallocated():
         assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
     n = sum(int(np.prod(w.shape)) for _, w in want_leaves)
     assert 15.9e9 < n < 16.0e9
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_full_param_tree_matches_reference_shapes_unallocated(arch):
+    """The full configuration's tree on the meta device (nothing allocated)
+    against ``jax.eval_shape``'s: 33342991360 and 14659507200 parameters
+    (66.7 GB and 29.3 GB in bf16; the analytic count leaves out the final
+    norm's scale)."""
+    jcfg = jconfigs.get_config(arch)
+    want = jax.eval_shape(lambda k: JM.init_params(jcfg, k), jax.random.PRNGKey(0))
+    got = TM.init_params(tconfigs.get_config(arch), None, "meta")
+    want_leaves = jax.tree_util.tree_leaves_with_path(want)
+    got_leaves = jax.tree_util.tree_leaves_with_path(
+        got, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert [jax.tree_util.keystr(p) for p, _ in got_leaves] == \
+        [jax.tree_util.keystr(p) for p, _ in want_leaves]
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        assert g.device.type == "meta", jax.tree_util.keystr(path)
+        assert tuple(g.shape) == tuple(w.shape), jax.tree_util.keystr(path)
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+    n = sum(int(np.prod(w.shape)) for _, w in want_leaves)
+    assert n == {"deepseek-coder-33b": 33342991360, "phi3-medium-14b": 14659507200}[arch]
+    assert n == JM.count_params_analytic(jcfg) + jcfg.d_model
+
+
+def _bits_equal(got, want, path: str = "") -> None:
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _bits_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bits_equal(g, w, f"{path}/{i}")
+    else:
+        assert got.dtype == torch.float32, path
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=path)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_init_params_bits_match_reference(arch):
+    """The smoke configuration's weights from one key, bit for bit."""
+    from repro_torch import prng
+
+    jcfg = jconfigs.smoke_config(arch)
+    want = _jparams(JM.init_params, jcfg, jax.random.PRNGKey(0))
+    got = TM.init_params(tconfigs.smoke_config(arch), prng.PRNGKey(0), "cpu")
+    _bits_equal(got, want)
 
 
 def test_init_params_draws_from_the_generator():
@@ -346,6 +398,41 @@ def test_decode_replays_forward(smoke):
         logits, cache = TM.decode_step(tcfg, tp, cache, tok[:, t], t)
         np.testing.assert_allclose(logits.numpy(), full[:, t].numpy(), atol=TOL,
                                    rtol=TOL)
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_smoke(request):
+    jcfg = jconfigs.smoke_config(request.param)
+    jp = _jparams(JM.init_params, jcfg, jax.random.PRNGKey(0))
+    return jcfg, _tcfg(jcfg), jp, arch_params_from_jax(jp, "cpu")
+
+
+@pytest.mark.parametrize("impl", ["xla", "chunked"])
+def test_dense_smoke_forward_matches_reference(dense_smoke, impl):
+    """The full-attention smoke stack (rmsnorm, swiglu, GQA, no qkv bias)
+    through ``xla`` and through ``chunked`` (4 kv chunks of 16), the paths
+    the full configurations take below and above S = 4096."""
+    jcfg, tcfg, jp, tp = dense_smoke
+    jcfg, tcfg = (dataclasses.replace(c, attn_impl=impl, attn_chunk=16) for c in (jcfg, tcfg))
+    tok = _rng(12).integers(0, jcfg.vocab, size=(2, 64)).astype(np.int32)
+    want, _ = JM.forward(jcfg, jp, {"tokens": jnp.asarray(tok)})
+    got = tsteps.make_prefill_step(tcfg)(tp, {"tokens": torch.as_tensor(tok, dtype=torch.int64)})
+    assert tuple(got.shape) == (2, 64, jcfg.vocab)
+    _close(got, want)
+
+
+def test_dense_smoke_decode_matches_reference(dense_smoke):
+    """16 one-token steps against the reference's (jitted) decode."""
+    jcfg, tcfg, jp, tp = dense_smoke
+    tok = _rng(13).integers(0, jcfg.vocab, size=(16, 3)).astype(np.int32)
+    jc = JM.init_cache(jcfg, 3, 32)
+    tc = TM.init_cache(tcfg, 3, 32, device="cpu")
+    step = jax.jit(JM.decode_step, static_argnums=0)
+    serve = tsteps.make_serve_step(tcfg)
+    for t in range(16):
+        want, jc = step(jcfg, jp, jc, jnp.asarray(tok[t]), jnp.asarray(t, jnp.int32))
+        got, tc = serve(tp, tc, torch.as_tensor(tok[t], dtype=torch.int64), t)
+        _close(got, want)
 
 
 def test_arch_params_from_jax_carries_bf16():

@@ -316,7 +316,7 @@ def test_scan_wrapper_refuses_what_it_does_not_take():
 
 def test_plain_scan_has_gradients_on_the_cpu():
     """Training a hybrid model on the CPU differentiates the plain version
-    (the card's kernel refuses autograd)."""
+    (the wrapper's Function: the plain forward and the plain backward)."""
     ins = [t.requires_grad_() for t in _scan_inputs((1, 12, 6, 4), torch.float32, 4)]
     tscan.selective_scan(*ins).square().sum().backward()
     for t in ins:
