@@ -229,7 +229,8 @@ error:
    CPU, v equal at every step.  Phase 2 holds the backward kernel against
    its plain version at hymba's train shape (2, 2048, 3200, 16) and at
    (1, 8192, 3200, 16), bf16 and fp32 (``_scan_bwd_rows``: tolerance,
-   fp64 gate, run-to-run bits, the saving forward's y bit-equal).
+   fp64 gate, run-to-run bits, the saving forward's y bit-equal; the
+   walk's resident blocks an SM and both kernel functions' registers).
 
 Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
 in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
@@ -1740,7 +1741,7 @@ SCAN_BWD_FLOPS = 19
 FP32_LANES_PER_CLOCK = 128
 SCAN_BWD_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "fp64_max_abs_err_plain",
                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
-                   "plan", "registers")
+                   "plan", "registers", "sum_registers", "blocks_per_sm")
 
 
 def scan_bwd_bound(torch, dev, shape, elem_bytes: int, groups: int
@@ -1787,8 +1788,9 @@ def _scan_bwd_row(torch, dev, gen, shape, dtype, res: dict[str, dict]) -> dict:
     once) within SCAN_BWD_TOL and against its fp64 mode within
     SCAN_FP64_VS_PLAIN x the plain backward's error, the same bits from two
     calls and through autograd of the wrapper, with its event-timed ``ms``,
-    ``device_ms`` (the profiler's records of its two launches), the bound
-    and the registers of its kernel function (no stack allowed)."""
+    ``device_ms`` (the profiler's records of its two launches), the bound,
+    the registers of its two kernel functions (no stack allowed in the
+    walk) and the walk's resident blocks an SM (the CUDA occupancy API)."""
     from repro_torch.kernels.scan import ops as scan_ops
     from repro_torch.kernels.scan.ref import selective_scan_bwd_ref
 
@@ -1834,10 +1836,15 @@ def _scan_bwd_row(torch, dev, gen, shape, dtype, res: dict[str, dict]) -> dict:
     check(wired, f"{label}: autograd of the wrapper gave other bits than the backward wrapper")
     bsz, _, di, _ = shape
     plan = scan_ops.device_plan(bsz, di, ins[0].element_size(), dev, backward=True)
-    fn = f"{scan_ops.BWD_KERNEL}<{'bf16' if dtype == torch.bfloat16 else 'float'}>"
-    facts = res.get(fn, {})
-    check(facts.get("stack") == 0, f"{label}: {fn} has a stack frame of {facts.get('stack')} B "
-                                   f"(spills) or none was read: {facts}")
+    targ = "bf16" if dtype == torch.bfloat16 else "float"
+    # the walk's two instances: n = 16 (hymba's, the one timed here) and any n
+    fn, other = (f"{scan_ops.BWD_KERNEL}<{targ}, {whole}>" for whole in (1, 0))
+    facts, other_facts = res.get(fn, {}), res.get(other, {})
+    sum_regs = res.get(f"{scan_ops.BWD_SUM_KERNEL}<{targ}>", {}).get("registers")
+    for kname, f in ((fn, facts), (other, other_facts)):
+        check(f.get("stack") == 0, f"{label}: {kname} has a stack frame of {f.get('stack')} B "
+                                   f"(spills) or none was read: {f}")
+    blocks_sm = scan_ops.bwd_blocks_per_sm(plan.warps, ins[0].element_size())
     built = scan_ops.built_bwd_layout(plan.warps, ins[0].element_size())
     check(built == scan_ops.bwd_layout(plan.warps, ins[0].element_size()),
           f"{label}: the built layout {built} is not ops' mirror "
@@ -1851,7 +1858,8 @@ def _scan_bwd_row(torch, dev, gen, shape, dtype, res: dict[str, dict]) -> dict:
            "max_abs_err_by_gradient": errs, "fp64_max_abs_err": max(fp64.values()),
            "fp64_max_abs_err_plain": max(fp64_plain.values()),
            "tolerance": f"rtol {rtol:.3g}, atol {atol:.3g} x max|gradient|",
-           "plan": list(plan), "registers": facts.get("registers"), "ms": time_ms(torch, call),
+           "plan": list(plan), "registers": facts.get("registers"),
+           "sum_registers": sum_regs, "blocks_per_sm": blocks_sm, "ms": time_ms(torch, call),
            "device_ms": kernel_device_ms(torch, call, (scan_ops.BWD_KERNEL,
                                                         scan_ops.BWD_SUM_KERNEL), launches=2),
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -1860,8 +1868,11 @@ def _scan_bwd_row(torch, dev, gen, shape, dtype, res: dict[str, dict]) -> dict:
           f"against the plain backward (tol rtol {rtol:.3g}, atol {atol:.3g} x max|gradient|; "
           f"fp64 limit {SCAN_FP64_VS_PLAIN:g} x the plain's or {SCAN_FP64_FLOOR:g} x max): "
           + "; ".join(texts) + f"; two calls and autograd of the wrapper bit-equal; "
-          f"{plan.groups} blocks a row of {plan.warps} warps; {fn}: {facts.get('registers')} "
-          f"registers, stack {facts.get('stack')} B; kernel_ms {row['ms']:.4f} device_ms "
+          f"{plan.groups} blocks a row of {plan.warps} warps, {blocks_sm} resident an SM "
+          f"({blocks_sm * plan.warps} warps); {fn}: {facts.get('registers')} registers, "
+          f"stack {facts.get('stack')} B ({other}: {other_facts.get('registers')}, "
+          f"{other_facts.get('stack')} B); {scan_ops.BWD_SUM_KERNEL}<{targ}>: "
+          f"{sum_regs} registers; kernel_ms {row['ms']:.4f} device_ms "
           f"{row['device_ms']:.4f} plain_ms {plain_ms:.1f} (one call: loops over S) "
           f"library_ms null (no PyTorch call computes a selective scan's gradient) bound_ms "
           f"{b_ms:.4f} ({b_by}; {b_text}); device {row['bound_share']:.3f} of the bound; card "
@@ -5724,7 +5735,8 @@ def main() -> int:
                                    "shape_hymba", "ms_hymba", "device_ms_hymba",
                                    "library_ms_hymba", "bound_ms_hymba",
                                    "bound_share_hymba", "hybrid_launches", "plan",
-                                   "registers", "mufu_ex2_step",
+                                   "registers", "sum_registers", "blocks_per_sm",
+                                   "mufu_ex2_step",
                                    "serial_floor_ms", "sync_loop_ms", "fp64_reference",
                                    "serial_floor_ms_design", "sync_loop_ms_design",
                                    "us_per_step", "serve_cpu_launches", "device_ms",

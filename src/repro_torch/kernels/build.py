@@ -50,6 +50,7 @@ _SIGNATURES = {
     "repro_selective_scan_bwd_f32": (*(_P,) * 14, *(_I64,) * 8, _P),
     "repro_selective_scan_bwd_bf16": (*(_P,) * 14, *(_I64,) * 8, _P),
     "repro_selective_scan_bwd_layout": (_I64, _I64, _I64, _P),
+    "repro_selective_scan_bwd_occupancy": (_I64, _I64, _P),
     "repro_slstm_f32": (*(_P,) * 12, *(_I64,) * 4, _P),
     "repro_slstm_bf16": (*(_P,) * 12, *(_I64,) * 4, _P),
     "repro_slstm_layout": (_I64, _P),

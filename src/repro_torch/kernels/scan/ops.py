@@ -31,11 +31,16 @@ forward launches the saving variant of the kernel
 (``selective_scan_save_kernel``: the same y, bit for bit, and each 32-step
 tile's starting state kept, (B, ceil(S / 32), di, n) fp32) and its
 backward launches ``csrc/selective_scan_bwd.cu`` (counted in
-``LAUNCHES["selective_scan_bwd"]``): one reverse walk over time that
-recomputes each tile's states from its checkpoint, then a second launch
-that sums the blocks' partials of db and dc in block order; the gradients
-come back in the inputs' dtypes, the same bits from run to run.  On the CPU
-the same Function runs the plain forward and the plain backward
+``LAUNCHES["selective_scan_bwd"]``): one reverse walk over time, two blocks
+an SM (``BWD_BLOCKS_PER_SM``), that runs each tile forward from its
+checkpoint to the starts of its four 8-step groups and walks the groups
+back, each recomputed into registers; du and the decay's part of ddt sum
+over a channel's 8 lanes pairwise in lane order, db and dc over a warp's 4
+channels and then the block's warps pairwise in channel order (shuffles,
+then shared memory), and dx and ddt leave a tile as rows; then a second
+launch sums the blocks' partials of db and dc in block order.  The
+gradients come back in the inputs' dtypes, the same bits from run to run.
+On the CPU the same Function runs the plain forward and the plain backward
 (``ref.selective_scan_bwd_ref``)."""
 from __future__ import annotations
 
@@ -60,12 +65,16 @@ MAX_WARPS = 8  # consumer warps a block (kMaxWarps), beside one producer warp
 TILE = 32  # time steps a tile (kTile): the step loop's unrolled body
 STAGES = 8  # the ring's tiles (kStages)
 SMEM_LIMIT = 232448  # dynamic shared memory a block may take on the H100 (227 KiB)
+GROUP = 8  # steps of the backward's groups (selective_scan_bwd.cu kGroup)
 KERNEL = "selective_scan_kernel"  # the kernel function (the name the profiler shows)
 SAVE_KERNEL = "selective_scan_save_kernel"  # the forward that keeps the checkpoints
 BWD_KERNEL = "selective_scan_bwd_kernel"  # the backward's reverse walk
 BWD_SUM_KERNEL = "selective_scan_bwd_sum_kernel"  # and its sums of the partials
-BWD_STAGES = 4  # the backward ring's tiles (selective_scan_bwd.cu kStages)
-BWD_MAX_WARPS = 7  # the backward's consumer warps a block (kBwdWarps)
+BWD_STAGES = 2  # the backward ring's tiles (selective_scan_bwd.cu kStages)
+BWD_MAX_WARPS = 7  # the backward's warps a block (kBwdWarps)
+BWD_BLOCKS_PER_SM = 2  # the backward's blocks an SM (kBlocksPerSm)
+SM_SMEM = 233472  # shared memory an SM gives its blocks on the H100 (228 KiB)
+BLOCK_RESERVED = 1024  # of it, reserved for each resident block
 _MAX_GRID_Y = 65535
 
 
@@ -96,58 +105,90 @@ def bwd_smem_bytes(warps: int, itemsize: int) -> int:
     """The backward kernel's dynamic shared memory a block of ``warps``
     consumer warps at n = MAX_STATE, laid out as ``bwd_layout`` in
     csrc/selective_scan_bwd.cu lays it (the library exports its total,
-    ``built_bwd_layout``, and a card test holds the two equal): 256 bytes of mbarriers; BWD_STAGES
-    stages, each a tile's dt, x and dy (fp32) row slots (128-byte aligned)
-    and its b and c; the db and dc parts of a tile, a channel's floats
-    padded 16 banks off; each warp's (du, ddt part) of its channels' steps."""
+    ``built_bwd_layout``, and a card test holds the two equal): 256 bytes of
+    mbarriers; BWD_STAGES stages, each a tile's dt, x and dy (fp32) row
+    slots (128-byte aligned; dt's and x's padded by 16 bytes) and its b and
+    c; each warp's (dt, u) pairs of its channels' steps, a channel's padded
+    by two; then, double-buffered, the warps' 2 MAX_STATE db and dc sums of
+    each step and the tile's dx and ddt rows of the block's channels in the
+    inputs' dtype; and each lane's da and its compensation."""
     def align(v: int) -> int:
         return -(-v // 128) * 128
     row = -(-warps * CHANNELS * itemsize // 16) * 16 + 16
-    rowf = -(-warps * CHANNELS * 4 // 16) * 16 + 16
+    rowf = -(-warps * CHANNELS * 4 // 16) * 16
     tile = -(-TILE * MAX_STATE * itemsize // 16) * 16 + 16
     stage = align(align(align(align(TILE * row) + TILE * row) + TILE * rowf) + 2 * tile)
-    chan = -(-TILE * MAX_STATE // 32) * 32 + 16
-    return (256 + BWD_STAGES * stage + 2 * warps * CHANNELS * chan * 4
-            + warps * TILE * CHANNELS * 2 * 4)
+    pairs = warps * CHANNELS * (TILE + 2) * 8
+    sums = 2 * warps * TILE * 2 * MAX_STATE * 4
+    rows = 2 * 2 * TILE * warps * CHANNELS * itemsize
+    kahan = warps * 32 * 2 * (MAX_STATE // LANES) * 4
+    return 256 + BWD_STAGES * stage + pairs + sums + rows + kahan
 
 
-def bwd_layout(warps: int, itemsize: int) -> tuple[int, int, int]:
-    """(a block's shared memory, ring stages, most consumer warps) of the
-    backward kernel at ``warps`` warps, n = MAX_STATE and ``itemsize``-byte
-    inputs, as this module mirrors them."""
-    return bwd_smem_bytes(warps, itemsize), BWD_STAGES, BWD_MAX_WARPS
+def bwd_layout(warps: int, itemsize: int) -> tuple[int, int, int, int]:
+    """(a block's shared memory, ring stages, most consumer warps, blocks an
+    SM) of the backward kernel at ``warps`` warps, n = MAX_STATE and
+    ``itemsize``-byte inputs, as this module mirrors them."""
+    return bwd_smem_bytes(warps, itemsize), BWD_STAGES, BWD_MAX_WARPS, BWD_BLOCKS_PER_SM
 
 
-def built_bwd_layout(warps: int, itemsize: int) -> tuple[int, int, int]:
+def built_bwd_layout(warps: int, itemsize: int) -> tuple[int, int, int, int]:
     """``bwd_layout`` as the built kernel has it
     (``repro_selective_scan_bwd_layout``; builds the library on first call,
     so on a machine with the CUDA toolkit)."""
-    out = (ctypes.c_int64 * 3)()
+    out = (ctypes.c_int64 * 4)()
     lib = build.library()
     build.check(lib.repro_selective_scan_bwd_layout(warps, MAX_STATE, itemsize, out),
                 "selective_scan_bwd layout")
     return tuple(out)
 
 
+def bwd_blocks_per_sm(warps: int, itemsize: int) -> int:
+    """The backward walk's resident blocks an SM on the current card at
+    ``warps`` warps and n = MAX_STATE (the CUDA occupancy API, through
+    ``repro_selective_scan_bwd_occupancy``; builds the library on first
+    call)."""
+    out = (ctypes.c_int64 * 1)()
+    build.check(build.library().repro_selective_scan_bwd_occupancy(warps, itemsize, out),
+                "selective_scan_bwd occupancy")
+    return int(out[0])
+
+
 def scan_plan(b: int, di: int, itemsize: int, sms: int, smem=smem_bytes,
-              max_warps: int = MAX_WARPS) -> ScanPlan:
+              max_warps: int = MAX_WARPS, per_sm: int = 1) -> ScanPlan:
     """The launch of a (b, S, di, n) scan of ``itemsize``-byte inputs on
-    ``sms`` SMs: each batch row's units cut into ``groups`` contiguous
-    ranges, one block each, so that b x groups blocks are a whole number of
-    blocks an SM (one at b = 1, where every SM gets U / sms units, give or
-    take one: hymba's 800 units of 4 channels as 6 or 7 a block), with at
-    most as many units a block as warps fit SMEM_LIMIT (8 in bf16, 7 in
-    fp32) and MAX_WARPS.  A unit is one warp, 32 lanes x 2 exps a step; an
-    SM's four sub-partitions take its warps in turn, so blocks of 6 and 7
-    units both put 2 warps on the busiest one.  ``smem`` and ``max_warps``
-    are the kernel's shared memory a block and its most consumer warps (for
-    the backward ``bwd_smem_bytes`` and BWD_MAX_WARPS: its blocks of 7 fit
-    in either dtype)."""
-    widest = max(w for w in range(1, max_warps + 1) if smem(w, itemsize) <= SMEM_LIMIT)
+    ``sms`` SMs that hold up to ``per_sm`` blocks each: each batch row's
+    units cut into ``groups`` contiguous ranges, one block each, so that b x
+    groups blocks fill whole waves of sms x k blocks for some k <= per_sm
+    (the forward, one block an SM: at b = 1 every SM gets U / sms units,
+    give or take one, hymba's 800 units of 4 channels as 6 or 7 a block),
+    with at most as many units a block as warps fit the SM's shared memory
+    shared by ``per_sm`` blocks (SM_SMEM / per_sm less BLOCK_RESERVED:
+    SMEM_LIMIT at one block; the forward 8 warps in bf16, 7 in fp32) and
+    ``max_warps``.  A unit is one warp, 32 lanes x 2 exps a step; an SM's
+    four sub-partitions take its warps in turn.  Of the k, the plan takes
+    the one whose busiest SM holds the fewest units (its blocks, b x groups
+    spread over the SMs, times a block's units), the more blocks on a tie:
+    the SMs run side by side, and the busiest one sets the time.
+    ``smem``, ``max_warps`` and ``per_sm`` are the kernel's shared memory a
+    block, its most consumer warps and its blocks an SM (for the backward
+    ``bwd_smem_bytes``, BWD_MAX_WARPS and BWD_BLOCKS_PER_SM: at hymba's
+    train shape (2, S, 3200) 132 blocks a row of 6-7 warps, two an SM, 14
+    units on the busiest; at b = 1 132 of 6-7, one an SM: two an SM would
+    be 264 blocks of 3-4, 8 units on the busiest SMs in place of 7)."""
+    limit = SM_SMEM // per_sm - BLOCK_RESERVED
+    widest = max(w for w in range(1, max_warps + 1) if smem(w, itemsize) <= limit)
     units = -(-di // CHANNELS)
     least = -(-units // widest)  # groups of the widest blocks
-    per_sm = -(-b * least // sms)
-    groups = max(least, min(units, per_sm * sms // b))
+
+    def groups_at(slots: int) -> int:
+        waves = -(-b * least // slots)
+        return max(least, min(units, waves * slots // b))
+
+    def busiest(groups: int) -> tuple[int, int]:
+        return -(-b * groups // sms) * -(-units // groups), -groups
+
+    groups = min((groups_at(sms * k) for k in range(1, per_sm + 1)), key=busiest)
     return ScanPlan(groups, -(-units // groups))
 
 
@@ -158,7 +199,7 @@ def device_plan(b: int, di: int, itemsize: int, device: torch.device,
     forward kernels or, with ``backward``, the backward's."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if backward:
-        return scan_plan(b, di, itemsize, sms, bwd_smem_bytes, BWD_MAX_WARPS)
+        return scan_plan(b, di, itemsize, sms, bwd_smem_bytes, BWD_MAX_WARPS, BWD_BLOCKS_PER_SM)
     return scan_plan(b, di, itemsize, sms)
 
 

@@ -682,9 +682,12 @@ SCAN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** 
 SCAN_BWD_NAMES = ("dx", "ddt", "db", "dc", "da_log")
 # one step, a tile's worth, n = 8 and 5, di off the 4-channel units (rows
 # off 16-byte bounds), the plan's 7-warp blocks at hymba's channels, and
-# hymba's train shape
+# hymba's train shape; then S off the tile and off the walk's 8-step groups
+# with di off the units and off the 7-warp blocks' 28 channels, n = 12 and
+# 3, and B = 3
 SCAN_BWD_SHAPES = [(1, 1, 8, 16), (2, 32, 24, 16), (2, 300, 96, 16), (3, 1000, 200, 8),
-                   (2, 500, 64, 5), (1, 700, 1001, 16), (5, 64, 3200, 16), (2, 2048, 3200, 16)]
+                   (2, 500, 64, 5), (1, 700, 1001, 16), (5, 64, 3200, 16), (2, 2048, 3200, 16),
+                   (3, 45, 30, 16), (3, 77, 58, 12), (3, 101, 113, 3)]
 
 
 def _scan_grads(ins, dy):
@@ -803,6 +806,16 @@ def test_selective_scan_bwd_kernel_layout_is_its_host_mirror(cuda, warps, itemsi
     most consumer warps: ``repro_selective_scan_bwd_layout``) is the one
     ``ops.bwd_layout`` mirrors for ``scan_plan`` at every block width."""
     assert tscan.built_bwd_layout(warps, itemsize) == tscan.bwd_layout(warps, itemsize)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_selective_scan_bwd_kernel_two_blocks_an_sm(cuda, itemsize):
+    """The walk's widest blocks (BWD_MAX_WARPS consumer warps and the
+    producer) are resident BWD_BLOCKS_PER_SM to an SM (the CUDA occupancy
+    API: registers and shared memory both fit), as ``scan_plan`` counts."""
+    got = tscan.bwd_blocks_per_sm(tscan.BWD_MAX_WARPS, itemsize)
+    assert got >= tscan.BWD_BLOCKS_PER_SM, got
 
 # ---- the sLSTM recurrence (xLSTM's sLSTM blocks) -----------------------------
 

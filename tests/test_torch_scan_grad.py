@@ -190,19 +190,102 @@ def test_mamba_seq_gradients_match_reference(s):
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("b,di", [(1, 3200), (2, 3200), (16, 3200), (3, 200), (1, 28)])
 def test_backward_plan_fits_shared_memory_and_covers(b, di, itemsize):
-    """The backward's blocks (as ``bwd_layout`` lays them out) fit the
-    H100's 227 KiB at BWD_MAX_WARPS = 7 warps in either dtype, so its plan
-    takes the widest blocks; every channel lies in one block; at hymba's
-    train shape (2, 2048, 3200) 132 blocks a row of 7 warps."""
-    assert tscan.bwd_smem_bytes(tscan.BWD_MAX_WARPS, 4) == 191744 <= tscan.SMEM_LIMIT
-    assert tscan.bwd_smem_bytes(tscan.BWD_MAX_WARPS, 2) == 171264
-    plan = tscan.scan_plan(b, di, itemsize, 132, tscan.bwd_smem_bytes, tscan.BWD_MAX_WARPS)
+    """The backward's blocks (as ``bwd_layout`` lays them out) fit two to an
+    H100 SM, 228 KiB less 1 KiB reserved a block, at BWD_MAX_WARPS = 7
+    warps in either dtype, so its plan takes the widest blocks; every
+    channel lies in one block; of one and two blocks an SM the plan takes
+    the one whose busiest SM holds the fewest units (warps).  At hymba's
+    train shape (2, 2048, 3200): 132 blocks a row of 6-7 warps, two blocks'
+    worth of work an SM.  At b = 1 its 800 units are 6.06 an SM: two blocks
+    an SM would be 264 of 3-4 and put 8 units on the busiest SMs, in place
+    of 7 with one block an SM (measured on the H100 at (1, 8192, 3200, 16):
+    1.15x slower), so the plan keeps 132 blocks of 6-7."""
+    share = tscan.SM_SMEM // tscan.BWD_BLOCKS_PER_SM - tscan.BLOCK_RESERVED
+    assert tscan.BWD_BLOCKS_PER_SM == 2 and share == 115712
+    assert tscan.bwd_smem_bytes(tscan.BWD_MAX_WARPS, 4) == 115136 <= share
+    assert tscan.bwd_smem_bytes(tscan.BWD_MAX_WARPS, 2) == 97728
+    sms = 132
+    plan = tscan.scan_plan(b, di, itemsize, sms, tscan.bwd_smem_bytes, tscan.BWD_MAX_WARPS,
+                           tscan.BWD_BLOCKS_PER_SM)
     units = -(-di // tscan.CHANNELS)
     assert 1 <= plan.warps <= tscan.BWD_MAX_WARPS and 1 <= plan.groups <= units
     ubounds = np.array([g * units // plan.groups for g in range(plan.groups + 1)])
     assert ubounds[0] == 0 and ubounds[-1] == units and np.diff(ubounds).max() == plan.warps
+
+    def busiest(groups):
+        return -(-b * groups // sms) * -(-units // groups)
+
+    for slots in (sms, 2 * sms):  # the plan of one, and of two blocks an SM
+        least = -(-units // tscan.BWD_MAX_WARPS)
+        other = max(least, min(units, -(-b * least // slots) * slots // b))
+        assert busiest(plan.groups) <= busiest(other)
     if (b, di) == (2, 3200):
-        assert plan == (132, 7)
+        assert plan == (132, 7) and b * plan.groups == 2 * sms
+    if (b, di) == (1, 3200):
+        assert plan == (132, 7) and busiest(264) == 8 > busiest(plan.groups) == 7
+
+
+@pytest.mark.parametrize("busy,channels", [(7, 28), (6, 24), (7, 26), (1, 4), (1, 1), (3, 10),
+                                           (5, 17)])
+def test_block_sums_by_warps_are_the_channel_pairwise_sum(busy, channels):
+    """The walk sums a step's db and dc parts over a warp's 4 channels by
+    shuffles, ((c0 + c1) + (c2 + c3)) (xor 8, then xor 16, each lane
+    keeping one value of two), and the block over its warps pairwise in
+    warp order over 8 leaves: the same bits as one pairwise sum over the
+    block's channels in channel order over 32 leaves (the parts of
+    channels past the block's, in its last warp, are zeros), emulated lane
+    by lane in fp32."""
+    rng = _rng(11, busy, channels)
+    parts = np.zeros((busy * tscan.CHANNELS, 2, 2), f32)  # (channel, db | dc, state of the pair)
+    parts[:channels] = rng.normal(size=(channels, 2, 2)) * 10.0 ** rng.integers(-4, 5, (channels,
+                                                                                       2, 2))
+    want = _pairwise([parts[d] for d in range(busy * tscan.CHANNELS)])
+    warp_sums = []
+    for w in range(busy):
+        lanes = parts[w * tscan.CHANNELS:(w + 1) * tscan.CHANNELS]  # lane c of the 4 channels
+        odd = np.arange(tscan.CHANNELS) % 2 == 1
+        keep = np.where(odd[:, None], lanes[:, 1], lanes[:, 0])  # dc (odd) or db (even)
+        send = np.where(odd[:, None], lanes[:, 0], lanes[:, 1])
+        v = (keep + send[[1, 0, 3, 2]]).astype(f32)  # xor 8: channel c ^ 1
+        hi = np.arange(tscan.CHANNELS) >= 2
+        keep2 = np.where(hi, v[:, 1], v[:, 0])  # state l M (c < 2) or l M + 1
+        send2 = np.where(hi, v[:, 0], v[:, 1])
+        got = (keep2 + send2[[2, 3, 0, 1]]).astype(f32)  # xor 16: channel c ^ 2
+        sums = np.empty((2, 2), f32)
+        for c in range(tscan.CHANNELS):
+            sums[c % 2, c // 2] = got[c]
+        warp_sums.append(sums)
+    got = _pairwise(warp_sums, leaves=8)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_lane_scatter_is_the_lane_pairwise_sum():
+    """du and the decay's part of ddt of a group's GROUP = 8 steps, over a
+    channel's 8 lanes by shuffles xor 1, 2 and 4, each lane keeping half of
+    what it holds (at level k the steps whose bit k is the lane's): lane l
+    ends with step l's sum, bit for bit the pairwise sum in lane order
+    ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)) that the first
+    design's butterflies gave lane 0, emulated in fp32."""
+    rng = _rng(12)
+    group = tscan.GROUP
+    assert group == tscan.LANES
+    parts = (rng.normal(size=(tscan.LANES, 2, group))
+             * 10.0 ** rng.integers(-4, 5, (tscan.LANES, 2, group))).astype(f32)
+    held = [parts[l] for l in range(tscan.LANES)]  # lane l's (du, dd) of each step
+    lane = np.arange(tscan.LANES)
+    for width in (1, 2, 4):
+        nxt = []
+        for l in lane:
+            v, pv = held[l], held[l ^ width]
+            hi = bool(l & width)
+            keep = v[:, 1::2] if hi else v[:, 0::2]
+            psend = pv[:, 1::2] if hi else pv[:, 0::2]  # the partner sends what l keeps
+            nxt.append((keep + psend).astype(f32))
+        held = nxt
+    for l in lane:
+        want = _pairwise([parts[q][:, l] for q in range(tscan.LANES)], leaves=tscan.LANES)
+        assert held[l].shape == (2, 1)
+        assert np.array_equal(held[l][:, 0].view(np.uint32), want.view(np.uint32)), l
 
 
 def _fma(p, q, r):
@@ -241,7 +324,15 @@ def _round(v, dtype):
 def _bwd_replay(x, dt, b, c, a_log, dy, groups: int):
     """The backward kernel's arithmetic in numpy (csrc/selective_scan_bwd.cu),
     with the forward kernel's checkpoints, for blocks of the plan's
-    ``groups`` channel ranges a batch row."""
+    ``groups`` channel ranges a batch row.  The kernel walks a tile's four
+    8-step groups, each recomputed from the tile's checkpoint with the
+    forward's instructions (the states here, taken once), and sums du and
+    ddt's part over a channel's lanes, and db and dc over a warp's channels
+    and then the block's warps, by shuffles and shared memory in the same
+    pairwise orders as the first design's butterflies and block sums
+    (``test_lane_scatter_is_the_lane_pairwise_sum``,
+    ``test_block_sums_by_warps_are_the_channel_pairwise_sum``): this replay
+    of those orders holds unchanged."""
     dtype = x.dtype
     lanes, tile = tscan.LANES, tscan.TILE
     slots = tscan.MAX_STATE // lanes
