@@ -51,6 +51,16 @@ error:
    its registers, the byte and operation bound and two serial floors (S x
    one step's product + the per-step signalling between the cluster's
    CTAs alone, timed: at a fixed yardstick shape and at the kernel's own);
+   the sLSTM recurrence's backward kernel (``_slstm_bwd_rows``; no TPU
+   kernel) at xlstm-125m's train shape a replica (2, 2048, 4, 4, 192) and at
+   (1, 4096, 4, 4, 192), bf16 and fp32, from the saving forward's rows (its
+   hs bit-equal to the serving launch's): each gradient against the plain
+   backward, the fp32 kernel's error against an fp64 backward within 2 x
+   the plain fp32 backward's and the bf16 kernel's distance from the fp32
+   backward within 2 x the plain bf16 backward's, bit-equal from run to run
+   and through autograd of the wrapper, its registers and stack (none
+   allowed), the byte and operation bound, a serial floor, and the saving
+   forward's time beside the serving launch's;
 3. golden: the m=8 golden configurations of
    ``tests/test_golden_trajectory.py`` (svm and ``mlp_blocks``) on the
    card under ``mix_impl="pallas"`` and ``"sparse_pallas"``, against
@@ -231,6 +241,16 @@ error:
    (1, 8192, 3200, 16), bf16 and fp32 (``_scan_bwd_rows``: tolerance,
    fp64 gate, run-to-run bits, the saving forward's y bit-equal; the
    walk's resident blocks an SM and both kernel functions' registers).
+20. train_xlstm: EF-HC training of xlstm-125m at full size (12 layers: 8
+   mLSTM, 4 sLSTM, dh 192, bf16, remat) through
+   ``repro_torch.launch.train.train``, phase 19's cell
+   (``phase_train_xlstm``): exactly leaves x steps launches of each bf16
+   entry, two launches of the sLSTM kernel's saving forward and one of its
+   backward kernel an sLSTM layer, replica and step (192 and 96); ms/step,
+   tokens/s, peak memory; one profiled dense step (the sLSTM kernels'
+   share of busy, every sLSTM forward there the saving variant); the
+   xlstm smoke configuration in bf16 on the card and on the CPU, v equal
+   at every step.
 
 Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
 in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
@@ -308,6 +328,12 @@ def bound(nbytes: float, flops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def op_peak(elem_bytes: int) -> tuple[float, str]:
+    """The peak FLOP/s for products of inputs of ``elem_bytes``: bf16 ones
+    on the tensor cores (fp32 accumulation), fp32 ones off them."""
+    return (BF16_TC_FLOPS, "bf16 tensor-core") if elem_bytes == 2 else (FP32_FLOPS, "fp32")
 
 
 def mix_fp64_gate(torch, p, w, got, ref, label: str) -> dict[str, tuple[float, float]]:
@@ -413,8 +439,8 @@ def kernel_resources(lib: Path) -> dict[str, dict]:
         # "<n>..._kernel" whose length prefix ends a run of digits, the
         # shortest such (an anonymous namespace's hash may hold a run of
         # digits that spans the identifier after it too); its template
-        # arguments are integers (Li<n>E) and, first, a type (f float, t
-        # the bf16 words' unsigned short)
+        # arguments are integers (Li<n>E), flags (Lb0E, Lb1E) and, first, a
+        # type (f float, t the bf16 words' unsigned short)
         found = []
         for m in re.finditer(r"\d+", mangled):
             for i in range(len(m.group())):
@@ -425,9 +451,10 @@ def kernel_resources(lib: Path) -> dict[str, dict]:
         if not found:
             return mangled
         _, name, end = min(found)
-        tmpl = re.match(r"I(?:[ft]|Li\d+E)+E", mangled[end:])
-        args = [n or {"f": "float", "t": "bf16"}[t] for t, n in re.findall(
-            r"(?<=[IE])([ft])|Li(\d+)E", tmpl.group() if tmpl else "")]
+        tmpl = re.match(r"I(?:[ft]|Li\d+E|Lb[01]E)+E", mangled[end:])
+        args = [n or (["false", "true"][int(f)] if f else {"f": "float", "t": "bf16"}[t])
+                for t, n, f in re.findall(r"(?<=[IE])([ft])|Li(\d+)E|Lb([01])E",
+                                          tmpl.group() if tmpl else "")]
         return f"{name}<{', '.join(args)}>" if args else name
 
     facts: dict[str, dict] = {}
@@ -736,6 +763,7 @@ def phase_kernels(torch, dev, seed: int, variant_libs: dict[str, Path]
     rows.update(_scan_rows(torch, dev, gen, res))
     rows.update(_scan_bwd_rows(torch, dev, gen, res))
     rows.update(_slstm_rows(torch, dev, gen, res, variant_libs["slstm_sync_probe"]))
+    rows.update(_slstm_bwd_rows(torch, dev, gen, res, variant_libs["slstm_sync_probe"]))
     return rows
 
 
@@ -1947,20 +1975,22 @@ def slstm_bound(torch, dev, shape, elem_bytes: int, clusters: tuple[int, ...]
                 ) -> tuple[float, str, list[float], str]:
     """The sLSTM kernel's two bounds at ``shape``: (bound_ms, bound_by), the
     bytes (pre_x, R and the bias read once, hs and the state written once,
-    the state read once) over the memory rate against 2 x 4 H dh^2 S B fp32
-    operations at the fp32 peak; and the serial floor's product part for
-    each cluster size in ``clusters``: S times one step's product on one
-    CTA of the cluster, 4 dh (dh / cluster) FMAs at one SM's share of the
-    fp32 peak (the signalling part is timed)."""
+    the state read once) over the memory rate against 2 x 4 H dh^2 S B
+    operations at the peak of the inputs' type (``op_peak``); and the
+    serial floor's product part for each cluster size in ``clusters``: S
+    times one step's product on one CTA of the cluster, 4 dh (dh / cluster)
+    FMAs at one SM's share of the fp32 peak, the design's CUDA-core product
+    (the signalling part is timed)."""
     bsz, s, h, dh = shape
     nbytes = (bsz * s * 4 * h * dh + 4 * h * dh * dh + 4 * h * dh) * elem_bytes \
         + bsz * s * h * dh * 4 + 2 * 4 * bsz * h * dh * 4
     flops = 2 * 4 * h * dh * dh * s * bsz
-    b_ms, b_by = bound(nbytes, flops)
+    peak, peak_name = op_peak(elem_bytes)
+    b_ms, b_by = bound(nbytes, flops, peak)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_step = [2 * 4 * dh * (dh // nc) / (FP32_FLOPS / sms) * 1e3 for nc in clusters]
-    text = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}, fp32 operations "
-            f"{flops / FP32_FLOPS * 1e3:.4f}; serial product floor "
+    text = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}, operations "
+            f"{flops / peak * 1e3:.4f} at the {peak_name} peak; serial product floor "
             + ", ".join(f"{s} x {ps * 1e3:.4f} us (4 x {dh} x {dh // nc} FMAs at 1/{sms} of "
                         f"the fp32 peak, a cluster of {nc})"
                         for nc, ps in zip(clusters, per_step)))
@@ -2104,6 +2134,241 @@ def _slstm_rows(torch, dev, gen, res: dict, sync_lib: Path) -> dict[str, dict]:
     fp32 = _slstm_row(torch, dev, ins32, res, sync_lib, plain=plain32)
     row.update({f"{k}_fp32": fp32[k] for k in SLSTM_FIELDS})
     return {"slstm": row}
+
+
+SLSTM_BWD_SHAPE = (2, 2048, 4, 192)  # xlstm-125m's train step a replica: B, S, H, dh
+SLSTM_BWD_NAMES = ("d pre_x", "dR", "db", "dc0", "dn0", "dh0", "dm0")
+# the backward kernel against its plain version on the same inputs (the
+# reverse walk over the saving forward's rows): each gradient within rtol
+# and atol x its largest value (the gates on ex2.approx / rcp.approx, the
+# recurrent sums in another order, carried over S steps); bf16 two bf16
+# ulps, a sum rounding the other way moving later steps' dpre by an ulp.
+# The whole path (saving forward + backward) against fp64 (fp32): each
+# gradient's largest error within SLSTM_FP64_VS_PLAIN x the plain path's, or
+# SLSTM_BWD_FLOOR of the scale; against the fp32 backward (bf16): each
+# gradient's relative L2 distance within SLSTM_FP64_VS_PLAIN x the plain
+# bf16 path's, and its largest error within SLSTM_BWD_MAX_VS_PLAIN x the
+# plain path's (the largest error of a bf16 gradient is one element's
+# rounding history: two bf16 paths' differ by up to 2.41x where their L2
+# distances differ by at most 1.32x; the readings of
+# ``tools/slstm_bwd_bf16_readings.py``, PERF.md §6)
+SLSTM_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -6)}
+SLSTM_BWD_MAX_VS_PLAIN = 4.0
+SLSTM_BWD_FLOOR = 1e-6
+SLSTM_BWD_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "fp64_max_abs_err_plain", "ms",
+                    "device_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
+                    "serial_floor_ms", "sync_loop_ms", "registers", "stack", "fwd_ms",
+                    "fwd_save_ms", "fwd_device_ms", "fwd_save_device_ms")
+
+
+def slstm_bwd_bound(torch, dev, shape, elem_bytes: int, cluster: int
+                    ) -> tuple[float, str, float, str]:
+    """The sLSTM backward kernel's bound at ``shape``: (bound_ms, bound_by)
+    of the bytes it must move (the saved rows, 7 fp32 a unit and step, and
+    d hs read once, R read once, d pre_x written once in the model's dtype,
+    the final state's gradients read and the initial state's written once)
+    against its 2 x 4 H dh^2 S B operations (the transposed recurrent
+    product) at the peak of the inputs' type (``op_peak``); and the serial
+    floor's product part, S times one step's product on one CTA of the
+    cluster, 4 dh (dh / cluster) FMAs at one SM's share of the fp32 peak,
+    the design's CUDA-core product."""
+    bsz, s, h, dh = shape
+    nbytes = (bsz * s * h * dh * (8 * 4 + 4 * elem_bytes) + 4 * h * dh * dh * elem_bytes
+              + 2 * 4 * bsz * h * dh * 4)
+    flops = 2 * 4 * h * dh * dh * s * bsz
+    peak, peak_name = op_peak(elem_bytes)
+    b_ms, b_by = bound(nbytes, flops, peak)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_step = 2 * 4 * dh * (dh // cluster) / (FP32_FLOPS / sms) * 1e3
+    text = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ({nbytes / 1e9:.4f} GB), "
+            f"operations {flops / peak * 1e3:.4f} at the {peak_name} peak; serial product "
+            f"floor {s} x {per_step * 1e3:.4f} us (4 x {dh} x {dh // cluster} FMAs at 1/{sms} "
+            f"of the fp32 peak, a cluster of {cluster})")
+    return b_ms, b_by, s * per_step, text
+
+
+def _slstm_bwd_grads(torch, ops, r, h0, hs, saved, dhs, dtype):
+    """The backward kernel's gradients, as the Function gives them: d pre_x
+    and the initial state's from the walk, dR and db from its rows."""
+    from repro_torch.kernels.slstm.ref import weight_grads
+
+    zeros = tuple(torch.zeros_like(h0) for _ in range(4))
+    dpx, d0 = ops._launch_bwd(r, saved, dhs, zeros, dtype)
+    return (dpx, *weight_grads(h0, hs, dpx, dtype), *d0)
+
+
+def _slstm_bwd_row(torch, dev, ins, res: dict, sync_lib: Path, plain32=None
+                   ) -> tuple[dict, tuple]:
+    """The sLSTM backward kernel (``slstm_ops._launch_bwd``) on ``ins``
+    (pre_x, R, the bias, the state, d hs), from the saving
+    forward's rows (its hs and final state bit-equal to the no-grad
+    launch's): each gradient against the plain reverse walk over the same
+    rows (timed) within SLSTM_BWD_TOL; the fp64 gate on the whole path
+    against the plain one (the plain forward and walk): fp32, each
+    gradient's error against the fp64 backward within SLSTM_FP64_VS_PLAIN x
+    the plain path's; bf16, its relative L2 distance from the fp32 backward
+    on the same values, ``plain32``, within that multiple of the plain bf16
+    path's; the same bits from two calls and through
+    autograd of the wrapper; registers and stack; event-timed ``ms``, the
+    profiler's ``device_ms`` with the L2 written before each call, the bound
+    and the serial floor (S x one step's product + the cluster's per-step
+    signalling alone, the forward's design probe); the saving forward's time
+    beside the no-grad launch's.  Returns the row and the plain gradients
+    (an fp32 row's serve as the bf16 row's reference)."""
+    from repro_torch.kernels.slstm import ops as slstm_ops
+    from repro_torch.kernels.slstm.ref import slstm_bwd_walk_ref, slstm_scan_bwd_ref
+    from repro_torch.kernels.slstm.ref import slstm_scan_save_ref
+
+    pre, r, b, st, dhs = ins
+    dtype = pre.dtype
+    name = str(dtype)[6:]
+    bsz, s, h, dh = shape = (pre.shape[0], pre.shape[1], pre.shape[3], pre.shape[4])
+    label = f"slstm_bwd {tuple(shape)} {name}"
+    hs0, out0 = slstm_ops.slstm_scan(pre, r, b, st)
+    before = slstm_ops.LAUNCHES["slstm"]
+    hs, out, saved = slstm_ops._launch(pre, r, b, st, save=True)
+    check(slstm_ops.LAUNCHES["slstm"] == before + 1, f"{label}: no saving launch counted")
+    check(torch.equal(hs, hs0) and all(torch.equal(x, y) for x, y in zip(out, out0)),
+          f"{label}: the saving forward's hs is not the no-grad launch's")
+    del hs0, out0
+    before = slstm_ops.LAUNCHES["slstm_bwd"]
+    got = _slstm_bwd_grads(torch, slstm_ops, r, st[2], hs, saved, dhs, dtype)
+    check(slstm_ops.LAUNCHES["slstm_bwd"] == before + 1, f"{label}: no backward launch counted")
+    same = all(torch.equal(x, y) for x, y in zip(
+        got, _slstm_bwd_grads(torch, slstm_ops, r, st[2], hs, saved, dhs, dtype)))
+    leaves = [t.detach().clone().requires_grad_() for t in (pre, r, b, *st)]
+    wired = all(torch.equal(x, y) for x, y in zip(got, torch.autograd.grad(
+        slstm_ops.slstm_scan(leaves[0], leaves[1], leaves[2], tuple(leaves[3:]))[0], leaves,
+        dhs)))
+    del leaves
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk = slstm_bwd_walk_ref(r, st[2], saved, hs, dhs, None, dtype)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same_in = (walk[0], walk[1], walk[2], *walk[3])
+    p_hs, _, p_saved = slstm_scan_save_ref(pre, r, b, st)
+    walk = slstm_bwd_walk_ref(r, st[2], p_saved, p_hs, dhs, None, dtype)
+    plain = (walk[0], walk[1], walk[2], *walk[3])
+    del p_hs, p_saved, walk
+    if dtype == torch.float32:
+        ex = slstm_scan_bwd_ref(pre, r, b, st, dhs, acc=torch.float64)
+        exact, kind, metric = (ex[0], ex[1], ex[2], *ex[3]), "fp64", "max abs err"
+    else:
+        exact, kind, metric = plain32, "fp32", "relative L2 distance"
+
+    def largest(t, e):
+        return float((t.double() - e.double()).abs().max())
+
+    def distance(t, e):
+        t, e = t.double(), e.double()
+        if dtype == torch.float32:
+            return largest(t, e)
+        return float((t - e).norm() / e.norm().clamp(min=1e-300))
+
+    rtol, atol = SLSTM_BWD_TOL[name]
+    errs, dist, dist_plain, texts = {}, {}, {}, []
+    for gname, g, w, p, e in zip(SLSTM_BWD_NAMES, got, same_in, plain, exact):
+        scale = float(w.float().abs().max())
+        errs[gname] = float((g.float() - w.float()).abs().max())
+        ok = bool(torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol * scale))
+        check(ok, f"{label}: {gname} outside rtol {rtol:.3g} / atol {atol:.3g} x {scale:.3g} of "
+                  f"the plain walk over the same rows (max abs err {errs[gname]:.3g})")
+        dist[gname], dist_plain[gname] = distance(g, e), distance(p, e)
+        floor = SLSTM_BWD_FLOOR * (float(e.double().abs().max()) if dtype == torch.float32
+                                   else 1.0)
+        limit = max(SLSTM_FP64_VS_PLAIN * dist_plain[gname], floor)
+        check(dist[gname] <= limit, f"{label}: {gname}'s {metric} from the {kind} backward "
+                                    f"{dist[gname]:.3g} > {limit:.3g} (the plain path's "
+                                    f"{dist_plain[gname]:.3g})")
+        extra = ""
+        if dtype != torch.float32:
+            big, big_plain = largest(g, e), largest(p, e)
+            limit = max(SLSTM_BWD_MAX_VS_PLAIN * big_plain, SLSTM_BWD_FLOOR * scale)
+            check(big <= limit, f"{label}: {gname}'s largest error from the fp32 backward "
+                                f"{big:.3g} > {limit:.3g} (the plain path's {big_plain:.3g})")
+            extra = f"; largest {big:.3g}, plain path {big_plain:.3g}"
+        texts.append(f"{gname} {errs[gname]:.3g} of {scale:.3g} ({kind}: {dist[gname]:.3g}, "
+                     f"plain path {dist_plain[gname]:.3g}{extra})")
+    del exact, same_in
+    check(same, f"{label}: not the same bits from run to run")
+    check(wired, f"{label}: autograd of the wrapper gave other bits than the backward wrapper")
+    layout = slstm_ops.built_bwd_layout(dh)
+    check(layout == slstm_ops.bwd_layout(dh), f"{label}: the built layout {layout} is not ops' "
+                                              f"mirror {slstm_ops.bwd_layout(dh)}")
+    nc, warps = layout[:2]
+    targ = "bf16" if dtype == torch.bfloat16 else "float"
+    facts = res.get(f"{slstm_ops.BWD_KERNEL}<{targ}, {dh}>", {})
+    check(facts.get("stack") == 0, f"{label}: {slstm_ops.BWD_KERNEL}<{targ}, {dh}> has a stack "
+                                   f"frame of {facts.get('stack')} B (spills) or none was read")
+    b_ms, b_by, floor_ms, b_text = slstm_bwd_bound(torch, dev, shape, pre.element_size(), nc)
+    sync_ms = _slstm_sync_ms(torch, dev, sync_lib, shape, nc, warps, per_warp=True)
+    zeros = tuple(torch.zeros_like(st[0]) for _ in range(4))
+
+    def call():
+        return slstm_ops._launch_bwd(r, saved, dhs, zeros, dtype)
+
+    def fwd(save):
+        return lambda: slstm_ops._launch(pre, r, b, st, save=save)
+
+    row = {"shape": list(shape), "dtype": name, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_gradient": errs, "fp64_max_abs_err": max(dist.values()),
+           "fp64_max_abs_err_plain": max(dist_plain.values()), "fp64_reference": kind,
+           "fp64_metric": metric, "fp64_distance_by_gradient": dist,
+           "tolerance": f"rtol {rtol:.3g}, atol {atol:.3g} x max|gradient|",
+           "registers": facts.get("registers"), "stack": facts.get("stack"),
+           "ms": time_ms(torch, call, reps=10, warmup=2),
+           "device_ms": kernel_device_ms(torch, call, (slstm_ops.BWD_KERNEL,), reps=10),
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "serial_floor_ms": floor_ms + sync_ms, "sync_loop_ms": sync_ms, "library_ms": None,
+           "fwd_ms": time_ms(torch, fwd(False), reps=10, warmup=2),
+           "fwd_save_ms": time_ms(torch, fwd(True), reps=10, warmup=2),
+           "fwd_device_ms": kernel_device_ms(torch, fwd(False), (slstm_ops.KERNEL,), reps=10),
+           "fwd_save_device_ms": kernel_device_ms(torch, fwd(True), (slstm_ops.KERNEL,),
+                                                  reps=10)}
+    row["us_per_step"] = row["device_ms"] / s * 1e3
+    print(f"kernel {label}: the saving forward's hs and state bit-equal to the no-grad launch's; "
+          f"max abs err against the plain walk over the same rows (tol rtol {rtol:.3g}, atol "
+          f"{atol:.3g} x max|gradient|), the path's {metric} from the {kind} backward (limit "
+          f"{SLSTM_FP64_VS_PLAIN:g} x the plain path's or {SLSTM_BWD_FLOOR:g}"
+          + (f"; bf16 also the largest error within {SLSTM_BWD_MAX_VS_PLAIN:g} x the plain "
+             f"path's" if dtype != torch.float32 else "") + "): " + "; ".join(texts)
+          + f"; two calls and autograd of the wrapper bit-equal; a cluster of {nc} CTAs of {warps} + 1 warps for each of "
+          f"{bsz * h} (row, head); {slstm_ops.BWD_KERNEL}<{targ}, {dh}>: "
+          f"{facts.get('registers')} registers, stack {facts.get('stack')} B; kernel_ms "
+          f"{row['ms']:.4f} device_ms {row['device_ms']:.4f} ({row['us_per_step']:.3f} us a "
+          f"step) plain_ms {plain_ms:.1f} (the plain walk over the same rows, one call: a loop "
+          f"over S) library_ms "
+          f"null (no PyTorch call computes an sLSTM's gradient) bound_ms {b_ms:.4f} ({b_by}; "
+          f"{b_text}); serial floor {row['serial_floor_ms']:.4f} ms (product {floor_ms:.4f} + "
+          f"the cluster's per-step signalling alone {sync_ms:.4f}, the forward's 4-byte "
+          f"sends); device {b_ms / row['device_ms']:.4f} of the bound, "
+          f"{row['serial_floor_ms'] / row['device_ms']:.3f} of the serial floor; the forward "
+          f"at this shape: no-grad {row['fwd_ms']:.4f} ms (device {row['fwd_device_ms']:.4f}), "
+          f"saving {row['fwd_save_ms']:.4f} (device {row['fwd_save_device_ms']:.4f}); card "
+          f"right after (SM clock, power, temperature): {card_state()}", flush=True)
+    return row, plain
+
+
+def _slstm_bwd_rows(torch, dev, gen, res: dict, sync_lib: Path) -> dict[str, dict]:
+    """The backward kernel's row: xlstm-125m's train shape a replica in
+    bf16 (the main path's) and fp32 (suffix ``_fp32``), and phase 2's
+    forward shape SLSTM_SHAPE in both (``_long``, ``_long_fp32``), from the
+    model's initial state and a zero bias; each fp32 row runs first, on the
+    bf16 row's values widened, its plain backward the bf16 row's fp32
+    reference."""
+    row = {"name": "slstm_bwd"}
+    for suffix, shape in (("", SLSTM_BWD_SHAPE), ("_long", SLSTM_SHAPE)):
+        pre, r, b, st = _slstm_inputs(torch, dev, gen, shape, torch.bfloat16)
+        dhs = torch.randn((shape[0], shape[1], *shape[2:]), generator=gen, device=dev)
+        fp32, plain32 = _slstm_bwd_row(torch, dev, (pre.float(), r.float(), b.float(), st, dhs),
+                                       res, sync_lib)
+        main, _ = _slstm_bwd_row(torch, dev, (pre, r, b, st, dhs), res, sync_lib,
+                                 plain32=plain32)
+        del plain32
+        row.update({f"{k}{suffix}": main[k] for k in main if k != "dtype"})
+        row.update({f"{k}{suffix}_fp32": fp32[k] for k in SLSTM_BWD_FIELDS})
+    return {"slstm_bwd": row}
 
 
 # the cycle-profile builds of the SWA kernels: source, macro, entry point,
@@ -4431,6 +4696,16 @@ TRAIN_BF16_RTOL, TRAIN_LEAF_ULPS = 2.0 ** -7, 4
 TRAIN_M, TRAIN_PODS, TRAIN_BATCH, TRAIN_DENSE, TRAIN_NEIGHBOR, TRAIN_SEED = 4, 2, 8, 4, 2, 0
 # the replica that comes back with another seed's weights in the firing leg
 TRAIN_FIRE_REPLICA = 1
+# the xlstm twin's one leaf held to a yardstick (phase 20): the mLSTM
+# block's zero-initialised pre-norm bias.  Every leaf's bf16 gradient lies
+# ~2% (relative L2) from the fp32 one on the card and on the CPU alike, and
+# the two devices' fp32 gradients agree to ~3e-6 (``tools/
+# xlstm_twin_probe.py``, PERF.md §6); a zero-initialised leaf holds
+# nothing but such gradients, and this one's share of the allowance is
+# past 1 on the card with the sLSTM kernels and with their plain versions
+# alike.  It passes within the plain-versions run's share; every other
+# leaf within the allowance
+TWIN_HELD_LEAF = "stages/0/0_mlstm/norm1/bias"
 
 
 def starcoder2_train(n_layers: int = 2):
@@ -4452,24 +4727,46 @@ def _trees_equal(torch, a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def _trees_close(torch, got, want, label: str) -> float:
-    """bf16 trees within TRAIN_BF16_RTOL and TRAIN_LEAF_ULPS, compared on
-    ``want``'s device a replica's rows at a time; returns the worst share
-    of the allowance used."""
+def _leaf_paths(tree, prefix: str = "") -> list[str]:
+    """Each leaf's path ("stages/0/0_mlstm/norm1/bias") in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, item in enumerate(tree) for p in _leaf_paths(item, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def _leaf_shares(torch, got, want) -> list[float]:
+    """Each leaf's worst share of the bf16 allowance (TRAIN_BF16_RTOL of
+    each value + TRAIN_LEAF_ULPS x that of the leaf's largest), compared on
+    ``want``'s device a replica's rows at a time."""
     from repro_torch.tree import tree_leaves
 
-    worst = 0.0
+    shares = []
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         g, w = g.detach(), w.detach()
         floor = TRAIN_LEAF_ULPS * TRAIN_BF16_RTOL * float(w.abs().max())
+        worst = 0.0
         for gi, wi in zip(g, w):
             gi, wi = gi.to(wi.device).float(), wi.float()
             allow = TRAIN_BF16_RTOL * wi.abs() + floor
-            share = float(((gi - wi).abs() / allow.clamp(min=1e-30)).max())
-            check(share <= 1.0, f"{label}: a leaf outside rtol {TRAIN_BF16_RTOL} + "
-                                f"{TRAIN_LEAF_ULPS} ulps of its scale ({share:.3g} of it)")
-            worst = max(worst, share)
-    return worst
+            worst = max(worst, float(((gi - wi).abs() / allow.clamp(min=1e-30)).max()))
+        shares.append(worst)
+    return shares
+
+
+def _trees_close(torch, got, want, label: str, limits=None) -> float:
+    """bf16 trees within TRAIN_BF16_RTOL and TRAIN_LEAF_ULPS (``limits``:
+    each leaf's multiple of that allowance, 1 where None); returns the
+    worst share of the allowance used."""
+    shares = _leaf_shares(torch, got, want)
+    for i, share in enumerate(shares):
+        limit = 1.0 if limits is None else limits[i]
+        check(share <= limit, f"{label}: leaf {i} outside {limit:.3g} x (rtol "
+                              f"{TRAIN_BF16_RTOL} + {TRAIN_LEAF_ULPS} ulps of its scale) "
+                              f"({share:.3g} of it)")
+    return max(shares)
 
 
 def _ring_p(torch, dev, m: int):
@@ -4632,14 +4929,19 @@ def _router_rows(torch, dev, w, h) -> dict[str, dict]:
     return rows
 
 
-def _train_twin(torch, dev, arch: str = "starcoder2-15b") -> None:
+def _train_twin(torch, dev, arch: str = "starcoder2-15b", plain_card=None,
+                held: str | None = None) -> None:
     """``arch``'s smoke configuration in bf16 (m=4 on a ring, pods=2, S=64)
     on the card (the bf16 entries; a MoE's fp32 routers through the fp32
     kernels) and on the CPU (their plain versions) from one set of weights,
     3 dense steps then 2 neighbor steps: each step's v, trigger rate and
     alpha equal, the loss within rtol 2^-7, the parameters and w_hat
     within the bf16 allowance (a bf16 model's fp32 router too: its
-    gradient comes through the model's bf16 arithmetic)."""
+    gradient comes through the model's bf16 arithmetic).  With
+    ``plain_card`` (a context in which the card runs some kernels' plain
+    versions) a third run on the card in it, its v equal too, is the
+    yardstick of the leaf at path ``held``: it passes within the plain card
+    run's own share of the allowance where that is past 1."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -4651,26 +4953,44 @@ def _train_twin(torch, dev, arch: str = "starcoder2-15b") -> None:
     cpu_state = T.init_state(cfg, TRAIN_M, TRAIN_SEED, "cpu")
     card_state_ = tuple(tree_map(lambda t: t.to(dev, copy=True), s) for s in cpu_state)
     runs = {}
-    for where, device, state in (("card", dev, card_state_), ("cpu", "cpu", cpu_state)):
+    legs = [("card", dev, card_state_, contextlib.nullcontext), ("cpu", "cpu", cpu_state,
+                                                                  contextlib.nullcontext)]
+    if plain_card is not None:
+        legs.append(("plain card", dev, tuple(tree_map(lambda t: t.to(dev, copy=True), s)
+                                              for s in cpu_state), plain_card))
+    for where, device, state, ctx in legs:
         kw = dict(m=TRAIN_M, batch=TRAIN_BATCH, seq=64, pods=TRAIN_PODS, seed=TRAIN_SEED,
                   device=device, log=lambda s: None)
-        a = T.train(cfg, steps=dense, state=(*state, 0), **kw)
-        b = T.train(cfg, steps=neighbor, mix="neighbor", state=(a.params, a.w_hat, a.step), **kw)
+        with ctx():
+            a = T.train(cfg, steps=dense, state=(*state, 0), **kw)
+            b = T.train(cfg, steps=neighbor, mix="neighbor", state=(a.params, a.w_hat, a.step),
+                        **kw)
         runs[where] = (a.records + b.records, b.params, b.w_hat)
     (rec_g, pg, hg), (rec_c, pc, hc) = runs["card"], runs["cpu"]
-    for g, c in zip(rec_g, rec_c):
-        check(g["v"] == c["v"] and g["trigger_rate"] == c["trigger_rate"],
-              f"train twin step {g['k']}: v {g['v']} on the card, {c['v']} on the CPU")
-        check(abs(g["alpha"] - c["alpha"]) <= RTOL * abs(c["alpha"]),
-              f"train twin step {g['k']}: alpha {g['alpha']} vs {c['alpha']}")
-        check(abs(g["loss"] - c["loss"]) <= TRAIN_BF16_RTOL * abs(c["loss"]),
-              f"train twin step {g['k']}: loss {g['loss']} vs {c['loss']}")
-    used = max(_trees_close(torch, pg, pc, "train twin params"),
-               _trees_close(torch, hg, hc, "train twin w_hat"))
+    for where, (rec, _, _) in runs.items():
+        for g, c in zip(rec, rec_c):
+            check(g["v"] == c["v"] and g["trigger_rate"] == c["trigger_rate"],
+                  f"train twin step {g['k']}: v {g['v']} on the {where}, {c['v']} on the CPU")
+            check(abs(g["alpha"] - c["alpha"]) <= RTOL * abs(c["alpha"]),
+                  f"train twin step {g['k']}: alpha {g['alpha']} vs {c['alpha']} ({where})")
+            check(abs(g["loss"] - c["loss"]) <= TRAIN_BF16_RTOL * abs(c["loss"]),
+                  f"train twin step {g['k']}: loss {g['loss']} vs {c['loss']} ({where})")
+    limits, text = {"params": None, "w_hat": None}, ""
+    if plain_card is not None:
+        _, pp, hp = runs["plain card"]
+        idx = _leaf_paths(pc).index(held)
+        limits, text = {}, f"; {held} (leaf {idx}) within the plain card run's share:"
+        for k, (got, plain, want) in {"params": (pg, pp, pc), "w_hat": (hg, hp, hc)}.items():
+            shares, yard = _leaf_shares(torch, got, want), _leaf_shares(torch, plain, want)[idx]
+            limits[k] = [max(1.0, yard) if i == idx else 1.0 for i in range(len(shares))]
+            text += (f" {k} {shares[idx]:.4f} (plain card {yard:.4f}; the card's worst other "
+                     f"leaf {max(x for i, x in enumerate(shares) if i != idx):.4f})")
+    used = max(_trees_close(torch, pg, pc, "train twin params", limits["params"]),
+               _trees_close(torch, hg, hc, "train twin w_hat", limits["w_hat"]))
     print(f"train card vs cpu {cfg.name} bf16 m={TRAIN_M} S=64, {dense} dense + {neighbor} "
           f"neighbor steps: v equal at every step (trigger rates "
           f"{[r['trigger_rate'] for r in rec_c]}), losses within rtol 2^-7, parameters and "
-          f"w_hat within rtol 2^-7 + {TRAIN_LEAF_ULPS} ulps of each leaf's scale "
+          f"w_hat within rtol 2^-7 + {TRAIN_LEAF_ULPS} ulps of each leaf's scale{text} "
           f"(worst share {used:.3f})")
 
 
@@ -5419,40 +5739,39 @@ def phase_train_moe(torch, dev, cfg=None, seq: int = 2048
 DENSE_SERVE = {"deepseek-coder-33b": 8192, "phi3-medium-14b": 8192}
 
 
-def phase_train_hybrid(torch, dev, cfg=None, seq: int = 2048
-                       ) -> tuple[dict[str, int], dict[str, float]]:
-    """EF-HC training of hymba-1.5b at full width and depth (32 layers,
-    bf16, remat on, attention through ``xla`` at S=2048) through
-    ``repro_torch.launch.train.train``, phase 14's cell: TRAIN_M replicas on
-    a ring over TRAIN_PODS pods, global batch TRAIN_BATCH at ``seq``
-    tokens, TRAIN_DENSE dense then TRAIN_NEIGHBOR neighbor steps.  Each bf16
-    entry of the trigger and mixing wrappers must launch once a leaf a step
-    (by schedule), the scan's saving forward twice a Mamba layer, replica
-    and step (the forward and remat's recompute) and its backward once, and
-    no SWA kernel.  Then one profiled dense step (busy, idle, the scan
-    kernels' and Events 2-3's shares) and the smoke configuration's
-    card-vs-CPU twin.  Returns the launches and the step's figures."""
-    from repro_torch.configs import get_config
+def _train_recurrent(torch, dev, cfg, seq: int, kernels: dict[str, int], share: str,
+                     twin_arch: str, plain_card=None, held=None, profile_check=None
+                     ) -> tuple[dict[str, int], dict[str, float]]:
+    """Phases 19 and 20: EF-HC training of ``cfg`` through
+    ``repro_torch.launch.train.train``, phase 14's cell (TRAIN_M replicas on
+    a ring over TRAIN_PODS pods, global batch TRAIN_BATCH at ``seq`` tokens,
+    TRAIN_DENSE dense then TRAIN_NEIGHBOR neighbor steps): each bf16 entry of
+    the trigger and mixing wrappers must launch once a leaf a step (by
+    schedule) and the recurrence's kernels exactly ``kernels`` times
+    (counts a layer, replica and step: the saving forward's, twice under
+    remat, and the backward's); then one profiled dense step (busy, idle,
+    the share of the repo kernels whose names start with ``share``, and
+    Events 2-3's; ``profile_check(per_name, label)`` on its records) and the
+    smoke configuration's card-vs-CPU twin (``_train_twin``, ``plain_card``
+    and ``held`` its yardstick).  Returns the
+    launches and the step's figures."""
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as T
     from repro_torch.tree import tree_leaves
 
     m, dense, neighbor = TRAIN_M, TRAIN_DENSE, TRAIN_NEIGHBOR
     on_card = torch.device(dev).type == "cuda"
-    cfg = cfg or get_config("hymba-1.5b")
-    label = (f"train_hybrid {cfg.name} {cfg.n_layers}L m={m} pods={TRAIN_PODS} "
+    label = (f"train {cfg.name} {cfg.n_layers}L m={m} pods={TRAIN_PODS} "
              f"B={TRAIN_BATCH} S={seq}")
     first, run, counts, (leg1, leg2), peak, ms = _train_legs(torch, dev, cfg, seq, label)
     leaves = tree_leaves(run.params)
     check(all(t.dtype == torch.bfloat16 for t in leaves), f"{label}: a leaf not in bf16")
-    _, mamba = serve_layers(cfg)
     steps = dense + neighbor
     n = len(leaves)
     want = {"trigger_sq_bf16": n * steps, "mix_bf16": n * dense, "mix_sparse_bf16": n * neighbor,
-            "selective_scan": len(mamba) * m * steps * (1 + bool(cfg.remat)),
-            "selective_scan_bwd": len(mamba) * m * steps}
-    check(counts == want, f"{label}: launches {counts}, expected {want} ({n} bf16 leaves, "
-                          f"{len(mamba)} Mamba layers)")
+            **{k: v * m * steps for k, v in kernels.items()}}
+    check(counts == want, f"{label}: launches {counts}, expected {want} ({n} bf16 leaves; "
+                          f"{kernels} a replica and step)")
     records = first.records + run.records
     for r in records:
         check(np.isfinite(r["loss"]) and 0.0 <= r["trigger_rate"] <= 1.0,
@@ -5481,24 +5800,95 @@ def phase_train_hybrid(torch, dev, cfg=None, seq: int = 2048
     if not n_act:
         print(f"{label} profile: the profiler saw no device activity; busy share not measured")
     else:
+        if profile_check is not None:
+            profile_check(per_name, label)
         own: dict[str, float] = {}
         for name, t in per_name.items():
             if fn := _repo_kernel(name):
                 own[fn] = own.get(fn, 0.0) + t
-        scan = sum(t for fn, t in own.items() if fn.startswith("selective_scan"))
+        rec = sum(t for fn, t in own.items() if fn.startswith(share))
         events = sum(t for fn, t in own.items() if fn.startswith(("trigger", "mix")))
-        figures.update(busy_ms=busy, scan_share=scan / busy)
+        figures.update(busy_ms=busy, kernel_share=rec / busy)
         print(f"{label} profile: one dense step, {n_act} device activities, device busy "
               f"{busy:.1f} ms of {ms['dense']:.1f} ms/step without the profiler (idle share "
-              f"{1 - busy / ms['dense']:.3f}); the scan kernels {scan:.1f} ms ({scan / busy:.3f} "
-              f"of busy), Events 2-3 kernels {events:.3f} ms ({events / busy:.4f} of busy): "
+              f"{1 - busy / ms['dense']:.3f}); the {share} kernels {rec:.1f} ms "
+              f"({rec / busy:.3f} of busy), Events 2-3 kernels {events:.3f} ms "
+              f"({events / busy:.4f} of busy): "
               + ", ".join(f"{k} {v:.3f}" for k, v in sorted(own.items())), flush=True)
         for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{label} profile:   {t:9.3f} ms ({t / busy:.3f} of busy)  {name[:90]}")
     del first, run, params, w_hat, leaves, step, b
     torch.cuda.empty_cache()
-    _train_twin(torch, dev, "hymba-1.5b")
+    _train_twin(torch, dev, twin_arch, plain_card=plain_card, held=held)
     return counts, figures
+
+
+def phase_train_hybrid(torch, dev, cfg=None, seq: int = 2048
+                       ) -> tuple[dict[str, int], dict[str, float]]:
+    """EF-HC training of hymba-1.5b at full width and depth (32 layers,
+    bf16, remat on, attention through ``xla`` at S=2048), ``_train_recurrent``:
+    the scan's saving forward twice a Mamba layer, replica and step (the
+    forward and remat's recompute) and its backward once, and no SWA kernel;
+    the scan kernels' share of the profiled step."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("hymba-1.5b")
+    mamba = len(serve_layers(cfg)[1])
+    return _train_recurrent(torch, dev, cfg, seq, {
+        "selective_scan": mamba * (1 + bool(cfg.remat)), "selective_scan_bwd": mamba},
+        "selective_scan", "hymba-1.5b")
+
+
+def phase_train_xlstm(torch, dev, cfg=None, seq: int = 2048
+                      ) -> tuple[dict[str, int], dict[str, float]]:
+    """EF-HC training of xlstm-125m at full width and depth (12 layers: 8
+    mLSTM, 4 sLSTM, dh 192, bf16, remat on), ``_train_recurrent``: the
+    sLSTM kernel's saving forward twice an sLSTM layer, replica and step
+    (the forward and remat's recompute) and its backward once; the sLSTM
+    kernels' share of the profiled step, every sLSTM forward there the
+    saving variant; the twin's TWIN_HELD_LEAF held to the card run with the
+    sLSTM kernels' plain versions."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("xlstm-125m")
+    slstm = len(_layer_indices(cfg, lambda bt: bt == "slstm"))
+
+    def saving_only(per_name, label):
+        serving = [name for name in per_name
+                   if _repo_kernel(name) == "slstm_kernel" and "true>" not in name]
+        check(not serving, f"{label} profile: the serving sLSTM forward ran in training: "
+                           f"{serving}")
+
+    return _train_recurrent(torch, dev, cfg, seq, {
+        "slstm": slstm * (1 + bool(cfg.remat)), "slstm_bwd": slstm}, "slstm", "xlstm-125m",
+        plain_card=_plain_slstm, held=TWIN_HELD_LEAF, profile_check=saving_only)
+
+
+@contextlib.contextmanager
+def _plain_slstm():
+    """The sLSTM wrapper's launches on the card swapped for the kernels'
+    plain versions (the saving forward for ``slstm_scan_save_ref``, the
+    backward for ``slstm_bwd_walk_ref``), as ``_plain_train_kernels`` swaps
+    Events 2-3's: the yardstick run of phase 20's twin."""
+    from repro_torch.kernels.slstm import ops as slstm_ops
+    from repro_torch.kernels.slstm import ref as slstm_ref
+
+    def launch(pre, r, b, st, *, save):
+        hs, out, saved = slstm_ref.slstm_scan_save_ref(pre, r, b, st)
+        return hs, out, saved if save else None
+
+    def launch_bwd(r, saved, dhs, dfinal, dtype):
+        zeros = dfinal[0].new_zeros  # h0 and hs: read for dR and db alone, taken elsewhere
+        dpx, _, _, d0 = slstm_ref.slstm_bwd_walk_ref(r, zeros(dfinal[0].shape), saved,
+                                                     zeros(dhs.shape), dhs, dfinal, dtype)
+        return dpx, d0
+
+    held = slstm_ops._launch, slstm_ops._launch_bwd
+    slstm_ops._launch, slstm_ops._launch_bwd = launch, launch_bwd
+    try:
+        yield
+    finally:
+        slstm_ops._launch, slstm_ops._launch_bwd = held
 
 
 # kernel functions of csrc/ (the names the profiler shows)
@@ -5507,7 +5897,8 @@ REPO_KERNELS = ("trigger_sq_slab_kernel", "trigger_sq_rows_kernel", "mix_kernel"
                 "row_finite_kernel", "mix_sparse_direct_kernel", "swa_kernel",
                 "swa_tc_kernel", "swa_tf32_kernel", "mix_bf16_kernel",
                 "mix_sparse_bf16_kernel", "selective_scan_kernel", "selective_scan_save_kernel",
-                "selective_scan_bwd_kernel", "selective_scan_bwd_sum_kernel", "slstm_kernel")
+                "selective_scan_bwd_kernel", "selective_scan_bwd_sum_kernel", "slstm_kernel",
+                "slstm_bwd_kernel")
 
 KERNEL_SOURCES = {
     "trigger_sq": ("src/repro_torch/kernels/csrc/trigger_sq.cu",
@@ -5540,6 +5931,9 @@ KERNEL_SOURCES = {
     # no TPU kernel: jax.grad through the reference's XLA associative scan
     "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                            "none: jax.grad of src/repro/models/ssm.py:87"),
+    # no TPU kernel: jax.grad through the reference's lax.scan over time
+    "slstm_bwd": ("src/repro_torch/kernels/csrc/slstm_bwd.cu",
+                  "none: jax.grad of src/repro/models/ssm.py:336"),
 }
 
 
@@ -5689,6 +6083,10 @@ def main() -> int:
         launches["selective_scan_bwd"] = hybrid_train["selective_scan_bwd"]
         rows["selective_scan"]["train_hybrid_launches"] = hybrid_train["selective_scan"]
         lap("phase 19")
+        xlstm_train, _ = phase_train_xlstm(torch, dev)
+        launches["slstm_bwd"] = xlstm_train["slstm_bwd"]
+        rows["slstm"]["train_xlstm_launches"] = xlstm_train["slstm"]
+        lap("phase 20")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
@@ -5741,12 +6139,16 @@ def main() -> int:
                                    "serial_floor_ms_design", "sync_loop_ms_design",
                                    "us_per_step", "serve_cpu_launches", "device_ms",
                                    "bound_share", "train_hybrid_launches",
+                                   "train_xlstm_launches", "stack", "fwd_ms", "fwd_save_ms",
+                                   "fwd_device_ms", "fwd_save_device_ms",
+                                   *(f"{k}{suffix}" for suffix in ("_long", "_long_fp32")
+                                     for k in SLSTM_BWD_FIELDS),
                                    *(f"{k}{suffix}" for suffix in ("_long", "_long_fp32")
                                      for k in SCAN_BWD_FIELDS),
                                    *(f"{k}{suffix}" for suffix in TRIGGER_SUFFIXES
                                      for k in TRIGGER_FIELDS),
                                    *(f"{k}_fp32" for k in SCAN_FIELDS + SLSTM_FIELDS
-                                     + SCAN_BWD_FIELDS))
+                                     + SCAN_BWD_FIELDS + SLSTM_BWD_FIELDS))
                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

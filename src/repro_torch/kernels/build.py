@@ -25,8 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES: tuple[str, ...] = ("trigger_sq.cu", "mix.cu", "mix_sparse.cu",
                              "swa_attention.cu", "swa_attention_tc.cu",
                              "swa_attention_tf32.cu", "selective_scan.cu",
-                             "selective_scan_bwd.cu", "slstm.cu")
-HEADERS: tuple[str, ...] = ("bf16.cuh", "scan.cuh")  # included by the sources
+                             "selective_scan_bwd.cu", "slstm.cu", "slstm_bwd.cu")
+HEADERS: tuple[str, ...] = ("bf16.cuh", "scan.cuh", "slstm.cuh")  # included by the sources
 NVCC_FLAGS: tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a",
                                "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -51,9 +51,12 @@ _SIGNATURES = {
     "repro_selective_scan_bwd_bf16": (*(_P,) * 14, *(_I64,) * 8, _P),
     "repro_selective_scan_bwd_layout": (_I64, _I64, _I64, _P),
     "repro_selective_scan_bwd_occupancy": (_I64, _I64, _P),
-    "repro_slstm_f32": (*(_P,) * 12, *(_I64,) * 4, _P),
-    "repro_slstm_bf16": (*(_P,) * 12, *(_I64,) * 4, _P),
+    "repro_slstm_f32": (*(_P,) * 13, *(_I64,) * 4, _P),
+    "repro_slstm_bf16": (*(_P,) * 13, *(_I64,) * 4, _P),
     "repro_slstm_layout": (_I64, _P),
+    "repro_slstm_bwd_f32": (*(_P,) * 12, *(_I64,) * 4, _P),
+    "repro_slstm_bwd_bf16": (*(_P,) * 12, *(_I64,) * 4, _P),
+    "repro_slstm_bwd_layout": (_I64, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -15,7 +15,11 @@
 // for t in 0..S-1, round() being T's rounding (none for fp32), as the
 // reference's _slstm_cell rounds (src/repro/models/ssm.py:316-330; the plain
 // version is kernels/slstm/ref.py).  hs (B, S, H, dh) gets each step's fp32
-// h'; the final state is written to c1, n1, h1, m1.
+// h'; the final state is written to c1, n1, h1, m1.  The saving variant
+// (kSave, for training) also writes each step's fp32 pre[0..3] and the state
+// c, n, m before the step into save (B, S, 7, H, dh), the rows the backward
+// kernel (slstm_bwd.cu) reads; its hs and state are the serving kernel's,
+// bit for bit.  What both share with the backward is in slstm.cuh.
 //
 // Replaces no TPU kernel: the reference's sLSTM is a jax.lax.scan over time
 // (src/repro/models/ssm.py:336-355).  The recurrence is nonlinear, so it has
@@ -90,62 +94,11 @@
 // and series; max propagates NaN (max.NaN) as torch.maximum does; a NaN
 // input gives NaN where the plain loop's does.  ex2.approx flushes results
 // below 2^-126 to 0.
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "bf16.cuh"
+#include "slstm.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kTile = 32;    // steps a ring stage
-constexpr int kStages = 4;   // the pre_x ring's stages
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ float widen(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<uint16_t> {
-  static __device__ __forceinline__ float load(const uint16_t* p) {
-    return bf16rows::widen(__ldg(p));
-  }
-  static __device__ __forceinline__ float widen(uint16_t x) { return bf16rows::widen(x); }
-  // to nearest even, as __float2bfloat16_rn, by cvt.rn.bf16x2.f32 (one
-  // F2FP, shorter on the chain than the F2F of the scalar conversion)
-  static __device__ __forceinline__ float round(float x) {
-    uint32_t r;
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(x), "f"(0.f));
-    return __uint_as_float(r & 0xffff0000u);
-  }
-};
-
-constexpr int kParts = 8;              // lanes a unit: parts of k
-constexpr int kUnitsWarp = 32 / kParts;  // units a consumer warp
-
-// CTAs of a cluster by head width (mirrored in kernels/slstm/ops.py
-// CLUSTER, checked against repro_slstm_layout on the card): a lane keeps
-// 4 dh / kParts fp32 values of R in registers (<= 96)
-template <int DH>
-struct Plan;
-template <>
-struct Plan<32> { static constexpr int kCluster = 2; };
-template <>
-struct Plan<64> { static constexpr int kCluster = 4; };
-template <>
-struct Plan<128> { static constexpr int kCluster = 8; };
-template <>
-struct Plan<192> { static constexpr int kCluster = 8; };
 
 // the launch shape and the shared memory of one CTA: the two h buffers,
 // the mbarriers (full[2], landed[kStages], empty[kStages]) and the ring
@@ -168,133 +121,17 @@ struct Shape {
   static_assert(NC <= 8 && W >= 1, "a portable cluster; sender lanes below the warp's");
 };
 
-// distributed shared memory, mbarriers and bulk copies (PTX, sm_90)
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the address `addr` of this CTA's shared memory in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// this phase's one arrival, expecting `bytes` of transactions
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed; acquires at cluster
-// scope, so the st.async values it counted are visible
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// the same at CTA scope (the ring's copies and releases)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// 4 bytes into another CTA's shared memory, completing 4 bytes of the
-// transaction count of its mbarrier `bar` (both cluster addresses)
-__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
-                   addr),
-               "r"(__float_as_uint(v)), "r"(bar)
-               : "memory");
-}
-
-// `bytes` (a multiple of 16) from 16-byte aligned global memory into this
-// CTA's shared memory, completing `bar`'s transaction count
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// 2^v in one MUFU.EX2, results below 2^-126 flushed to 0
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// 1 / d in one MUFU.RCP (within an ulp; 1 / inf is 0, as the division's)
-__device__ __forceinline__ float rcp_approx(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  return r;
-}
-
-// 1 / d by rcp.approx and one Newton step; d finite or NaN
-__device__ __forceinline__ float rcp(float d) {
-  const float r = rcp_approx(d);
-  return fmaf(r, fmaf(-d, r, 1.f), r);
-}
-
-// max of two values, NaN if either is (torch.maximum, jnp.maximum)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// gate g's activation of its pre-activation x: i as it is, log_f =
-// -softplus(-x), tanh(x), sigmoid(x); `k` = -log2(e) (f, o) or -2 log2(e)
-// (z), `d0` = 2 (f) or 1.  Branch-free: every lane runs every line
-__device__ __forceinline__ float gate_act(float x, int g, float k, float d0) {
-  const float e = ex2(fabsf(x) * k);          // exp(-|x|), exp(-2|x|) for z
-  const float r = rcp(__fadd_rn(d0, e));      // 1 / (2 + e) for f, else 1 / (1 + e)
-  const float s = __fmul_rn(e, r);            // f: e / (2 + e) in [0, 1/3]
-  const float s2 = __fmul_rn(s, s);
-  float p = fmaf(s2, 1.f / 13.f, 1.f / 11.f);  // atanh(s) / s = sum s^2i / (2i + 1)
-  p = fmaf(s2, p, 1.f / 9.f);
-  p = fmaf(s2, p, 1.f / 7.f);
-  p = fmaf(s2, p, 1.f / 5.f);
-  p = fmaf(s2, p, 1.f / 3.f);
-  p = fmaf(s2, p, 1.f);
-  const float log_f = __fsub_rn(fminf(x, 0.f), __fmul_rn(__fadd_rn(s, s), p));
-  const float tanh_z = copysignf(__fmul_rn(__fsub_rn(1.f, e), r), x);
-  const float sig_o = __fmul_rn(x >= 0.f ? 1.f : e, r);  // NaN x: e r, NaN
-  return g == 0 ? x : g == 1 ? log_f : g == 2 ? tanh_z : sig_o;
-}
-
-template <typename T, int DH>
+// kSave: also write, for each step t, the four gates' fp32 pre-activations
+// and the state (c, n, m) before the step into save (B, S, kSaveRows, H,
+// DH), the rows the backward kernel (slstm_bwd.cu) reads
+template <typename T, int DH, bool kSave>
 __global__ void __launch_bounds__(Shape<T, DH>::kThreads, 1)
 slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
              const T* __restrict__ bias, const float* __restrict__ c0,
              const float* __restrict__ n0, const float* __restrict__ h0,
              const float* __restrict__ m0, float* __restrict__ hs, float* __restrict__ c1,
              float* __restrict__ n1, float* __restrict__ h1, float* __restrict__ m1,
-             int64_t S, int H) {
+             float* __restrict__ save, int64_t S, int H) {
   using L = Shape<T, DH>;
   constexpr int NC = L::NC, U = L::U, UW = L::UW, W = L::W, CH = L::CH;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -368,6 +205,12 @@ slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
     const uint32_t dst = map_rank(smem_addr(hbuf + j0 + ul), to);
     const uint32_t bar = map_rank(full, to);
     float* hp = hs + ((int64_t)b * S * H + head) * DH + j0 + ul;
+    // the saving variant: lane part < 7 keeps one row of its unit a step,
+    // the pre-activation of its gate (even parts) or c, n, m (parts 1, 3, 5)
+    const int save_row = (part & 1) ? 4 + (part >> 1) : g;
+    float* sp = kSave ? save + ((int64_t)b * S * kSaveRows * H + head) * DH + j0 + ul +
+                            save_row * gate_stride
+                      : nullptr;
     const T* ring_lane = reinterpret_cast<const T*>(smem + L::kRing) + g * U + ul;
 
     for (int64_t i = 0; i < tiles; ++i) {
@@ -416,6 +259,11 @@ slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
         acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, 1));
         const float pre =
             Elem<T>::round(__fadd_rn(Elem<T>::round(__fadd_rn(px, Elem<T>::round(acc))), bi));
+        if constexpr (kSave) {
+          if (part < kParts - 1)
+            sp[t * kSaveRows * gate_stride] =
+                (part & 1) ? (part == 1 ? c : part == 3 ? n : m) : pre;
+        }
         const float act = gate_act(pre, g, kx, d0);
         // every lane of the unit takes its four gates (parts 0, 2, 4, 6) and
         // combines them with its copy of the state: the same bits in each
@@ -424,17 +272,10 @@ slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
         const float lf = __shfl_sync(kFull, act, u0 + 2);
         const float z = __shfl_sync(kFull, act, u0 + 4);
         const float o = __shfl_sync(kFull, act, u0 + 6);
-        const float lfm = __fadd_rn(lf, m);
-        const float m_new = nan_max(lfm, ip);
-        // exp(pre_i - m') and exp(log_f + m - m'): one of them is exp(0) = 1,
-        // the other exp(-|d|), d = log_f + m - pre_i (NaN d: f_s NaN)
-        const float d = __fsub_rn(lfm, ip);
-        const float e = ex2(__fmul_rn(-fabsf(d), kLog2e));
-        const float i_s = d >= 0.f ? e : 1.f;
-        const float f_s = d >= 0.f ? 1.f : e;
-        c = __fadd_rn(__fmul_rn(f_s, c), __fmul_rn(i_s, z));
-        n = __fadd_rn(__fmul_rn(f_s, n), i_s);
-        m = m_new;
+        const Exps x = step_exps(ip, lf, m);
+        c = __fadd_rn(__fmul_rn(x.f_s, c), __fmul_rn(x.i_s, z));
+        n = __fadd_rn(__fmul_rn(x.f_s, n), x.i_s);
+        m = x.m_new;
         hl = __fmul_rn(__fmul_rn(o, c), rcp_approx(nan_max(n, 1e-6f)));
         if (t + 1 < S && part < NC)
           st_async(dst + (uint32_t)((cur ^ 1) * DH * 4), Elem<T>::round(hl), bar + 8 * (cur ^ 1));
@@ -535,13 +376,13 @@ cudaError_t sync_nc(void* out, int64_t B, int64_t S, int64_t H, int64_t warps,
 }
 #endif  // SLSTM_SYNC_PROBE
 
-template <typename T, int DH>
+template <typename T, int DH, bool kSave>
 cudaError_t launch_dh(const void* pre_x, const void* r, const void* bias, const void* c0,
                       const void* n0, const void* h0, const void* m0, void* hs, void* c1,
-                      void* n1, void* h1, void* m1, int64_t B, int64_t S, int64_t H,
-                      cudaStream_t st) {
+                      void* n1, void* h1, void* m1, void* save, int64_t B, int64_t S,
+                      int64_t H, cudaStream_t st) {
   using L = Shape<T, DH>;
-  auto kernel = slstm_kernel<T, DH>;
+  auto kernel = slstm_kernel<T, DH, kSave>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (e != cudaSuccess) return e;
@@ -562,7 +403,21 @@ cudaError_t launch_dh(const void* pre_x, const void* r, const void* bias, const 
       static_cast<const T*>(bias), static_cast<const float*>(c0),
       static_cast<const float*>(n0), static_cast<const float*>(h0),
       static_cast<const float*>(m0), static_cast<float*>(hs), static_cast<float*>(c1),
-      static_cast<float*>(n1), static_cast<float*>(h1), static_cast<float*>(m1), S, (int)H);
+      static_cast<float*>(n1), static_cast<float*>(h1), static_cast<float*>(m1),
+      static_cast<float*>(save), S, (int)H);
+}
+
+// the serving kernel (save null) or its saving variant
+template <typename T, int DH>
+cudaError_t launch_variant(const void* pre_x, const void* r, const void* bias, const void* c0,
+                           const void* n0, const void* h0, const void* m0, void* hs, void* c1,
+                           void* n1, void* h1, void* m1, void* save, int64_t B, int64_t S,
+                           int64_t H, cudaStream_t st) {
+  if (save == nullptr)
+    return launch_dh<T, DH, false>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save,
+                                   B, S, H, st);
+  return launch_dh<T, DH, true>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B,
+                                S, H, st);
 }
 
 // the layout at head width DH: cluster, consumer warps a CTA, lanes a unit,
@@ -577,11 +432,13 @@ void layout_dh(int64_t* out) {
   out[4] = kStages;
 }
 
-// pre_x 16-byte aligned (its rows arrive by bulk copies)
+// pre_x 16-byte aligned (its rows arrive by bulk copies); save null (the
+// serving kernel) or (B, S, kSaveRows, H, dh) fp32 (the saving variant)
 template <typename T>
 int launch(const void* pre_x, const void* r, const void* bias, const void* c0,
            const void* n0, const void* h0, const void* m0, void* hs, void* c1, void* n1,
-           void* h1, void* m1, int64_t B, int64_t S, int64_t H, int64_t dh, void* stream) {
+           void* h1, void* m1, void* save, int64_t B, int64_t S, int64_t H, int64_t dh,
+           void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
   if (B * H > 65535 || (reinterpret_cast<uintptr_t>(pre_x) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -589,18 +446,20 @@ int launch(const void* pre_x, const void* r, const void* bias, const void* c0,
   cudaError_t err;
   switch (dh) {
     case 32:
-      err = launch_dh<T, 32>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, S, H, st);
+      err = launch_variant<T, 32>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B,
+                                  S, H, st);
       break;
     case 64:
-      err = launch_dh<T, 64>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, S, H, st);
+      err = launch_variant<T, 64>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B,
+                                  S, H, st);
       break;
     case 128:
-      err = launch_dh<T, 128>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, S, H,
-                              st);
+      err = launch_variant<T, 128>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B,
+                                   S, H, st);
       break;
     case 192:
-      err = launch_dh<T, 192>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, S, H,
-                              st);
+      err = launch_variant<T, 192>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B,
+                                   S, H, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -613,20 +472,21 @@ int launch(const void* pre_x, const void* r, const void* bias, const void* c0,
 
 extern "C" {
 
+// save: null for the serving kernel, else the saving variant's rows
 int repro_slstm_f32(const void* pre_x, const void* r, const void* bias, const void* c0,
                     const void* n0, const void* h0, const void* m0, void* hs, void* c1,
-                    void* n1, void* h1, void* m1, int64_t B, int64_t S, int64_t H,
+                    void* n1, void* h1, void* m1, void* save, int64_t B, int64_t S, int64_t H,
                     int64_t dh, void* stream) {
-  return launch<float>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, S, H, dh,
+  return launch<float>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B, S, H, dh,
                        stream);
 }
 
 int repro_slstm_bf16(const void* pre_x, const void* r, const void* bias, const void* c0,
                      const void* n0, const void* h0, const void* m0, void* hs, void* c1,
-                     void* n1, void* h1, void* m1, int64_t B, int64_t S, int64_t H,
-                     int64_t dh, void* stream) {
-  return launch<uint16_t>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, S, H, dh,
-                          stream);
+                     void* n1, void* h1, void* m1, void* save, int64_t B, int64_t S,
+                     int64_t H, int64_t dh, void* stream) {
+  return launch<uint16_t>(pre_x, r, bias, c0, n0, h0, m0, hs, c1, n1, h1, m1, save, B, S, H,
+                          dh, stream);
 }
 
 // the kernel's layout at head width dh into out[0..4] (layout_dh), which

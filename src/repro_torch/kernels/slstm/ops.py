@@ -12,9 +12,26 @@ tensors.  The arithmetic is ``ref.slstm_step``'s (the reference's
 
 A CUDA tensor launches the kernel (contiguous inputs, dh in SUPPORTED_DH)
 and counts it in ``LAUNCHES["slstm"]``, once a call; a failed build or
-launch raises, and nothing falls back.  The kernel has no backward pass:
-under autograd on the card the wrapper raises.  CPU tensors run the plain
-per-step loop in ``ref.py``, which autograd can differentiate.
+launch raises, and nothing falls back.  CPU tensors run the plain per-step
+loop in ``ref.py``.
+
+Under autograd (grad enabled and an input that requires grad) the call goes
+through ``SLSTMScan``, a ``torch.autograd.Function``.  On the card its
+forward launches the saving variant of the kernel (the same hs, bit for
+bit, and each step's fp32 gate pre-activations and state before it, (B, S,
+7, H, dh) fp32, also counted in ``LAUNCHES["slstm"]``) and its backward
+the reverse walk of ``csrc/slstm_bwd.cu`` (``LAUNCHES["slstm_bwd"]``, once
+a call): d pre_x in the inputs' dtype and the initial state's gradient,
+then dR and db as one fp32 product and sum over (b, t) of its rows
+(``ref.weight_grads``).  The walk takes the forward's layout (below): lane
+part + 8 unit keeps R[g, k, j] of every gate for the units j = part, part +
+8, ... and sums its part of ``dh_{t-1} = d pre_t . R^T`` in that order, the
+unit's 8 lanes adding theirs by shuffles (xor 4, 2, 1); each CTA receives
+every unit's four rounded gate gradients a step, 16 bytes by one st.async
+from lane part < CLUSTER[dh] of the unit, double-buffered; a producer warp
+stages each step's 8 rows (the saved 7 and d hs) in TILE-step tiles from
+the last.  On the CPU the same Function runs ``ref.slstm_scan_save_ref``
+and ``ref.slstm_bwd_walk_ref``.
 
 The kernel runs one thread block cluster of CLUSTER[dh] CTAs a (batch row,
 head), each CTA owning dh / CLUSTER[dh] units of the four gates, in
@@ -36,12 +53,16 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build, check_cuda_input, on_cpu, stream_handle
-from repro_torch.kernels.slstm.ref import slstm_scan_ref
+from repro_torch.kernels.slstm.ref import (SAVE_ROWS, slstm_bwd_walk_ref,
+                                           slstm_scan_ref, slstm_scan_save_ref,
+                                           weight_grads)
 
-# launches of the CUDA kernel, counted where it is launched and nowhere else
-LAUNCHES = {"slstm": 0}
+# launches of the CUDA kernels, counted where they are launched and nowhere
+# else: the forward (either variant) and the backward walk
+LAUNCHES = {"slstm": 0, "slstm_bwd": 0}
 
 # head widths the kernel is built for (csrc/slstm.cu's instantiations)
 SUPPORTED_DH = (32, 64, 128, 192)
@@ -54,7 +75,9 @@ CLUSTER = {32: 2, 64: 4, 128: 8, 192: 8}
 PARTS = 8  # lanes a unit, each summing 1 / PARTS of k for the four gates (kParts)
 UNITS_A_WARP = 32 // PARTS
 TILE, STAGES = 32, 4  # the pre_x ring: steps a stage, stages (kTile, kStages)
-KERNEL = "slstm_kernel"  # the kernel function's name, as the profiler shows it
+KERNEL = "slstm_kernel"  # the kernel functions' names, as the profiler shows them
+BWD_KERNEL = "slstm_bwd_kernel"
+BWD_ROWS = SAVE_ROWS + 1  # rows the backward stages a step: the saved 7 and d hs (kBwdRows)
 _MAX_GRID_Y = 65535
 
 
@@ -75,6 +98,31 @@ def built_layout(dh: int) -> tuple[int, ...]:
     toolkit)."""
     out = (ctypes.c_int64 * 5)()
     build.check(build.library().repro_slstm_layout(dh, out), "slstm layout")
+    return tuple(out)
+
+
+def bwd_smem_bytes(dh: int) -> int:
+    """Shared memory of one backward CTA (csrc/slstm_bwd.cu's BwdShape): two
+    buffers of a step's 4 dh fp32 gate gradients, the mbarriers, and the
+    ring of STAGES stages of TILE steps x BWD_ROWS rows of the CTA's units."""
+    units = dh // CLUSTER[dh]
+    ring = (2 * 4 * dh * 4 + 8 * (2 + 2 * STAGES) + 127) & ~127
+    return ring + STAGES * TILE * BWD_ROWS * units * 4
+
+
+def bwd_layout(dh: int) -> tuple[int, ...]:
+    """(cluster, consumer warps, lanes a unit, steps a ring stage, stages,
+    rows a step, shared memory bytes) of the backward kernel at head width
+    ``dh``, as this module mirrors them."""
+    return (CLUSTER[dh], consumer_warps(dh), PARTS, TILE, STAGES, BWD_ROWS,
+            bwd_smem_bytes(dh))
+
+
+def built_bwd_layout(dh: int) -> tuple[int, ...]:
+    """``bwd_layout(dh)`` as the built kernel has it
+    (``repro_slstm_bwd_layout``; builds the library on first call)."""
+    out = (ctypes.c_int64 * 7)()
+    build.check(build.library().repro_slstm_bwd_layout(dh, out), "slstm_bwd layout")
     return tuple(out)
 
 
@@ -103,14 +151,19 @@ def slstm_scan(pre_x: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor
         raise TypeError(f"slstm_scan takes pre_x, r_gates and b_gates of one dtype, float32 "
                         f"or bfloat16, and a float32 state; got "
                         f"{[str(t.dtype) for t in (pre_x, r_gates, b_gates, *state)]}")
-    if on_cpu(pre_x, r_gates, b_gates, *state):
-        return slstm_scan_ref(pre_x, r_gates, b_gates, tuple(state))
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (pre_x, r_gates, b_gates, *state)):
-        raise NotImplementedError(
-            "the sLSTM kernel has no backward pass: train an xLSTM model on the CPU "
-            "(the plain version); a backward sLSTM kernel for xlstm training on the "
-            "card is ROADMAP Queue 2 item K4")
+        hs, *out = SLSTMScan.apply(pre_x, r_gates, b_gates, *state)
+        return hs, tuple(out)
+    if on_cpu(pre_x, r_gates, b_gates, *state):
+        return slstm_scan_ref(pre_x, r_gates, b_gates, tuple(state))
+    return _launch(pre_x, r_gates, b_gates, state, save=False)[:2]
+
+
+def _launch(pre_x, r_gates, b_gates, state, *, save: bool):
+    """The forward kernel on the card -> (hs, the final state, the saved
+    rows (B, S, SAVE_ROWS, H, dh) fp32 or None)."""
+    dtype = pre_x.dtype
     bsz, s, _, heads, dh = pre_x.shape
     if dh not in SUPPORTED_DH:
         raise ValueError(f"the sLSTM kernel takes dh in {SUPPORTED_DH}; got {dh}")
@@ -123,18 +176,81 @@ def slstm_scan(pre_x: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor
         check_cuda_input(name, t, torch.float32, (bsz, heads, dh))
     hs = torch.empty((bsz, s, heads, dh), dtype=torch.float32, device=pre_x.device)
     out = tuple(torch.empty_like(t) for t in state)
+    saved = torch.empty((bsz, s, SAVE_ROWS, heads, dh), dtype=torch.float32,
+                        device=pre_x.device) if save else None
     if s == 0 or bsz * heads == 0:
         for o, t in zip(out, state):
             o.copy_(t)
-        return hs, out
+        return hs, out, saved
     if pre_x.data_ptr() % 16:  # its rows arrive by 16-byte bulk copies
         pre_x = pre_x.clone()
     lib = build.library()
     fn = lib.repro_slstm_bf16 if dtype == torch.bfloat16 else lib.repro_slstm_f32
     err = fn(pre_x.data_ptr(), r_gates.data_ptr(), b_gates.data_ptr(),
              *(t.data_ptr() for t in state), hs.data_ptr(), *(t.data_ptr() for t in out),
-             bsz, s, heads, dh, stream_handle(pre_x.device))
+             saved.data_ptr() if save else None, bsz, s, heads, dh,
+             stream_handle(pre_x.device))
     build.check(err, "slstm")
     LAUNCHES["slstm"] += 1
-    return hs, out
+    return hs, out, saved
 
+
+def _launch_bwd(r_gates, saved, dhs, dfinal, dtype):
+    """The backward kernel on the card -> (d pre_x (B, S, 4, H, dh) in
+    ``dtype``, the initial state's gradient (dc, dn, dh, dm) fp32)."""
+    bsz, s, _, heads, dh = saved.shape
+    dpx = torch.empty((bsz, s, 4, heads, dh), dtype=dtype, device=saved.device)
+    d0 = tuple(torch.empty((bsz, heads, dh), dtype=torch.float32, device=saved.device)
+               for _ in range(4))
+    dfinal = tuple(t.to(torch.float32).contiguous() for t in dfinal)
+    if s == 0 or bsz * heads == 0:
+        for o, t in zip(d0, dfinal):
+            o.copy_(t)
+        return dpx, d0
+    dhs = dhs.to(torch.float32).contiguous()
+    if dhs.data_ptr() % 16:  # its rows arrive by 16-byte bulk copies
+        dhs = dhs.clone()
+    check_cuda_input("dhs", dhs, torch.float32, (bsz, s, heads, dh))
+    check_cuda_input("r_gates", r_gates, dtype, (4, heads, dh, dh))
+    for name, t in zip(("dc", "dn", "dh", "dm"), dfinal):
+        check_cuda_input(name, t, torch.float32, (bsz, heads, dh))
+    lib = build.library()
+    fn = lib.repro_slstm_bwd_bf16 if dtype == torch.bfloat16 else lib.repro_slstm_bwd_f32
+    err = fn(saved.data_ptr(), dhs.data_ptr(), r_gates.data_ptr(),
+             *(t.data_ptr() for t in dfinal), dpx.data_ptr(), *(t.data_ptr() for t in d0),
+             bsz, s, heads, dh, stream_handle(saved.device))
+    build.check(err, "slstm_bwd")
+    LAUNCHES["slstm_bwd"] += 1
+    return dpx, d0
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The recurrence with its gradient: on the card the saving forward
+    kernel and the backward kernel, on the CPU the plain versions of both.
+    Inputs pre_x, r_gates, b_gates, c, n, h, m; outputs hs, c, n, h, m."""
+
+    @staticmethod
+    def forward(ctx, pre_x, r_gates, b_gates, c, n, h, m):
+        state = (c, n, h, m)
+        if on_cpu(pre_x, r_gates, b_gates, *state):
+            hs, out, saved = slstm_scan_save_ref(pre_x, r_gates, b_gates, state)
+            if pre_x.shape[1] == 0:  # no step: the state itself, as new tensors
+                out = tuple(t.clone() for t in state)
+        else:
+            hs, out, saved = _launch(pre_x, r_gates, b_gates, state, save=True)
+        ctx.save_for_backward(r_gates, h, hs, saved)
+        ctx.dtype = pre_x.dtype
+        return (hs, *out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        r_gates, h0, hs, saved = ctx.saved_tensors
+        if saved.device.type == "cpu":
+            dpx, dr, db, d0 = slstm_bwd_walk_ref(r_gates, h0, saved, hs, dhs,
+                                                 (dc, dn, dh, dm), ctx.dtype)
+        else:
+            dpx, d0 = _launch_bwd(r_gates, saved, dhs, (dc, dn, dh, dm), ctx.dtype)
+            dr, db = weight_grads(h0, hs, dpx, ctx.dtype)
+        grads = (dpx, dr, db, *d0)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

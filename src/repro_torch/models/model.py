@@ -20,7 +20,11 @@ MTP loss (one extra block predicting token t+2) as the reference does.
 Under autograd with ``cfg.remat`` each layer of a
 stage runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` around its scan body): its activations are recomputed
-in the backward pass instead of kept.
+in the backward pass instead of kept.  A layer's first forward under remat
+is still a forward under autograd, so the sLSTM and selective-scan kernels'
+saving variants run in it too (what they save is dropped with the rest of
+the layer's activations): two saving launches and one backward launch a
+layer and step.
 """
 from __future__ import annotations
 

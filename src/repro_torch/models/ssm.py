@@ -14,7 +14,9 @@
     - sLSTM: scalar memory with recurrent per-head weights, sequential by
       nature.  The input projection of every step is one product; the time
       loop runs the sLSTM kernel (``kernels/slstm``), in the sequence form
-      and in decode (one step) alike.
+      and in decode (one step) alike; under autograd the sequence form goes
+      through the kernel's Function (its saving forward, then its backward
+      kernel), the same arithmetic.
 
 Op order and dtypes follow the reference, so that a bf16 model rounds where
 it does: the depthwise conv is a per-tap sum, SiLU is ``x * (1 / (1 +

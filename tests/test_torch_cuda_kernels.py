@@ -934,14 +934,22 @@ def test_slstm_kernel_nan_where_plain_is(cuda):
 
 @pytest.mark.gpu
 def test_slstm_wrapper_refuses_on_the_card(cuda):
+    """Autograd on the card: the saving forward launch (one ``slstm``),
+    then on backward the backward kernel (one ``slstm_bwd``); without grad
+    the serving launch; and the refusals of a head width, a stride, a dtype
+    mix and a device mix."""
     (pre, r, bias), st = _slstm_inputs(cuda, 1, 8, 4, 64, torch.float32, 0)
     r.requires_grad_()
-    before = tslstm.LAUNCHES["slstm"]
-    with pytest.raises(NotImplementedError, match="item K4"):
-        tslstm.slstm_scan(pre, r, bias, st)
+    before = dict(tslstm.LAUNCHES)
+    hs, _ = tslstm.slstm_scan(pre, r, bias, st)
+    assert tslstm.LAUNCHES == {"slstm": before["slstm"] + 1, "slstm_bwd": before["slstm_bwd"]}
+    hs.sum().backward()
+    assert tslstm.LAUNCHES == {"slstm": before["slstm"] + 1,
+                               "slstm_bwd": before["slstm_bwd"] + 1}
+    assert r.grad is not None and bool(torch.isfinite(r.grad).all())
     with torch.no_grad():
         tslstm.slstm_scan(pre, r, bias, st)
-    assert tslstm.LAUNCHES["slstm"] == before + 1
+    assert tslstm.LAUNCHES["slstm"] == before["slstm"] + 2
     (pre, r, bias), st = _slstm_inputs(cuda, 1, 8, 4, 48, torch.float32, 0)
     with pytest.raises(ValueError, match="dh in"):
         tslstm.slstm_scan(pre, r, bias, st)
@@ -952,3 +960,191 @@ def test_slstm_wrapper_refuses_on_the_card(cuda):
         tslstm.slstm_scan(pre, r.bfloat16(), bias, st)
     with pytest.raises(ValueError, match="lie on different|all on one"):
         tslstm.slstm_scan(pre, r, bias, tuple(t.cpu() for t in st))
+
+
+# ---- the sLSTM recurrence's gradient ------------------------------------------
+
+SLSTM_BWD_NAMES = ("d pre_x", "dR", "db", "dc0", "dn0", "dh0", "dm0")
+# the backward kernel against its plain version on the same inputs, the
+# walk over the saving forward's rows (chip_smoke.py's SLSTM_BWD_TOL): each
+# gradient within rtol and atol x its largest value; the whole path against
+# fp64 (fp32: largest error) or the fp32 backward (bf16: relative L2
+# distance) within 2 x the plain path's, or 1e-6 (of the scale in fp32)
+SLSTM_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -6, 2.0 ** -6)}
+# bf16 also: each gradient's largest error from the fp32 backward within
+# this multiple of the plain bf16 path's (chip_smoke.py's
+# SLSTM_BWD_MAX_VS_PLAIN; the readings in PERF.md §6)
+SLSTM_BWD_MAX_VS_PLAIN = 4.0
+
+
+def _slstm_grads(ins, st, dhs, dfinal):
+    """hs, the final state and every input's gradient through the wrapper's
+    Function."""
+    leaves = [t.detach().clone().requires_grad_() for t in (*ins, *st)]
+    hs, out = tslstm.slstm_scan(leaves[0], leaves[1], leaves[2], tuple(leaves[3:]))
+    return hs, out, torch.autograd.grad([hs, *out], leaves, [dhs, *dfinal])
+
+
+def _flat(grads):
+    dpx, dr, db, d0 = grads
+    return (dpx, dr, db, *d0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 1), (2, 40), (4, tslstm.STAGES * tslstm.TILE + 1),
+                                 (2, 300)])
+@pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
+def test_slstm_bwd_kernel_matches_plain(cuda, dh, b, s, dtype):
+    """Under autograd, from a nonzero state with the final state's gradients
+    too: one saving forward launch (hs and state bit-equal to the serving
+    launch's, and to the saving wrapper's own) and one backward launch, the
+    same bits from two calls; the gradients against the plain walk over the
+    saving forward's rows within SLSTM_BWD_TOL, and the path against fp64
+    (fp32: largest error) or the fp32 backward on the same values (bf16:
+    relative L2) within 2 x the plain path's distance, bf16's largest error
+    within SLSTM_BWD_MAX_VS_PLAIN x the plain path's."""
+    from repro_torch.kernels.slstm.ref import slstm_bwd_walk_ref, slstm_scan_bwd_ref
+
+    h = 3
+    (pre, r, bias), st = _slstm_inputs(cuda, b, s, h, dh, dtype, dh + b + s)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    dhs = torch.randn((b, s, h, dh), generator=g, device=cuda)
+    dfinal = tuple(0.3 * torch.randn((b, h, dh), generator=g, device=cuda) for _ in range(4))
+    before = dict(tslstm.LAUNCHES)
+    hs, out, got = _slstm_grads((pre, r, bias), st, dhs, dfinal)
+    assert tslstm.LAUNCHES == {"slstm": before["slstm"] + 1,
+                               "slstm_bwd": before["slstm_bwd"] + 1}
+    with torch.no_grad():
+        serve = tslstm.slstm_scan(pre, r, bias, st)
+    assert torch.equal(hs, serve[0]) and all(torch.equal(x, y) for x, y in zip(out, serve[1]))
+    again = _slstm_grads((pre, r, bias), st, dhs, dfinal)[2]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    hs_s, _, saved = tslstm._launch(pre, r, bias, st, save=True)
+    assert torch.equal(hs_s, hs)
+    same_in = _flat(slstm_bwd_walk_ref(r, st[2], saved, hs_s, dhs, dfinal, dtype))
+    plain = _flat(slstm_scan_bwd_ref(pre, r, bias, st, dhs, dfinal))
+    if dtype == torch.float32:
+        exact = _flat(slstm_scan_bwd_ref(pre, r, bias, st, dhs, dfinal, acc=torch.float64))
+    else:
+        exact = _flat(slstm_scan_bwd_ref(pre.float(), r.float(), bias.float(), st, dhs, dfinal))
+
+    def largest(t, e):
+        return float((t.double() - e.double()).abs().max())
+
+    def l2(t, e):
+        t, e = t.double(), e.double()
+        return float((t - e).norm() / e.norm().clamp(min=1e-300))
+
+    rtol, atol = SLSTM_BWD_TOL[dtype]
+    for name, k, w, p, e in zip(SLSTM_BWD_NAMES, got, same_in, plain, exact):
+        assert k.dtype == w.dtype and k.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(k.float(), w.float(), rtol=rtol, atol=atol * scale,
+                                   msg=lambda m: f"{name} {(b, s, h, dh)}: {m}")
+        if dtype == torch.float32:
+            floor = 1e-6 * float(e.double().abs().max())
+            err_k, err_p = largest(k, e), largest(p, e)
+            assert err_k <= max(2 * err_p, floor), (name, err_k, err_p)
+            continue
+        err_k, err_p = l2(k, e), l2(p, e)
+        assert err_k <= max(2 * err_p, 1e-6), (name, "L2", err_k, err_p)
+        err_k, err_p = largest(k, e), largest(p, e)
+        assert err_k <= max(SLSTM_BWD_MAX_VS_PLAIN * err_p, 1e-6 * scale), (name, err_k, err_p)
+
+
+# the edge points against the plain walk, element by element: rtol and
+# atol x the gradient's largest value (the gates on ex2.approx / rcp.approx;
+# bf16 one ulp of d pre)
+SLSTM_EDGE_TOL = {torch.float32: (1e-4, 1e-6), torch.bfloat16: (2.0 ** -6, 2.0 ** -12)}
+
+
+def _slstm_edge(cuda, case: str, dtype):
+    """The CPU tests' edge points (``test_torch_slstm_grad._edge_case``) on
+    the card: R = 0 and a zero bias, so a step's pre-activations are its
+    pre_x; step 0 holds the point in the even units of head 0 (``max_tie``:
+    log_f + m == pre_i; ``n_at_floor``: n' = 1e-6 exactly), steps 1-2 are
+    normal.  -> (pre, r, bias) in ``dtype``, the fp32 state, d hs, the
+    units."""
+    b, s, h, dh = 1, 3, 2, 32
+    g = torch.Generator(device=cuda).manual_seed(31 + len(case))
+    pre = torch.randn((b, s, 4, h, dh), generator=g, device=cuda)
+    dhs = torch.randn((b, s, h, dh), generator=g, device=cuda)
+    st = [torch.full((b, h, dh), v, device=cuda) for v in (0.5, 1.0, 0.0, 0.0)]
+    u = torch.arange(0, dh, 2, device=cuda)
+    if case == "max_tie":  # log_f = -softplus(-100) ~ -4e-44, absorbed by m = 1
+        st[3][0, 0, u] = 1.0
+        pre[0, 0, 1, 0, u] = 100.0
+        pre[0, 0, 0, 0, u] = 1.0
+    else:  # n' = 1 x 1e-6 + exp(-200)
+        st[1][0, 0, u] = 1e-6
+        pre[0, 0, 1, 0, u] = 100.0
+        pre[0, 0, 0, 0, u] = -200.0
+    r = torch.zeros((4, h, dh, dh), device=cuda)
+    bias = torch.zeros((4, h, dh), device=cuda)
+    return [t.to(dtype) for t in (pre, r, bias)], tuple(st), dhs, u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["max_tie", "n_at_floor"])
+def test_slstm_bwd_kernel_splits_a_tie_as_the_plain_walk(cuda, case, dtype, monkeypatch):
+    """At each point of ``_slstm_edge``, which the saving forward meets
+    (its rows: m' = pre_i = 1 at the tie, n' = 1e-6 at the floor), every
+    gradient within SLSTM_EDGE_TOL of the plain walk over those rows, which
+    halves a tie's gradient as ``jax.grad`` does.  At the floor the walk
+    that gives the whole of it to n' (clamp_min's) parts from the kernel;
+    at the max tie the stabilizer cancels out of h (n' >= i' = 1 there), so
+    its gradient, the share's factor, is rounding residue and no share
+    parts visibly."""
+    from repro_torch.kernels.slstm import ref as tref
+
+    (pre, r, bias), st, dhs, u = _slstm_edge(cuda, case, dtype)
+    zeros = tuple(torch.zeros_like(st[0]) for _ in range(4))
+    _, _, got = _slstm_grads((pre, r, bias), st, dhs, zeros)
+    hs, _, saved = tslstm._launch(pre, r, bias, st, save=True)
+    after = saved[0, 1, :, 0, u]  # the state after step 0
+    if case == "max_tie":
+        assert bool((saved[0, 0, 0, 0, u] == 1.0).all() and (after[6] == 1.0).all())
+    else:
+        assert bool((after[5] == 1e-6).all())
+    rtol, atol = SLSTM_EDGE_TOL[dtype]
+
+    def close(want):
+        return [torch.allclose(k.float(), w.float(), rtol=rtol,
+                               atol=atol * float(w.float().abs().max()))
+                for k, w in zip(got, _flat(want))]
+
+    assert all(close(tref.slstm_bwd_walk_ref(r, st[2], saved, hs, dhs, None, dtype))), case
+    if case == "n_at_floor":
+        monkeypatch.setattr(tref, "_share", lambda x, z, y: (x == z).to(z.dtype))
+        assert not all(close(tref.slstm_bwd_walk_ref(r, st[2], saved, hs, dhs, None, dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_kernel_nan_where_plain_is(cuda, dtype):
+    """A NaN in one forget pre-activation at step 20 of 40 (dh 192): every
+    gradient NaN exactly where the plain backward's is."""
+    from repro_torch.kernels.slstm.ref import slstm_scan_bwd_ref
+
+    (pre, r, bias), st = _slstm_inputs(cuda, 2, 40, 4, 192, dtype, 9, zero_state=True)
+    pre[1, 20, 1, 2, 7] = float("nan")
+    dhs = torch.randn((2, 40, 4, 192), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(2))
+    zeros = tuple(torch.zeros_like(st[0]) for _ in range(4))
+    _, _, got = _slstm_grads((pre, r, bias), st, dhs, zeros)
+    want = _flat(slstm_scan_bwd_ref(pre, r, bias, st, dhs))
+    for name, k, w in zip(SLSTM_BWD_NAMES, got, want):
+        assert torch.equal(k.isnan(), w.isnan()), name
+    assert bool(got[0][1, :21, :, 2].isnan().all()) and not got[0][0].isnan().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
+def test_slstm_bwd_kernel_layout_is_its_host_mirror(cuda, dh):
+    """The built backward kernel's layout (cluster, consumer warps, lanes a
+    unit, ring tile and stages, rows a step, shared memory:
+    ``repro_slstm_bwd_layout``) is the one ``ops`` mirrors for the CPU
+    model of its sums and protocol."""
+    assert tslstm.built_bwd_layout(dh) == tslstm.bwd_layout(dh)

@@ -6,8 +6,8 @@ CPU.
 several chunks, one chunk, S < chunk) and ``mlstm_decode`` step by step;
 ``slstm_seq``, ``slstm_decode`` and the sLSTM kernel wrapper's plain
 version against the reference's ``lax.scan`` of ``_slstm_cell`` from a
-nonzero state; the wrapper's refusals (its card path reached with
-``on_cpu`` patched: autograd naming ROADMAP K4, head widths, contiguity);
+nonzero state; the wrapper's card path reached with ``on_cpu`` patched
+(autograd to the saving launch, refusals of head widths and strides);
 the block types ``mlstm`` and ``slstm``; then xlstm-125m's smoke
 configuration end to end: ``forward``, ``decode_step`` replayed over a
 prompt (fp32, and bf16 against the reference's bf16 decode), ``loss_fn``'s
@@ -342,21 +342,37 @@ def test_slstm_wrapper_refuses_mixed_dtypes_and_shapes():
 
 
 def test_slstm_wrapper_card_path_refuses_autograd_widths_and_strides(monkeypatch):
-    """The wrapper's card path, reached with ``on_cpu`` patched (the checks
-    run before any build or launch): autograd raises naming ROADMAP Queue 2
-    item K4, then a head width the kernel is not built for, then a
-    non-contiguous input."""
+    """The wrapper's card path, reached with ``on_cpu`` patched and the
+    library's entry point stubbed: under autograd it goes through the
+    ``SLSTMScan`` Function to the saving launch (the entry given the saved
+    rows' buffer, one ``slstm`` launch counted, no backward yet); then the
+    checks that run before any build or launch refuse a head width the
+    kernel is not built for and a non-contiguous input."""
     monkeypatch.setattr(tslstm, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(tslstm, "stream_handle", lambda device: 0)
+    calls = []
+
+    class _Lib:
+        @staticmethod
+        def repro_slstm_f32(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(tslstm.build, "library", lambda: _Lib)
+    monkeypatch.setitem(tslstm.LAUNCHES, "slstm", 0)
+    monkeypatch.setitem(tslstm.LAUNCHES, "slstm_bwd", 0)
     pre, r, b, st = _wrapper_args()
     r.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item K4"):
-        tslstm.slstm_scan(pre, r, b, st)
+    hs, _ = tslstm.slstm_scan(pre, r, b, st)
+    assert type(hs.grad_fn).__name__ == "SLSTMScanBackward"
+    assert len(calls) == 1 and calls[0][12] is not None  # the saved rows: the saving variant
+    assert tslstm.LAUNCHES == {"slstm": 1, "slstm_bwd": 0}
     with torch.no_grad(), pytest.raises(ValueError, match="dh in"):
         tslstm.slstm_scan(*_wrapper_args(dh=48))
     pre, r, b, st = _wrapper_args(dh=64)
     with pytest.raises(ValueError, match="contiguous"):
         tslstm.slstm_scan(pre, r.transpose(2, 3), b, st)
-    assert tslstm.LAUNCHES["slstm"] == 0
+    assert tslstm.LAUNCHES["slstm"] == 1 and len(calls) == 1
     assert set(tslstm.SUPPORTED_DH) == set(tslstm.CLUSTER)
     for dh, nc in tslstm.CLUSTER.items():  # a cluster's CTAs split the units
         assert dh % nc == 0 and nc in (1, 2, 4, 8)
