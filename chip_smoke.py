@@ -2158,7 +2158,7 @@ SLSTM_BWD_FLOOR = 1e-6
 SLSTM_BWD_FIELDS = ("shape", "max_abs_err", "fp64_max_abs_err", "fp64_max_abs_err_plain", "ms",
                     "device_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
                     "serial_floor_ms", "sync_loop_ms", "registers", "stack", "fwd_ms",
-                    "fwd_save_ms", "fwd_device_ms", "fwd_save_device_ms")
+                    "fwd_save_ms", "fwd_device_ms", "fwd_save_device_ms", "fwd_us_per_step")
 
 
 def slstm_bwd_bound(torch, dev, shape, elem_bytes: int, cluster: int
@@ -2327,6 +2327,7 @@ def _slstm_bwd_row(torch, dev, ins, res: dict, sync_lib: Path, plain32=None
            "fwd_save_device_ms": kernel_device_ms(torch, fwd(True), (slstm_ops.KERNEL,),
                                                   reps=10)}
     row["us_per_step"] = row["device_ms"] / s * 1e3
+    row["fwd_us_per_step"] = row["fwd_device_ms"] / s * 1e3
     print(f"kernel {label}: the saving forward's hs and state bit-equal to the no-grad launch's; "
           f"max abs err against the plain walk over the same rows (tol rtol {rtol:.3g}, atol "
           f"{atol:.3g} x max|gradient|), the path's {metric} from the {kind} backward (limit "
@@ -2337,7 +2338,8 @@ def _slstm_bwd_row(torch, dev, ins, res: dict, sync_lib: Path, plain32=None
           f"{bsz * h} (row, head); {slstm_ops.BWD_KERNEL}<{targ}, {dh}>: "
           f"{facts.get('registers')} registers, stack {facts.get('stack')} B; kernel_ms "
           f"{row['ms']:.4f} device_ms {row['device_ms']:.4f} ({row['us_per_step']:.3f} us a "
-          f"step) plain_ms {plain_ms:.1f} (the plain walk over the same rows, one call: a loop "
+          f"step, the no-grad forward's {row['fwd_us_per_step']:.3f}) plain_ms {plain_ms:.1f} "
+          f"(the plain walk over the same rows, one call: a loop "
           f"over S) library_ms "
           f"null (no PyTorch call computes an sLSTM's gradient) bound_ms {b_ms:.4f} ({b_by}; "
           f"{b_text}); serial floor {row['serial_floor_ms']:.4f} ms (product {floor_ms:.4f} + "
@@ -6140,7 +6142,7 @@ def main() -> int:
                                    "us_per_step", "serve_cpu_launches", "device_ms",
                                    "bound_share", "train_hybrid_launches",
                                    "train_xlstm_launches", "stack", "fwd_ms", "fwd_save_ms",
-                                   "fwd_device_ms", "fwd_save_device_ms",
+                                   "fwd_device_ms", "fwd_save_device_ms", "fwd_us_per_step",
                                    *(f"{k}{suffix}" for suffix in ("_long", "_long_fp32")
                                      for k in SLSTM_BWD_FIELDS),
                                    *(f"{k}{suffix}" for suffix in ("_long", "_long_fp32")

@@ -5,8 +5,8 @@ returns the reduced same-family variant (<= 2 layers, d_model 128) the
 CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m,
 deepseek-v3-671b, hymba-1.5b, xlstm-125m, paligemma-3b, hubert-xlarge,
 deepseek-coder-33b and phi3-medium-14b; on the card every block type
-trains but xLSTM's sLSTM, whose kernel has no backward (ROADMAP Queue 2
-item K4).  qwen2-72b, whose weights need more than one card, raises
+trains, xLSTM's sLSTM through its backward kernel (``kernels.slstm.ops``'s
+``SLSTMScan``).  qwen2-72b, whose weights need more than one card, raises
 ``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports it.
 """
 from __future__ import annotations

@@ -23,15 +23,22 @@ bit, and each step's fp32 gate pre-activations and state before it, (B, S,
 the reverse walk of ``csrc/slstm_bwd.cu`` (``LAUNCHES["slstm_bwd"]``, once
 a call): d pre_x in the inputs' dtype and the initial state's gradient,
 then dR and db as one fp32 product and sum over (b, t) of its rows
-(``ref.weight_grads``).  The walk takes the forward's layout (below): lane
-part + 8 unit keeps R[g, k, j] of every gate for the units j = part, part +
-8, ... and sums its part of ``dh_{t-1} = d pre_t . R^T`` in that order, the
-unit's 8 lanes adding theirs by shuffles (xor 4, 2, 1); each CTA receives
-every unit's four rounded gate gradients a step, 16 bytes by one st.async
-from lane part < CLUSTER[dh] of the unit, double-buffered; a producer warp
-stages each step's 8 rows (the saved 7 and d hs) in TILE-step tiles from
-the last.  On the CPU the same Function runs ``ref.slstm_scan_save_ref``
-and ``ref.slstm_bwd_walk_ref``.
+(``ref.weight_grads``).  The walk takes the forward's cluster and warps
+(below), and a step's serial path holds only what depends on dh_t:
+``dh_t = d pre_{t+1} . R^T``, the derivatives and the send.  Lane L of a
+warp keeps R[g, k, j] of every gate for the warp's 4 units k and the units
+j = L, L + 32, ..., sums its part for each k in that order, and the warp's
+32 lanes add theirs in a tree of shuffles (xor 16, 8, 4, 2, 1) that leaves
+unit k's sum in its 8 lanes; each CTA receives every unit's four rounded
+gate gradients a step, 16 bytes by one st.async from lane part <
+CLUSTER[dh] of the unit, double-buffered.  A producer warp stages each
+step's 8 rows (the saved 7 and d hs) in TILE-step tiles from the last,
+then computes from them, a lane a unit, everything of the step that dh_t
+does not feed (the gates and state recomputed with the forward's code, h,
+the max's shares, the activations' derivatives, 1 / N: BWD_TERMS values)
+into one of two buffers the consumer warps read ahead of each step's wait.
+On the CPU the same Function runs ``ref.slstm_scan_save_ref`` and
+``ref.slstm_bwd_walk_ref``.
 
 The kernel runs one thread block cluster of CLUSTER[dh] CTAs a (batch row,
 head), each CTA owning dh / CLUSTER[dh] units of the four gates, in
@@ -78,6 +85,7 @@ TILE, STAGES = 32, 4  # the pre_x ring: steps a stage, stages (kTile, kStages)
 KERNEL = "slstm_kernel"  # the kernel functions' names, as the profiler shows them
 BWD_KERNEL = "slstm_bwd_kernel"
 BWD_ROWS = SAVE_ROWS + 1  # rows the backward stages a step: the saved 7 and d hs (kBwdRows)
+BWD_TERMS = 17  # values the backward's producer computes a step and unit (kTerms)
 _MAX_GRID_Y = 65535
 
 
@@ -103,11 +111,12 @@ def built_layout(dh: int) -> tuple[int, ...]:
 
 def bwd_smem_bytes(dh: int) -> int:
     """Shared memory of one backward CTA (csrc/slstm_bwd.cu's BwdShape): two
-    buffers of a step's 4 dh fp32 gate gradients, the mbarriers, and the
-    ring of STAGES stages of TILE steps x BWD_ROWS rows of the CTA's units."""
+    buffers of a step's 4 dh fp32 gate gradients, the mbarriers, the ring of
+    STAGES stages of TILE steps x BWD_ROWS rows of the CTA's units, and two
+    buffers of a tile's BWD_TERMS terms a step and unit."""
     units = dh // CLUSTER[dh]
-    ring = (2 * 4 * dh * 4 + 8 * (2 + 2 * STAGES) + 127) & ~127
-    return ring + STAGES * TILE * BWD_ROWS * units * 4
+    ring = (2 * 4 * dh * 4 + 8 * (2 + STAGES + 2 + 2) + 127) & ~127
+    return ring + (STAGES * BWD_ROWS + 2 * BWD_TERMS) * TILE * units * 4
 
 
 def bwd_layout(dh: int) -> tuple[int, ...]:

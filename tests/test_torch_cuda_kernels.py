@@ -1140,6 +1140,76 @@ def test_slstm_bwd_kernel_nan_where_plain_is(cuda, dtype):
     assert bool(got[0][1, :21, :, 2].isnan().all()) and not got[0][0].isnan().any()
 
 
+def _slstm_bwd_quotients(cuda, num, den, dtype):
+    """dc0 of the backward kernel at S = 1 with R = 0, pre_i = -200 and pre_f
+    = pre_o = 100 (i' = 0, f' = o = 1 exactly) and c = m = 0, where n' is the
+    state's n and dc0 is d hs / max(n, 1e-6) itself: the kernel's quotient
+    of each num (fp32, +0 for a zero: gh = d hs + (+0)) by each den, as many
+    (row, head) of H = 4, dh = 192 as they need; dc0 = 0 + the quotient, so
+    a -0 quotient reads +0."""
+    h, dh = 4, 192
+    k = num.size
+    b = -(-k // (h * dh))
+    pad = b * h * dh - k
+    num = np.concatenate([num, np.ones(pad, np.float32)]).reshape(b, 1, h, dh)
+    den = np.concatenate([den, np.ones(pad, np.float32)]).reshape(b, h, dh)
+    pre = torch.zeros((b, 1, 4, h, dh), device=cuda)
+    pre[:, :, 0], pre[:, :, 1], pre[:, :, 3] = -200.0, 100.0, 100.0
+    zero = torch.zeros((b, h, dh), device=cuda)
+    st = (zero, torch.from_numpy(den).to(cuda), zero.clone(), zero.clone())
+    r = torch.zeros((4, h, dh, dh), device=cuda, dtype=dtype)
+    bias = torch.zeros((4, h, dh), device=cuda, dtype=dtype)
+    _, _, saved = tslstm._launch(pre.to(dtype), r, bias, st, save=True)
+    _, d0 = tslstm._launch_bwd(r, saved, torch.from_numpy(num).to(cuda),
+                               tuple(torch.zeros_like(zero) for _ in range(4)), dtype)
+    return d0[0].cpu().numpy().reshape(-1)[:k]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,dtype", [("ranges", torch.float32), ("ranges", torch.bfloat16),
+                                        ("every_mantissa", torch.float32)])
+def test_slstm_bwd_kernel_divides_as_ieee(cuda, case, dtype):
+    """The one division on a step's chain, gh / N (N = max(n', 1e-6)), bit
+    for bit IEEE's (numpy's fp32 division) through the kernel
+    (``_slstm_bwd_quotients``).  ``ranges``: outside the range the kernel's
+    reciprocal sequence keeps as well as inside it: divisors at the 1e-6
+    floor under numerators near the fp32 limit (an inf quotient), subnormal
+    numerators, subnormal quotients, zeros, and quotients over ~70 binades.
+    ``every_mantissa``: inside it, each of the 2^23 divisor mantissas under
+    a power of two and under a random mantissa, where a reciprocal rounded
+    the wrong way would show (CPU:
+    ``test_torch_slstm_grad.py::test_backward_division_sequence_rounds_as_ieee_inside_its_guard``)."""
+    rng = np.random.default_rng(17)
+    if case == "ranges":
+        k = 4 * 4 * 192
+        den = np.exp(rng.uniform(-20, 20, k)).astype(np.float32)
+        num = (rng.normal(size=k) * np.exp(rng.uniform(-30, 30, k))).astype(np.float32)
+        den[:256], den[256:512] = 1e-6, 0.0
+        num[:128] = 3.3e38 * np.sign(rng.normal(size=128))
+        num[128:256] = rng.normal(size=128) * 1e-38
+        num[512:640] = (rng.normal(size=128) * 1e-39).astype(np.float32)  # subnormal
+        den[640:768], num[640:768] = 1e10, rng.normal(size=128) * 1e-30  # subnormal quotients
+        num[768:800] = 0.0
+        num[num == 0] = 0.0
+        with np.errstate(over="ignore"):
+            want = np.float32(0) + num / np.maximum(den, np.float32(1e-6))
+        assert np.isinf(want[:128]).all() and (np.abs(want[640:768]) < 2.0 ** -126).all()
+        got = _slstm_bwd_quotients(cuda, num, den, dtype)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        return
+    mant = np.arange(1 << 23, dtype=np.int32)
+    # above the 1e-6 floor (2^-19.93) and inside the guard's [2^-21, 2^40)
+    den = ((mant | ((rng.integers(-19, 40, mant.size) + 127) << 23)).astype(np.int32)
+           .view(np.float32))
+    for top in (np.zeros_like(mant), rng.integers(0, 1 << 23, mant.size, dtype=np.int32)):
+        sign = rng.integers(0, 2, mant.size).astype(np.int32) << 31
+        num = ((sign | top | ((rng.integers(-60, 61, mant.size) + 127) << 23)).astype(np.int32)
+               .view(np.float32))
+        got = _slstm_bwd_quotients(cuda, num, den, dtype)
+        want = np.float32(0) + num / den
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
 def test_slstm_bwd_kernel_layout_is_its_host_mirror(cuda, dh):

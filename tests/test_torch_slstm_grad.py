@@ -24,7 +24,9 @@ largest value), dR and db within 2^-5 of theirs: autograd of the loop adds
 each step's part to them in bf16, where the walk sums over (b, t) in fp32
 and rounds once.
 """
+import functools
 import random
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -41,7 +43,7 @@ from repro_torch.kernels.slstm import ops as tslstm  # noqa: E402
 from repro_torch.kernels.slstm import ref as tref  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
-from test_torch_xlstm import _SlstmProtocol  # noqa: E402
+from test_torch_xlstm import _Mbarrier, _SlstmProtocol  # noqa: E402
 
 # the walks are loops of small ops: one thread keeps the file's time low
 # under pytest -n 6
@@ -320,60 +322,128 @@ def test_slstm_seq_gradients_match_reference(s):
 # its exchange protocol
 # ---------------------------------------------------------------------------
 
-def _lane_units(dh: int, part: int) -> list[int]:
-    """The units j whose four gates' R[g, k, j] lane ``part`` of unit k
-    keeps, in the order the kernel's sum of ``d pre . R^T`` takes them
-    (``slstm_bwd.cu``: j = part, part + PARTS, ...)."""
-    return list(range(part, dh, tslstm.PARTS))
+def _lane_units(dh: int, lane: int) -> list[int]:
+    """The units j whose four gates' R[g, k, j] lane ``lane`` of a warp keeps
+    for each of the warp's 4 units k, in the order the kernel's sum of
+    ``d pre . R^T`` takes them (``slstm_bwd.cu``: j = lane, lane + 32, ...)."""
+    return list(range(lane, dh, 32))
 
 
-def _lane_sums(dpre, r_t, dh):
-    """The kernel's transposed product for every unit k, lane by lane in
-    numpy fp32: lane part of unit k takes the units j of
-    ``_lane_units(dh, part)`` in order, each j's four gates into two
-    partial sums by fma (gates 0 and 2, gates 1 and 3), adds them, and the
-    unit's 8 lanes add theirs by the xor-4, -2, -1 shuffles.  dpre (4, dh)
-    and r_t (4, dh, dh) = R[g, k, j] of one head -> (8 lanes' sums, dh) fp32."""
-    lanes = np.empty((tslstm.PARTS, dh), f32)
-    for part in range(tslstm.PARTS):
-        a = np.zeros((2, dh), f32)
-        for j in _lane_units(dh, part):
+def _lane_sums(dpre, r_t, dh, k0):
+    """The kernel's transposed product for a warp's units k0 .. k0 + 3, lane
+    by lane in numpy fp32: lane L takes the units j of ``_lane_units(dh, L)``
+    in order, each j's four gates in order by fma into one partial sum a
+    unit; then the warp's lanes add theirs in the tree of xor 16, 8, 4, 2, 1,
+    scattering the units: after xor 16 lanes of bit 4 keep units 2 and 3
+    (else 0 and 1), after xor 8 those of bit 3 the second of the two.  dpre
+    (4, dh) and r_t (4, dh, dh) = R[g, k, j] of one head -> (32,) fp32, lane
+    L holding the sum of unit k0 + L // 8."""
+    lanes = np.arange(32)
+    a = np.zeros((32, 4), f32)
+    for lane in lanes:
+        for j in _lane_units(dh, lane):
             for g in range(4):  # fma: one rounding of the exact product plus the sum
-                a[g % 2] = (np.float64(dpre[g, j]) * r_t[g, :, j].astype(np.float64)
-                            + a[g % 2]).astype(f32)
-        lanes[part] = a[0] + a[1]
+                a[lane] = (np.float64(dpre[g, j]) * r_t[g, k0:k0 + 4, j].astype(np.float64)
+                           + a[lane]).astype(f32)
+    pair = 2 * ((lanes >> 4) & 1)
+    k = np.stack([a[lanes, pair] + a[lanes ^ 16, pair],
+                  a[lanes, pair + 1] + a[lanes ^ 16, pair + 1]], 1)
+    odd = (lanes >> 3) & 1
+    s = k[lanes, odd] + k[lanes ^ 8, odd]
     for step in (4, 2, 1):
-        lanes = lanes + lanes[np.arange(tslstm.PARTS) ^ step]
-    return lanes
+        s = s + s[lanes ^ step]
+    return s, a
 
 
 @pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
 def test_backward_product_lanes_cover_and_sum_in_a_fixed_order(dh):
     """Each (gate, j) of the contraction falls to exactly one lane of a
-    unit; every lane of the unit ends with the same bits, the pairwise order
-    ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) of the lanes' sums;
-    and the sum lies within 4 dh fp32 roundings of the fp64 product."""
-    seen = sorted(j for part in range(tslstm.PARTS) for j in _lane_units(dh, part))
+    warp, for each of its 4 units; the 8 lanes of each unit end with the
+    same bits, the pairwise tree over the 32 lanes' sums p_L of that unit
+    (p_L + p_{L^16}, then ^8, ^4, ^2, ^1); and the sum lies within 4 dh fp32
+    roundings of the fp64 product."""
+    seen = sorted(j for lane in range(32) for j in _lane_units(dh, lane))
     assert seen == list(range(dh))
     rng = _rng(8, dh)
     dpre = rng.normal(size=(4, dh)).astype(f32)
     r_t = (rng.normal(size=(4, dh, dh)) / np.sqrt(dh)).astype(f32)
-    lanes = _lane_sums(dpre, r_t, dh)
-    assert (lanes == lanes[0]).all()
-    parts = np.empty((tslstm.PARTS, dh), f32)
-    for part in range(tslstm.PARTS):
-        a = np.zeros((2, dh), f32)
-        for j in _lane_units(dh, part):
-            for g in range(4):
-                a[g % 2] = (np.float64(dpre[g, j]) * r_t[g, :, j].astype(np.float64)
-                            + a[g % 2]).astype(f32)
-        parts[part] = a[0] + a[1]
-    p = parts
-    pairwise = ((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7]))
-    np.testing.assert_array_equal(lanes[0], pairwise)
     exact = np.einsum("gj,gkj->k", dpre.astype(np.float64), r_t.astype(np.float64))
     bound = 4 * dh * np.finfo(f32).eps * np.einsum("gj,gkj->k", np.abs(dpre), np.abs(r_t))
-    assert (np.abs(lanes[0] - exact) <= bound).all()
+    for k0 in range(0, dh, 4):
+        lanes, p = _lane_sums(dpre, r_t, dh, k0)
+        for v in range(4):
+            got = lanes[8 * v:8 * v + 8]
+            assert (got == got[0]).all()
+            t = p[:, v]
+            for step in (16, 8, 4, 2, 1):
+                t = t[:step] + t[step:2 * step]
+            np.testing.assert_array_equal(got[0], t[0])
+            assert abs(got[0] - exact[k0 + v]) <= bound[k0 + v]
+
+
+def _rn32(x: Fraction) -> Fraction:
+    """x rounded to the nearest fp32, ties to even (normal range)."""
+    if x == 0:
+        return Fraction(0)
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    d = x.numerator.bit_length() - x.denominator.bit_length()
+    ulp = Fraction(2) ** ((d if x >= Fraction(2) ** d else d - 1) - 23)
+    return sign * round(x / ulp) * ulp
+
+
+def _div_rn(a: Fraction, b: Fraction, y: Fraction) -> Fraction:
+    """``slstm_bwd.cu``'s div_rn inside its guard from the reciprocal y, every
+    fp32 op rounded once (fma: the exact x y + z): q = a y, then two
+    corrections q + y (a - b q)."""
+    q = _rn32(a * y)
+    for _ in range(2):
+        q = _rn32(_rn32(-b * q + a) * y + q)
+    return q
+
+
+@functools.lru_cache(maxsize=None)
+def _hard_divisors(count: int) -> list[Fraction]:
+    """The divisors in [1, 2) whose reciprocals lie nearest a rounding
+    midpoint of fp32 (its ulp in (1/2, 1] is 2^-24), found over all 2^23
+    mantissas in fp64: where a reciprocal rounded the wrong way would show."""
+    mant = np.arange(1 << 23, dtype=np.float64)
+    frac = (2.0 ** 24 / (1 + mant / 2.0 ** 23)) % 1.0
+    return [1 + Fraction(int(m), 1 << 23) for m in np.argsort(np.abs(frac - 0.5))[:count]]
+
+
+@pytest.mark.parametrize("kind", ["random", "hard", "corners"])
+def test_backward_division_sequence_rounds_as_ieee_inside_its_guard(kind):
+    """The kernel's gh / N from the reciprocal y = rcp(N) taken off the chain
+    gives the correctly rounded quotient (IEEE division's, __fdiv_rn's)
+    wherever its guard lets it run, |gh| in [2^-80, 2^80) and N in [2^-21,
+    2^40), given y correctly rounded (rcp's rcp.approx and Newton step give
+    that for every mantissa: the card's
+    ``test_slstm_bwd_kernel_divides_as_ieee[every_mantissa]`` shows the
+    quotients it makes), in exact rational arithmetic: random pairs; the
+    divisors whose reciprocals lie nearest a midpoint under numerators of
+    one, of all-ones and of random mantissas; and the guard's corners."""
+    rng = np.random.default_rng(41)
+    full = 1 + Fraction((1 << 23) - 1, 1 << 23)
+
+    def scaled(m, lo, hi):
+        return m * Fraction(2) ** int(rng.integers(lo, hi))
+
+    def mant():
+        return 1 + Fraction(int(rng.integers(0, 1 << 23)), 1 << 23)
+
+    if kind == "random":
+        pairs = [(scaled(mant(), -80, 80), scaled(mant(), -21, 40)) for _ in range(2000)]
+    elif kind == "hard":
+        pairs = [(scaled(a, -80, 80), scaled(b, -21, 40)) for b in _hard_divisors(40)
+                 for a in (Fraction(1), Fraction(3, 2), full, mant(), mant())]
+    else:
+        top, bot = Fraction(2) ** 80, Fraction(2) ** -80
+        pairs = [(a, b) for a in (bot, bot * full, top * full / 2, top / 2)
+                 for b in (Fraction(2) ** -21, Fraction(2) ** -21 * full, Fraction(2) ** 39 * full,
+                           Fraction(2) ** 39 * _hard_divisors(40)[0])]
+    for i, (a, b) in enumerate(pairs):
+        a = -a if i % 2 else a
+        assert _div_rn(a, b, _rn32(1 / b)) == _rn32(a / b), (a, b)
 
 
 @pytest.mark.parametrize("dh", tslstm.SUPPORTED_DH)
@@ -387,7 +457,7 @@ def test_backward_layout_mirror_fits_the_card(dh):
     assert (nc, warps, parts, tile, stages) == tslstm.layout(dh)
     assert nc * warps * tslstm.UNITS_A_WARP == dh and rows == tref.SAVE_ROWS + 1 == 8
     assert (dh // nc * 4) % 16 == 0 and smem <= 232448
-    assert 4 * len(_lane_units(dh, 0)) == 4 * dh // parts
+    assert 4 * tslstm.UNITS_A_WARP * len(_lane_units(dh, 0)) == 4 * dh // parts
 
 
 class _BwdProtocol(_SlstmProtocol):
@@ -395,7 +465,11 @@ class _BwdProtocol(_SlstmProtocol):
     with the backward kernel's walk: ``steps`` ring steps staged from the
     last tile, ``steps`` + 1 exchange steps (a send at each of the first
     ``steps``, a wait and product at each but the first), 16 bytes a unit
-    (its four gates) into every CTA a send."""
+    (its four gates) into every CTA a send.  The ring is the producer's
+    alone: it reads each landed tile and writes the tile's terms into one of
+    two buffers, ``ready`` to the consumer warps, which release it by
+    ``freed``.  ``fault`` "no_empty_wait": the producer rewrites a terms
+    buffer without waiting for its release."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -404,6 +478,12 @@ class _BwdProtocol(_SlstmProtocol):
             for bar in cta["full"]:
                 bar.tx += self.h_bytes * 3 // 4
             cta["slot_step"][0] = [None] * (self.nc * self.warps)
+            cta["ready"] = [_Mbarrier(1) for _ in range(2)]
+            cta["freed"] = [_Mbarrier(self.warps) for _ in range(2)]
+            cta["terms_tile"], cta["terms_released"] = [None, None], [self.warps] * 2
+
+    def _tile_steps(self, i):
+        return min(self.tile, self.steps - (self.tiles - 1 - i) * self.tile)
 
     def consumer(self, rank, warp):
         cta, slot = self.ctas[rank], rank * self.warps + warp
@@ -424,36 +504,50 @@ class _BwdProtocol(_SlstmProtocol):
                 yield
 
         for i in range(self.tiles):
-            s = i % self.stages
-            yield from self._wait(cta["landed"][s], (i // self.stages) & 1,
-                                  i // self.stages + 1)
-            steps = min(self.tile, self.steps - (self.tiles - 1 - i) * self.tile)
-            assert cta["ring_tile"][s] == i and cta["ring_rows"][s] == 4 * steps
-            for _ in range(steps):
+            tb = i % 2
+            yield from self._wait(cta["ready"][tb], (i // 2) & 1, i // 2 + 1)
+            assert cta["terms_tile"][tb] == i, "terms handed out before they were written"
+            for _ in range(self._tile_steps(i)):
+                assert cta["terms_tile"][tb] == i, "terms rewritten while they are read"
                 yield from exchange(u)
                 self.events += [(q, slot, u + 1) for q in range(self.nc)]
                 yield
                 u += 1
-            cta["released"][s] += 1
-            cta["empty"][s].arrive()
+            cta["terms_released"][tb] += 1
+            cta["freed"][tb].arrive()
             yield
         yield from exchange(u)
 
     def producer(self, rank):
         cta = self.ctas[rank]
-        for i in range(self.tiles):
-            s = i % self.stages
-            if i >= self.stages and self.fault != "no_empty_wait":
-                yield from self._wait(cta["empty"][s], (i // self.stages - 1) & 1,
-                                      i // self.stages)
-            assert cta["released"][s] == self.warps, "a stage refilled before its release"
-            rows = 4 * min(self.tile, self.steps - (self.tiles - 1 - i) * self.tile)
-            cta["released"][s], cta["ring_tile"][s], cta["ring_rows"][s] = 0, i, 0
+
+        def stage(i):
+            s, rows = i % self.stages, 4 * self._tile_steps(i)
+            cta["ring_tile"][s], cta["ring_rows"][s] = i, 0
             cta["landed"][s].arrive(rows * 16)
             yield
             for _ in range(rows):
                 self.events.append((rank, None, s))
                 yield
+
+        for i in range(min(self.tiles, self.stages)):
+            yield from stage(i)
+        for i in range(self.tiles):
+            s, tb = i % self.stages, i % 2
+            yield from self._wait(cta["landed"][s], (i // self.stages) & 1,
+                                  i // self.stages + 1)
+            assert cta["ring_tile"][s] == i and cta["ring_rows"][s] == 4 * self._tile_steps(i), (
+                "a stage read before it is full")
+            if i >= 2 and self.fault != "no_empty_wait":
+                yield from self._wait(cta["freed"][tb], (i // 2 - 1) & 1, i // 2)
+            assert cta["terms_released"][tb] == self.warps, (
+                "a terms buffer refilled before its release")
+            cta["terms_tile"][tb], cta["terms_released"][tb] = i, 0
+            yield
+            cta["ready"][tb].arrive()
+            yield
+            if i + self.stages < self.tiles:
+                yield from stage(i + self.stages)
 
     def _land_h(self, q, slot, step):
         cta = self.ctas[q]
@@ -471,9 +565,10 @@ def test_backward_protocol_holds_under_random_interleavings(dh):
     """The backward kernel's exchange and ring at its layout for ``dh``, 5
     steps (6 exchange steps) through a ring of 2 stages of 2 steps, under
     seeded random interleavings: no dpre slot overwritten before every warp
-    of its CTA read it, no wait past its phase, no stage handed out before it
-    is full or refilled before its release, no deadlock; and at the kernel's
-    own ring past one whole ring at dh 192."""
+    of its CTA read it, no wait past its phase, no ring stage read before it
+    is full, no terms buffer handed out before it is written or rewritten
+    before its release, no deadlock; and at the kernel's own ring past one
+    whole ring at dh 192."""
     nc, warps = tslstm.CLUSTER[dh], tslstm.consumer_warps(dh)
     for seed in range(100):
         _BwdProtocol(nc, warps, steps=5, tile=2, stages=2).run(random.Random(seed))
@@ -486,10 +581,12 @@ def test_backward_protocol_holds_under_random_interleavings(dh):
                                          ("no_empty_wait", "refilled before")])
 def test_backward_protocol_model_catches_a_planted_fault(fault, match):
     """The backward model's checks are live: one dpre buffer, or a producer
-    that refills without waiting, fails at dh 192 within a few
-    interleavings."""
+    that rewrites a terms buffer without waiting for its release, fails at
+    dh 192 within a few interleavings.  6 steps, three whole tiles of 2: a
+    first tile of one step (5 steps) is released before the rewrite in all
+    but a few interleavings."""
     nc, warps = tslstm.CLUSTER[192], tslstm.consumer_warps(192)
     with pytest.raises(AssertionError, match=match):
         for seed in range(20):
-            _BwdProtocol(nc, warps, steps=5, tile=2, stages=2, fault=fault).run(
+            _BwdProtocol(nc, warps, steps=6, tile=2, stages=2, fault=fault).run(
                 random.Random(seed))
