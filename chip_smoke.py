@@ -251,6 +251,19 @@ error:
    share of busy, every sLSTM forward there the saving variant); the
    xlstm smoke configuration in bf16 on the card and on the CPU, v equal
    at every step.
+21. mesh: the device-mesh layer (``models/sharding.py``) on one card
+   (``phase_mesh``): (a) qwen2-72b at its full width and 4 of its 80
+   layers (``qwen2_serve``, ~12 GB of bf16 weights), a prefill at B=1,
+   S=8192 and four requests decoded as in 18, under 18's gates; (b) the
+   mesh form of the train step at world 1 on NCCL (``make_host_mesh(data=1,
+   model=1)``, the process group given its own address) on phase 11's
+   starcoder2 cell with its 4 replicas on the one fl rank (``make_setup(cfg,
+   mesh, replicas=4)``: a world-1 mesh has no pod axis, so both runs take
+   pods = 1), 3 dense steps: each bf16 trigger and mix entry launched once
+   a leaf a step, and the parameters, ``w_hat`` and every metric bit-equal
+   to the one-card step's.  The four-card runs
+   (``tools/train_sharded.py``, ``tools/serve_sharded.py``) go through
+   ``torchrun`` on four cards.
 
 Phase 10 also runs the granite-moe and deepseek-v3 smoke configurations
 in fp32 on the card and on the CPU: logits within atol=rtol 1e-4 and the
@@ -5866,6 +5879,102 @@ def phase_train_xlstm(torch, dev, cfg=None, seq: int = 2048
         plain_card=_plain_slstm, held=TWIN_HELD_LEAF, profile_check=saving_only)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the device-mesh layer on one card
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_LAYERS, MESH_SERVE_SEQ = 4, 8192  # qwen2-72b: 4 of 80 layers, B=1 S=8192
+MESH_TRAIN_STEPS = 3
+
+
+def qwen2_serve(n_layers: int = MESH_SERVE_LAYERS, dtype: str = "bfloat16"):
+    """qwen2-72b at its full width, its depth cut from 80 to ``n_layers``
+    layers (1.756 GB of bf16 weights a layer beside the 4.98 GB embedding
+    and head)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-72b"), n_layers=n_layers,
+                               layer_plan=((("attn",), n_layers),), dtype=dtype)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh(torch, dev, serve_cfg=None, train_cfg=None, seq: int = 2048,
+               serve_seq: int = MESH_SERVE_SEQ, backend: str = "nccl") -> dict[str, int]:
+    """Phase 21.  (a) ``phase_serve`` of qwen2-72b at full width and
+    MESH_SERVE_LAYERS layers (``serve_cfg``) at ``serve_seq`` (no repo
+    kernel: full attention).  (b) The mesh train step at world 1 on
+    ``backend`` (a process group of its own, ``tcp://localhost``), phase
+    11's cell with TRAIN_M replicas on the one fl rank, MESH_TRAIN_STEPS
+    dense steps through ``launch.train.train(..., mesh=)``; then the same
+    steps with ``mesh=None``: every leaf and every record equal.
+    The mesh run's launches of the trigger and mix entries must be leaves x
+    steps.  Returns the mesh run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    on_card = torch.device(dev).type == "cuda"
+    phase_serve(torch, dev, serve_cfg or qwen2_serve(), seq=serve_seq, heads=())
+    if on_card:
+        torch.cuda.empty_cache()
+
+    cfg = train_cfg or starcoder2_train()
+    label = (f"mesh train {cfg.name} {cfg.n_layers}L m={TRAIN_M} B={TRAIN_BATCH} S={seq} "
+             f"world 1 {backend}")
+    kw = dict(steps=MESH_TRAIN_STEPS, batch=TRAIN_BATCH, seq=seq, seed=TRAIN_SEED,
+              device=dev, log=lambda line: print(f"{label}: {line}", flush=True))
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        _reset_launches()
+        t0 = time.perf_counter()
+        run = T.train(cfg, m=TRAIN_M, mesh=mesh, **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        counts = {k: n for k, n in _launches().items() if n}
+    finally:
+        dist.destroy_process_group()
+    n_leaves = len(tree_leaves(run.params))
+    suffix = "_bf16" if cfg.dtype == "bfloat16" else ""
+    want = {f"trigger_sq{suffix}": n_leaves * MESH_TRAIN_STEPS,
+            f"mix{suffix}": n_leaves * MESH_TRAIN_STEPS}
+    check(counts == want or not on_card,
+          f"{label}: launches {counts}, expected {want} ({n_leaves} leaves)")
+    check(run.setup.mesh is mesh and run.setup.m == TRAIN_M and run.setup.fl.size == 1,
+          f"{label}: the run did not take the mesh form")
+    t0 = time.perf_counter()
+    one = T.train(cfg, m=TRAIN_M, **kw)
+    one_s = time.perf_counter() - t0
+    check(_trees_equal(torch, run.params, one.params)
+          and _trees_equal(torch, run.w_hat, one.w_hat) and run.records == one.records,
+          f"{label}: the mesh step's state or metrics differ from the one-card step's")
+    mesh_ms = run.step_ms
+    del run
+    print(f"{label}: {MESH_TRAIN_STEPS} dense steps through the mesh form (its 4 replicas on "
+          f"the one fl rank, collectives over groups of one) bit-equal to the one-card steps: "
+          f"every leaf of params and w_hat and every record; launches {counts}; "
+          f"step ms mesh {[round(x, 1) for x in mesh_ms]}, one card "
+          f"{[round(x, 1) for x in one.step_ms]}; legs {mesh_s:.1f} s and {one_s:.1f} s "
+          f"(init and steps)")
+    del one
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts
+
+
 @contextlib.contextmanager
 def _plain_slstm():
     """The sLSTM wrapper's launches on the card swapped for the kernels'
@@ -6089,6 +6198,10 @@ def main() -> int:
         launches["slstm_bwd"] = xlstm_train["slstm_bwd"]
         rows["slstm"]["train_xlstm_launches"] = xlstm_train["slstm"]
         lap("phase 20")
+        mesh = phase_mesh(torch, dev)
+        rows["trigger_sq_bf16"]["mesh_launches"] = mesh["trigger_sq_bf16"]
+        rows["mix_bf16"]["mesh_launches"] = mesh["mix_bf16"]
+        lap("phase 21")
         launches["swa_attention"] = simt_launches({
             "serve prefill bf16": (launches["swa_attention_tc"], "swa_tc_kernel", seen_bf16),
             "serve prefill fp32": (launches["swa_attention_tf32"], "swa_tf32_kernel",
@@ -6141,7 +6254,8 @@ def main() -> int:
                                    "serial_floor_ms_design", "sync_loop_ms_design",
                                    "us_per_step", "serve_cpu_launches", "device_ms",
                                    "bound_share", "train_hybrid_launches",
-                                   "train_xlstm_launches", "stack", "fwd_ms", "fwd_save_ms",
+                                   "train_xlstm_launches", "mesh_launches", "stack",
+                                   "fwd_ms", "fwd_save_ms",
                                    "fwd_device_ms", "fwd_save_device_ms", "fwd_us_per_step",
                                    *(f"{k}{suffix}" for suffix in ("_long", "_long_fp32")
                                      for k in SLSTM_BWD_FIELDS),

@@ -8,6 +8,12 @@ Port of ``repro.checkpoint.msgpack_ckpt``, same on-disk format.  Layout:
 * plain tuple -> {"__tuple__": [items...]}
 * None        -> {"__none__": true}
 
+An array of more bytes than a msgpack bin holds (2^32 - 1) has no
+encoding in the reference's format; its ``"data"`` is then a list of bins
+of at most ``BIN_CHUNK`` bytes each, in order (the port's one extension:
+a file whose every array fits a bin is the reference's, byte for byte,
+and the reference reads it).
+
 Tensors go to host numpy one at a time as the file is written
 (``restore`` returns numpy; the caller puts the leaves back on its device,
 byte-exact).  numpy has no bfloat16 without ``ml_dtypes``, so a bf16 leaf
@@ -38,6 +44,10 @@ from typing import Any
 import numpy as np
 import torch
 
+# the most bytes one msgpack bin holds, and the bytes of each bin of a
+# larger array's list
+BIN_MAX = 0xFFFFFFFF
+BIN_CHUNK = 1 << 31
 
 # ---------------------------------------------------------------------------
 # the msgpack subset
@@ -218,8 +228,20 @@ def _tree_encode(obj, lazy: bool = False):
     def enc(v):
         return _tree_encode(v, lazy)
 
-    def data(arr):
+    def one(arr):
         return _Raw(arr) if lazy else _Raw(arr).buffer().tobytes()
+
+    def data(arr):
+        """One bin, or a list of bins past ``BIN_MAX`` bytes (flat slices
+        of ``arr``, each taken to the host only when it is written)."""
+        if isinstance(arr, torch.Tensor):
+            size, flat = arr.element_size(), arr.reshape(-1)
+        else:
+            size, flat = arr.itemsize, np.ascontiguousarray(arr).reshape(-1)
+        if flat.shape[0] * size <= BIN_MAX:
+            return one(arr)
+        step = BIN_CHUNK // size
+        return [one(flat[a:a + step]) for a in range(0, flat.shape[0], step)]
 
     if isinstance(obj, torch.Tensor):
         # numpy's name of the dtype; a bf16 tensor's raw 2-byte words are
@@ -264,11 +286,18 @@ def _nt_class(qualname: str):
 def _tree_decode(obj):
     if isinstance(obj, dict):
         if "__nd__" in obj:
-            if obj["dtype"] == "bfloat16":
-                raw = np.frombuffer(obj["data"], dtype=np.int16).reshape(obj["__nd__"])
-                return torch.from_numpy(raw.copy()).view(torch.bfloat16)
-            return (np.frombuffer(obj["data"], dtype=np.dtype(obj["dtype"]))
-                    .reshape(obj["__nd__"]).copy())
+            bf16 = obj["dtype"] == "bfloat16"
+            dtype = np.dtype(np.int16 if bf16 else obj["dtype"])
+            if isinstance(obj["data"], list):  # an array past one bin, in chunks
+                raw = np.empty(sum(len(c) for c in obj["data"]), np.uint8)
+                at = 0
+                for chunk in obj["data"]:
+                    raw[at:at + len(chunk)] = np.frombuffer(chunk, np.uint8)
+                    at += len(chunk)
+                arr = raw.view(dtype).reshape(obj["__nd__"])
+            else:
+                arr = np.frombuffer(obj["data"], dtype=dtype).reshape(obj["__nd__"]).copy()
+            return torch.from_numpy(arr).view(torch.bfloat16) if bf16 else arr
         if "__none__" in obj:
             return None
         if "__nt__" in obj:

@@ -2,12 +2,15 @@
 
 ``get_config(arch_id)`` returns the full-size ArchConfig; ``smoke_config``
 returns the reduced same-family variant (<= 2 layers, d_model 128) the
-CPU tests use.  The port runs starcoder2-15b, granite-moe-3b-a800m,
-deepseek-v3-671b, hymba-1.5b, xlstm-125m, paligemma-3b, hubert-xlarge,
-deepseek-coder-33b and phi3-medium-14b; on the card every block type
-trains, xLSTM's sLSTM through its backward kernel (``kernels.slstm.ops``'s
-``SLSTMScan``).  qwen2-72b, whose weights need more than one card, raises
-``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports it.
+CPU tests use.  The port runs all ten of the JAX package's architectures:
+starcoder2-15b, granite-moe-3b-a800m, deepseek-v3-671b, hymba-1.5b,
+xlstm-125m, paligemma-3b, hubert-xlarge, deepseek-coder-33b,
+phi3-medium-14b and qwen2-72b; on the card every block type trains,
+xLSTM's sLSTM through its backward kernel (``kernels.slstm.ops``'s
+``SLSTMScan``).  qwen2-72b's 145.4 GB of bf16 weights need several cards:
+it runs over a device mesh's ``model`` axis (``models/sharding.py``), as
+do the other dense attention configs; every architecture runs over a
+mesh's ``data`` axis in replica mode.
 """
 from __future__ import annotations
 
@@ -26,13 +29,11 @@ _MODULES = {
     "hubert-xlarge": "hubert_xlarge",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "phi3-medium-14b": "phi3_medium_14b",
+    "qwen2-72b": "qwen2_72b",
 }
 
 # architectures of the JAX package not ported yet -> their ROADMAP item
-_NOT_PORTED = {
-    # 145.4 GB of bf16 weights: more than one card holds
-    "qwen2-72b": "item 19 (sharding across cards)",
-}
+_NOT_PORTED: dict[str, str] = {}
 
 ARCH_IDS: list[str] = list(_MODULES)
 
@@ -60,6 +61,7 @@ _SMOKE_PLANS = {
     "hubert-xlarge": ((("attn",), 2),),
     "deepseek-coder-33b": ((("attn",), 2),),
     "phi3-medium-14b": ((("attn",), 2),),
+    "qwen2-72b": ((("attn",), 2),),
 }
 
 

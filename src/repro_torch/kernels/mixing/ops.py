@@ -11,7 +11,8 @@ entries, one cell, W's dtype out; any other dtype raises.  The
 gather-mix's row-group plans live here (``prepare_plan``), a few, each for
 the neighbor table it was built from, whatever the number of cells; the
 bf16 entry needs none.  ``mix_tree`` and ``mix_sparse_tree`` apply them
-leaf by leaf over a stacked parameter tree, each leaf as (m, -1) rows."""
+leaf by leaf over a stacked parameter tree, each leaf as (m, -1) rows,
+an fp32 leaf wider than the fp32 kernels' grids in column slabs."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -31,6 +32,9 @@ LAUNCHES = {"mix": 0, "mix_sparse": 0, "mix_sparse_wide": 0, "mix_sparse_direct"
 PLAN_BUILDS = 0
 
 _MAX_GRID_Y = 65535
+# columns of an fp32 leaf that ``mix_tree`` / ``mix_sparse_tree`` hand one
+# launch at most: the fp32 kernels' grids cover 65535 x 128 columns
+FP32_SLAB = 1 << 22
 _MAX_CELLS = 65535  # the kernels' cell axis is a grid axis
 
 # the gather-mix's plans of the last few tables, least recently used first,
@@ -149,16 +153,34 @@ def _table_range(nbr_idx: torch.Tensor) -> tuple[int, int]:
     return hit[1], hit[2]
 
 
+def slabs(rows: torch.Tensor) -> list[slice]:
+    """The column slabs ``mix_tree`` / ``mix_sparse_tree`` mix (m, D) rows
+    in, a launch each: all of D, or an fp32 D wider than ``FP32_SLAB`` in
+    slabs of at most that (the bf16 entries take any width)."""
+    n = rows.shape[-1]
+    if rows.dtype != torch.float32 or n <= FP32_SLAB:
+        return [slice(0, n)]
+    return [slice(c, min(c + FP32_SLAB, n)) for c in range(0, n, FP32_SLAB)]
+
+
 def _tree(mix_rows, tree, out):
-    """``mix_rows`` over each leaf as (m, -1) rows; with ``out`` (a tree of
-    the same structure, ``tree`` itself allowed) each mixed leaf is copied
-    into its place as soon as it exists, so one leaf's result is live at a
-    time, and ``out`` is returned."""
+    """``mix_rows`` over each leaf as (m, -1) rows, a slab of columns at a
+    time (``slabs``); with ``out`` (a tree of the same structure, ``tree``
+    itself allowed) each mixed leaf or slab is copied into its place as
+    soon as it exists, so one leaf's result is live at a time, and ``out``
+    is returned."""
     def one(leaf, *dst):
-        mixed = mix_rows(leaf.reshape(leaf.shape[0], -1)).reshape(leaf.shape)
-        if not dst:
-            return mixed
-        return dst[0].copy_(mixed)
+        rows = leaf.reshape(leaf.shape[0], -1)
+        cols = slabs(rows)
+        if len(cols) == 1:
+            mixed = mix_rows(rows).reshape(leaf.shape)
+            return dst[0].copy_(mixed) if dst else mixed
+        # columns mix apart: each slab is read before it is overwritten
+        target = dst[0] if dst else torch.empty_like(leaf)
+        flat = target.view(target.shape[0], -1)
+        for c in cols:
+            flat[:, c].copy_(mix_rows(rows[:, c].contiguous()))
+        return target
 
     return tree_map(one, tree) if out is None else tree_map(one, tree, out)
 

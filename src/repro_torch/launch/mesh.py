@@ -1,5 +1,17 @@
-"""The sharded fleet engine's shard group: the counterpart of
-``repro.launch.mesh.make_fleet_mesh``.
+"""Device meshes: the architecture models' ``make_host_mesh`` /
+``make_production_mesh`` (the counterparts of ``repro.launch.mesh``'s), and
+the sharded fleet engine's shard group (``make_fleet_mesh``'s).
+
+A ``Mesh`` lays the ranks of ``torch.distributed``'s default group over
+named axes ("data", "model") or ("pod", "data", "model"), row-major as
+``jax.make_mesh`` lays devices: rank = (pod * |data| + data) * |model| +
+model.  It is built over ``torch.distributed.device_mesh.init_device_mesh``
+(gloo on the CPU, NCCL on the cards, one card a rank: ``cuda:LOCAL_RANK``,
+as ``ShardGroup.device`` places it) and gives each axis, and the fl axes
+("pod", "data") together, as a ``models.sharding.AxisGroup``.  A world
+whose size is not the mesh's product raises.  Without
+``torch.distributed`` only a mesh of one rank exists, and its collectives
+are no-ops.
 
 The reference lays its S shards over a 1-D ``fl`` device mesh and runs the
 step inside ``shard_map``, one shard a device.  Here a process holds L
@@ -21,9 +33,95 @@ order on every rank, so a run gives the same bits at every world size.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
+
+from repro_torch.models.sharding import AxisGroup
+
+
+class Mesh:
+    """Named mesh axes over the ranks, and this rank's place on them."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
+                 rank: int = 0, device_mesh: Any = None, groups: dict | None = None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.size = int(np.prod(shape))
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(rank, tuple(shape)))))
+        self.device_mesh = device_mesh
+        self._groups = groups or {}
+
+    def axis(self, axes) -> AxisGroup:
+        """The axis (or tuple of axes, flattened row-major) as this rank's
+        ``AxisGroup``."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        size = int(np.prod([self.shape[a] for a in names])) if names else 1
+        index = 0
+        for a in names:
+            index = index * self.shape[a] + self.coords[a]
+        return AxisGroup(size, index, self._groups.get(names) if size > 1 else None)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank {self.rank}, coords {self.coords})"
+
+
+def _mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
+    import torch.distributed as dist
+
+    size = int(np.prod(shape))
+    if not (dist.is_available() and dist.is_initialized()):
+        if size != 1:
+            raise ValueError(
+                f"a mesh of shape {dict(zip(axes, shape))} needs {size} ranks, but "
+                f"torch.distributed is not initialized (a world of 1): launch {size} "
+                f"ranks (torchrun --nproc-per-node {size}) and init the process group")
+        return Mesh(shape, axes)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != size:
+        raise ValueError(
+            f"a mesh of shape {dict(zip(axes, shape))} needs {size} ranks, but the "
+            f"process group has {world}: launch a world of their product")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    on_card = dist.get_backend() == "nccl"
+    if on_card:
+        ShardGroup(1, world, rank, True).device(torch.device("cuda"))
+    dm = init_device_mesh("cuda" if on_card else "cpu", tuple(shape), mesh_dim_names=axes)
+    groups = {(a,): dm.get_group(a) for a in axes}
+    groups[tuple(axes)] = dist.group.WORLD  # every rank, in rank order
+    ids = np.arange(size).reshape(shape)
+    # the fl axes ("pod", "data") as one group: every rank makes every
+    # such group, in the same order
+    for pair in (("pod", "data"),):
+        if all(a in axes for a in pair):
+            keep = [axes.index(a) for a in pair]
+            rest = [i for i in range(len(axes)) if i not in keep]
+            flat = np.moveaxis(ids, keep + rest, list(range(len(axes)))).reshape(
+                int(np.prod([shape[i] for i in keep])), -1)
+            for col in range(flat.shape[1]):
+                ranks = [int(r) for r in flat[:, col]]
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[pair] = g
+    return Mesh(shape, axes, rank, dm, groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes)
+
+
+def make_host_mesh(*, data: int = 2, model: int = 2, pods: int = 0) -> Mesh:
+    """A (data, model) mesh, or (pods, data, model) with ``pods``, over the
+    ranks of the default process group."""
+    if pods:
+        return _mesh((pods, data, model), ("pod", "data", "model"))
+    return _mesh((data, model), ("data", "model"))
 
 
 class ShardGroup(NamedTuple):

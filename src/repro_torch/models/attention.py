@@ -5,6 +5,16 @@ layers), and MLA (multi-head latent attention, deepseek-v3) with
 absorbed-matrix decode.  Port of ``repro/models/attention.py``.
 
 Shapes: x (B, S, D); q (B, S, H, dh); k/v (B, S, G, dh) with G = n_kv_heads.
+
+Under ``sharding.tensor_parallel`` a rank holds the heads of its block
+of ``wq`` (and ``bq``, ``wo``), H / model of them from ``index * H /
+model``, and attention runs over them alone: ``wq``, ``wk``, ``wv`` and
+their biases column-parallel, ``wo`` row-parallel and its partial
+outputs summed over the model axis.  Where the KV heads stay whole (G not
+divisible by the axis, as the reference's specs leave them), every rank
+computes all G groups (their gradients summed over the axis) and its
+q heads read the groups they belong to by their global index, ``h //
+(H / G)``.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.swa import ops as swa_ops
+from repro_torch.models import sharding as S
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import apply_rope, dense_init, split_keys
 
@@ -39,17 +50,66 @@ def init_attention(cfg: ArchConfig, gen, dtype, device="cpu"):
     return p
 
 
+def _heads_axis(cfg: ArchConfig, p):
+    """The running model axis when this attention's heads are split over
+    it, else None."""
+    ax = S.model_axis()
+    return ax if ax is not None and p["wq"].shape[1] != cfg.n_heads else None
+
+
+def _kv_whole(cfg: ArchConfig, p) -> bool:
+    return p["wk"].shape[1] == cfg.n_kv_heads
+
+
 def _qkv(cfg: ArchConfig, p, x, positions):
+    ax = _heads_axis(cfg, p)
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    if ax is not None:
+        x = S.copy_to_model(x, ax)
+        if _kv_whole(cfg, p):  # every rank uses part of the whole KV weights
+            wk, wv = S.copy_to_model(wk, ax), S.copy_to_model(wv, ax)
+            if bk is not None:
+                bk, bv = S.copy_to_model(bk, ax), S.copy_to_model(bv, ax)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
-    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
+    k = torch.einsum("bsd,dgk->bsgk", x, wk)
+    v = torch.einsum("bsd,dgk->bsgk", x, wv)
     if "bq" in p:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + bk
+        v = v + bv
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_groups(cfg: ArchConfig, p, k, v):
+    """k, v (B, S, G', dh) cut to the groups this rank's q heads read, in
+    the GQA layout (consecutive q heads a group): with the heads split and
+    the KV heads whole, local head i (global ``h0 + i``) reads group ``(h0
+    + i) // (H / G)``; otherwise k, v as they are."""
+    ax = _heads_axis(cfg, p)
+    if ax is None or not _kv_whole(cfg, p):
+        return k, v
+    h_loc = p["wq"].shape[1]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    h0 = ax.index * h_loc
+    if h0 % rep == 0 and h_loc % rep == 0:  # whole groups
+        sel = slice(h0 // rep, (h0 + h_loc) // rep)
+        return k[:, :, sel], v[:, :, sel]
+    if h0 // rep == (h0 + h_loc - 1) // rep:  # part of one group
+        sel = slice(h0 // rep, h0 // rep + 1)
+        return k[:, :, sel], v[:, :, sel]
+    idx = torch.div(torch.arange(h0, h0 + h_loc, device=k.device), rep,
+                    rounding_mode="floor")  # a group a head
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out_proj(cfg: ArchConfig, p, out):
+    """The output projection; with the heads split, the ranks' partial
+    outputs summed over the model axis."""
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    ax = _heads_axis(cfg, p)
+    return y if ax is None else S.reduce_from_model(y, ax)
 
 
 def _mask(
@@ -169,6 +229,7 @@ def attention_seq(
     (no window, S <= window, S % window != 0, a prefix or no causal mask),
     as the reference does."""
     q, k, v = _qkv(cfg, p, x, positions[None])
+    k, v = _local_groups(cfg, p, k, v)
     s = x.shape[1]
     impl = cfg.attn_impl
     if impl == "auto":
@@ -196,7 +257,7 @@ def attention_seq(
         mask = _mask(positions, positions, causal=cfg.causal, window=layer_window,
                      prefix_len=prefix_len)
         out = _sdpa(cfg, q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _out_proj(cfg, p, out)
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +322,7 @@ def attention_decode(
     cache.v[:, slot] = v_new[:, 0]
     cache.pos[slot] = t
     k, v, pos = cache
+    k, v = _local_groups(cfg, p, k, v)
 
     valid = pos >= 0
     if layer_window is not None:
@@ -275,8 +337,7 @@ def attention_decode(
     scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,btgk->bsgrk", probs.to(v.dtype), v).reshape(b, 1, h, dh)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, cache
+    return _out_proj(cfg, p, out), cache
 
 
 # ---------------------------------------------------------------------------

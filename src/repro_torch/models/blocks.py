@@ -9,6 +9,10 @@ hymba's ``hybrid`` / ``hybrid_g`` (attention and Mamba heads on the same
 normed input, averaged, + dense MLP), and xLSTM's ``mlstm`` and ``slstm``
 (the recurrent core on the normed input + the residual; the core carries
 its own projections, so no second norm and no FFN).
+
+Under ``sharding.tensor_parallel`` (a mesh ``model`` axis over 1) the
+``attn`` and ``attn_g`` blocks run tensor-parallel; every other block type
+raises, naming the ROADMAP item that lays it out (19b).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding as S
 from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp, init_norm,
@@ -32,9 +37,14 @@ _XLSTM = {
 }
 
 
+_TENSOR_PARALLEL = ("attn", "attn_g")  # the block types laid over a model axis
+
+
 def _check_known(block_type: str) -> None:
     if block_type not in _BLOCK_TYPES:
         raise ValueError(f"unknown block type {block_type!r}")
+    if S.model_axis() is not None and block_type not in _TENSOR_PARALLEL:
+        S.refuse(f"block type {block_type!r}")
 
 
 def block_window(cfg: ArchConfig, block_type: str) -> Optional[int]:

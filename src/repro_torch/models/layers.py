@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.models import sharding as S
 from repro_torch.models.common import ArchConfig
 
 
@@ -120,12 +121,33 @@ def init_mlp(cfg: ArchConfig, gen, d_in: int, d_ff: int, dtype, device="cpu"):
 
 
 def apply_mlp(cfg: ArchConfig, p, x):
+    """The MLP.  Under ``sharding.tensor_parallel`` its leaves are split as
+    the reference's ``param_specs`` split them: the first rule that
+    matches a dense ``ffn/w_in`` / ``w_gate`` is the MoE experts' (expert,
+    embed, None), so they split by d_model rows, and ``w_out`` by d_ff
+    rows.  A rank's block of x's d_model columns times its rows of
+    ``w_in`` is a partial of the hidden layer, summed over the axis into
+    its d_ff block (``sum_scatter``); its block times its ``w_out`` rows is
+    a partial of the output, summed over the axis.  A leaf left whole (a
+    dim the axis does not divide) runs whole on every rank."""
+    ax = S.model_axis()
+    rows_in = ax is not None and p["w_in"].shape[0] != x.shape[-1]
+    rows_out = ax is not None and p["w_out"].shape[0] != p["w_in"].shape[1]
+    if rows_in:
+        x = S.take_block(x, -1, ax)
     h = x @ p["w_in"]
-    if "w_gate" in p:
-        h = act_fn(cfg.act, x @ p["w_gate"]) * h
-    else:
-        h = act_fn(cfg.act, h)
-    return h @ p["w_out"]
+    g = x @ p["w_gate"] if "w_gate" in p else None
+    if rows_in:  # partials of the whole hidden layer
+        def total(t):
+            return S.sum_scatter(t, -1, ax) if rows_out else S.reduce_from_model(t, ax)
+        h = total(h)
+        g = None if g is None else total(g)
+    elif rows_out:  # the whole hidden layer on every rank: take this rank's block
+        h = S.take_block(h, -1, ax)
+        g = None if g is None else S.take_block(g, -1, ax)
+    h = act_fn(cfg.act, g) * h if g is not None else act_fn(cfg.act, h)
+    out = h @ p["w_out"]
+    return S.reduce_from_model(out, ax) if rows_out else out
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +186,22 @@ def init_embed(cfg: ArchConfig, gen, dtype, device="cpu"):
     return p
 
 
-def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+def embed_tokens(p, tokens: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
+    """The rows of ``tokens``.  Under ``sharding.tensor_parallel`` with the
+    table split by vocab (``vocab`` the whole table's rows), each rank looks
+    up the ids in its block and zeros the rest, and the sum over the model
+    axis puts every row back: one nonzero among zeros, the same bits."""
+    ax = S.model_axis()
+    tok = p["tok"]
+    if ax is None or vocab is None or tok.shape[0] == vocab:
+        return tok[tokens]
+    v0 = ax.index * tok.shape[0]
+    local = tokens - v0
+    inside = (local >= 0) & (local < tok.shape[0])
+    rows = tok[torch.where(inside, local, 0)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return S.reduce_from_model(rows, ax)
 
 
 def init_head(cfg: ArchConfig, gen, dtype, device="cpu"):
@@ -174,7 +210,18 @@ def init_head(cfg: ArchConfig, gen, dtype, device="cpu"):
     return {"w": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, dtype, device)}
 
 
+def head_split(cfg: ArchConfig, head_p, embed_p) -> bool:
+    """Whether the head's vocab is split over the running model axis."""
+    w = embed_p["tok"].shape[0] if cfg.tie_embeddings else head_p["w"].shape[1]
+    return S.model_axis() is not None and w != cfg.vocab
+
+
 def apply_head(cfg: ArchConfig, head_p, embed_p, x) -> torch.Tensor:
+    """Logits; with the vocab split over the model axis (``head_split``),
+    this rank's block of them (the ``vocab / model`` columns from
+    ``index * vocab / model``)."""
+    if head_split(cfg, head_p, embed_p):
+        x = S.copy_to_model(x, S.model_axis())
     if cfg.tie_embeddings:
         return x @ embed_p["tok"].T
     return x @ head_p["w"]

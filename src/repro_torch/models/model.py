@@ -25,6 +25,15 @@ is still a forward under autograd, so the sLSTM and selective-scan kernels'
 saving variants run in it too (what they save is dropped with the rest of
 the layer's activations): two saving launches and one backward launch a
 layer and step.
+
+Over a device mesh (``models/sharding.py``) a rank holds its block of each
+leaf: ``init_params(..., shard=...)`` draws each leaf as the one-card init
+draws it and keeps the rank's block; under ``sharding.tensor_parallel`` the
+forward, the loss and the decode run the tensor-parallel ``attn`` blocks,
+the vocab-split embedding and head, ``forward`` and ``decode_step``
+gather the logits over the model axis, and ``loss_fn`` takes a
+vocab-parallel log-sum-exp instead (qwen2-72b's fp32 logits at S=8192 are
+5.0 GB a sequence whole).
 """
 from __future__ import annotations
 
@@ -36,10 +45,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng, resolve_device
 from repro_torch.models import blocks
+from repro_torch.models import sharding as S
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_head, apply_norm, dense_init,
-                                       embed_tokens, init_embed, init_head,
-                                       init_norm, is_key, split_keys, torch_dtype)
+                                       embed_tokens, head_split, init_embed,
+                                       init_head, init_norm, is_key, split_keys,
+                                       torch_dtype)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -52,15 +63,23 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
-                device="cuda") -> dict:
+                device="cuda", *, shard=None) -> dict:
     """Random parameters drawn from ``generator`` (on its own device) into
     tensors on ``device``.  A stage's stacked leaves are filled one layer
     slice at a time, so no draw is larger than one layer's biggest weight.
     On the ``meta`` device nothing is drawn or allocated.
 
+    ``shard``: ``(path, tensor) -> this rank's block`` (``sharding.
+    layer_slicer``).  Each leaf is then drawn whole as above, in the same
+    order from the same generator, its block kept and the rest freed: the
+    blocks of the one-card weights, with at most one layer's leaf whole at
+    a time.
+
     ``generator`` may instead be a ``repro_torch.prng`` key: the draws are
     then the reference's ``init_params(cfg, key)``, bit for bit."""
     if generator is not None and is_key(generator):
+        if shard is not None:
+            raise ValueError("init_params takes shard= with a torch.Generator only")
         return _init_params_key(cfg, generator, resolve_device(device))
     dtype = _dtype(cfg)
     meta = torch.device(device).type == "meta"
@@ -68,26 +87,38 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
         device = resolve_device(device)
         if generator is None:
             raise ValueError("init_params draws from a torch.Generator; pass one")
+    if shard is None:
+        def keep(_, t):
+            return t
+    else:
+        keep = shard
+
+    def whole(name: str, tree):
+        return S.tree_map_with_path(keep, tree, name)
+
     params: dict[str, Any] = {
-        "embed": init_embed(cfg, generator, dtype, device),
-        "final_norm": init_norm(cfg, cfg.d_model, dtype, device),
-        "head": init_head(cfg, generator, dtype, device),
+        "embed": whole("embed", init_embed(cfg, generator, dtype, device)),
+        "final_norm": whole("final_norm", init_norm(cfg, cfg.d_model, dtype, device)),
+        "head": whole("head", init_head(cfg, generator, dtype, device)),
         "stages": [],
     }
-    for cycle, repeat in cfg.layer_plan:
+    for si, (cycle, repeat) in enumerate(cfg.layer_plan):
         stage = {}
         for bi, bt in enumerate(cycle):
-            shapes = blocks.init_block(cfg, bt, None, dtype, "meta")
+            name = f"stages/{si}/{bi}_{bt}"
+            shapes = S.tree_map_with_path(keep, blocks.init_block(cfg, bt, None, dtype, "meta"),
+                                          name)
             stacked = tree_map(lambda t: torch.empty((repeat, *t.shape), dtype=t.dtype,
                                                      device=device), shapes)
             for r in range(0 if meta else repeat):
-                layer = blocks.init_block(cfg, bt, generator, dtype, device)
+                layer = S.tree_map_with_path(
+                    keep, blocks.init_block(cfg, bt, generator, dtype, device), name)
                 tree_map(lambda dst, src: dst[r].copy_(src), stacked, layer)
                 del layer
             stage[f"{bi}_{bt}"] = stacked
         params["stages"].append(stage)
     if cfg.mtp:
-        params["mtp"] = _init_mtp(cfg, generator, generator, dtype, device)
+        params["mtp"] = whole("mtp", _init_mtp(cfg, generator, generator, dtype, device))
     return params
 
 
@@ -181,17 +212,19 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
         fe = (batch["frontend"].float() @ proj.float()).to(_dtype(cfg))
         if cfg.frontend.kind == "vision":
             # image patches prefix + text suffix; tokens hold the text part
-            x = torch.cat([fe, embed_tokens(params["embed"], batch["tokens"])], dim=1)
+            x = torch.cat([fe, embed_tokens(params["embed"], batch["tokens"], cfg.vocab)],
+                          dim=1)
             return x, torch.arange(x.shape[1], device=x.device), cfg.frontend.tokens
         # audio: frames *are* the sequence
         return fe, torch.arange(fe.shape[1], device=fe.device), None
-    x = embed_tokens(params["embed"], batch["tokens"])
+    x = embed_tokens(params["embed"], batch["tokens"], cfg.vocab)
     return x, torch.arange(x.shape[1], device=x.device), None
 
 
 def _forward(cfg: ArchConfig, params, batch):
     """(logits (B,S,V), aux_loss, the backbone's output h, positions); a
-    vision model's logits cover the text suffix only."""
+    vision model's logits cover the text suffix only.  With the head's
+    vocab split over the model axis, this rank's block of the logits."""
     x, positions, prefix_len = _embed_inputs(cfg, params, batch)
     h, aux = backbone_seq(cfg, params, x, positions, prefix_len)
     h_text = h
@@ -201,19 +234,42 @@ def _forward(cfg: ArchConfig, params, batch):
     return logits, aux, h, positions
 
 
+def _whole_logits(cfg: ArchConfig, params, logits):
+    """The logits whole: a rank's vocab block gathered over the model axis."""
+    if head_split(cfg, params["head"], params["embed"]):
+        return S.gather_along(logits, -1, S.model_axis())
+    return logits
+
+
 def forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
     logits, aux, _, _ = _forward(cfg, params, batch)
-    return logits, aux
+    return _whole_logits(cfg, params, logits), aux
 
 
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
 
-def _xent(logits, targets, mask):
-    logp = F.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+def _xent(logits, targets, mask, split: bool = False):
+    """Mean cross-entropy of the unmasked positions; with ``split`` the
+    logits are this rank's vocab block, and the log-sum-exp and the
+    targets' logits are summed over the model axis (the max by which the
+    exponents are shifted is taken over it too, out of the gradient: it
+    cancels)."""
+    if not split:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    ax = S.model_axis()
+    z = logits.float()
+    z = z - ax.max(z.detach().amax(-1))[..., None]
+    lse = torch.log(S.reduce_from_model(torch.exp(z).sum(-1), ax))
+    local = targets.long() - ax.index * z.shape[-1]
+    inside = (local >= 0) & (local < z.shape[-1])
+    picked = torch.gather(z, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    picked = S.reduce_from_model(torch.where(inside, picked, 0.0), ax)
+    ll = picked - lse
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -228,7 +284,8 @@ def loss_fn(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, dict]:
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
-    loss = _xent(logits, targets, mask)
+    split = head_split(cfg, params["head"], params["embed"])
+    loss = _xent(logits, targets, mask, split)
     metrics = {"ce": loss, "aux": aux}
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux
@@ -246,31 +303,48 @@ def _mtp_loss(cfg: ArchConfig, params, batch, h, positions, mask):
     tokens, targets = batch["tokens"], batch["targets"]
     p = params["mtp"]
     h_t = apply_norm(cfg, p["norm_h"], h[:, :-1])
-    e_next = apply_norm(cfg, p["norm_e"], embed_tokens(params["embed"], tokens[:, 1:]))
+    e_next = apply_norm(cfg, p["norm_e"], embed_tokens(params["embed"], tokens[:, 1:],
+                                                       cfg.vocab))
     z = torch.cat([h_t, e_next], dim=-1) @ p["proj"]
     z, _ = blocks.block_seq(cfg, "attn", p["block"], z, positions[:-1])
     logits = apply_head(cfg, params["head"], params["embed"], z)
     # predict targets shifted one further (t+2 = targets[t+1])
-    return _xent(logits[:, :-1], targets[:, 2:], mask[:, 2:])
+    return _xent(logits[:, :-1], targets[:, 2:], mask[:, 2:],
+                 head_split(cfg, params["head"], params["embed"]))
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda", *,
+               mesh=None):
     """Empty KV (or MLA latent) caches, Mamba caches for hybrid blocks and
     xLSTM states for mLSTM and sLSTM blocks, one stacked (repeat, ...) tree
-    per stage."""
-    device = resolve_device(device)
+    per stage.  On the ``meta`` device, the shapes alone.  With ``mesh``,
+    this rank's block of the caches of a ``batch``-row decode
+    (``sharding.local_cache_specs``: the batch over the data axes, the KV
+    heads over ``model``)."""
+    meta = torch.device(device).type == "meta"
+    if not meta:
+        device = resolve_device(device)
     dtype = _dtype(cfg)
+    if mesh is not None:
+        shapes = init_cache(cfg, batch, cache_len, "meta")
+        local = S.shard_tree(shapes, S.local_cache_specs(shapes, mesh), mesh)
+        # each leaf starts at one value (0, -1 or -1e30): a one-slot cache's
+        fill = tree_leaves(init_cache(cfg, 1, 1, "cpu"))
+        return tree_unflatten(local, [
+            torch.full(t.shape, f.reshape(-1)[0].item(), dtype=t.dtype, device=device)
+            for t, f in zip(tree_leaves(local), fill, strict=True)])
     caches = []
     for (cycle, repeat) in cfg.layer_plan:
         stage = {}
         for bi, bt in enumerate(cycle):
             one = blocks.init_block_cache(cfg, bt, batch, cache_len, dtype, device)
             stage[f"{bi}_{bt}"] = tree_map(
-                lambda c: c[None].repeat(repeat, *([1] * c.dim())), one)
+                lambda c: c[None].repeat(repeat, *([1] * c.dim())) if not meta
+                else c[None].expand(repeat, *c.shape), one)
         caches.append(stage)
     return caches
 
@@ -279,7 +353,7 @@ def decode_step(cfg: ArchConfig, params, caches, token_t: torch.Tensor, t: int):
     """One-token decode.  token_t (B,) ids; t the absolute position.
     Returns (logits (B,V), caches); the caches are updated in place and
     returned."""
-    x = embed_tokens(params["embed"], token_t[:, None])
+    x = embed_tokens(params["embed"], token_t[:, None], cfg.vocab)
     for (cycle, repeat), stage_params, stage_cache in zip(
             cfg.layer_plan, params["stages"], caches):
         for r in range(repeat):
@@ -290,7 +364,7 @@ def decode_step(cfg: ArchConfig, params, caches, token_t: torch.Tensor, t: int):
                 x, _ = blocks.block_decode(cfg, bt, layer_p, x, layer_c, t)
     h = apply_norm(cfg, params["final_norm"], x)
     logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
-    return logits, caches
+    return _whole_logits(cfg, params, logits), caches
 
 
 def prefill(cfg: ArchConfig, params, batch):

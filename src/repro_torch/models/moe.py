@@ -10,9 +10,10 @@ Implementations, by ``cfg.moe.impl``:
   combine einsums;
 * ``dense`` — every expert on every token, then weighted-combined: the
   smoke configurations' and the tests' oracle;
-* ``shard_map`` — the reference's expert-parallel form needs a device mesh
-  (ROADMAP Queue 1 item 19); without one the reference falls through to
-  ``scatter``, and so does the port.
+* ``shard_map`` — the reference's expert-parallel form over the mesh's
+  ``model`` axis (ROADMAP Queue 1 item 19b).  Without a model axis the
+  reference falls through to ``scatter``, and so does the port; over a
+  ``model`` axis of more than one rank the port raises.
 
 Router: softmax over the expert logits in fp32 (the router weight is fp32
 whatever the model's dtype), top-k, the selected probabilities
@@ -43,14 +44,18 @@ The reference reads two ``REPRO_VARIANT`` knobs here: ``moe_groups`` (the
 tokens a scatter group aims at, default 8192) and ``moe_bf16`` (bf16
 combine accumulation, default off).  The port takes their defaults
 (``MOE_GROUPS``, fp32 accumulation); the knobs come with ``variants.py``,
-ROADMAP Queue 1 item 10.  The reference's sharding constraints are no-ops
-without a mesh and are dropped.
+ROADMAP Queue 1 item 10.  The reference's sharding constraints only tell
+XLA where to place activations and are dropped: the port's MoE runs on a
+mesh in replica mode (model = 1) only, and a MoE block under a ``model``
+axis of more than one rank raises (``blocks._check_known``, ROADMAP Queue 1
+item 19b).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as S
 from repro_torch.models.common import ArchConfig, MoEConfig
 from repro_torch.models.layers import act_fn, dense_init, split_keys
 
@@ -130,7 +135,9 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
         combine = torch.zeros((b * s, m.n_experts), dtype=torch.float32,
                               device=x.device).scatter_add(1, top_idx, top_vals)
         out = torch.einsum("te,etd->td", combine.to(x.dtype), all_out)
-    elif m.impl in ("scatter", "shard_map"):  # shard_map: no mesh, as scatter
+    elif m.impl in ("scatter", "shard_map"):  # shard_map: no model axis, as scatter
+        if S.model_axis() is not None:
+            S.refuse("the expert-parallel MoE (impl='shard_map')")
         out = _scatter_moe(cfg, p, xt, top_vals, top_idx)
     else:
         out = _dispatch_moe(cfg, p, xt, top_vals, top_idx)

@@ -37,9 +37,9 @@ ARCH = "starcoder2-15b"
 # test_torch_moe.py, test_torch_mla.py, test_torch_ssm.py, test_torch_xlstm.py
 # and test_torch_frontends.py
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b")
-# deepseek-coder-33b and phi3-medium-14b: full-attention stacks of the blocks
-# ARCH has (their forward, decode and init bits are below)
-DENSE_ARCHS = ("deepseek-coder-33b", "phi3-medium-14b")
+# deepseek-coder-33b, phi3-medium-14b and qwen2-72b: full-attention stacks of
+# the blocks ARCH has (their forward, decode and init bits are below)
+DENSE_ARCHS = ("deepseek-coder-33b", "phi3-medium-14b", "qwen2-72b")
 OTHER_ARCHS = (*MOE_ARCHS, "hymba-1.5b", "xlstm-125m", "paligemma-3b", "hubert-xlarge",
                *DENSE_ARCHS)
 TOL = 1e-4  # fp32 logits: the same products, summed in another order
@@ -87,9 +87,14 @@ def test_configs_equal_reference(arch, make):
     assert tcommon.supported_shapes(got) == jcommon.supported_shapes(want)
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if a != ARCH and a not in OTHER_ARCHS])
-def test_unported_configs_raise_not_implemented(arch):
+@pytest.mark.parametrize("arch", ["qwen2-72b"])
+def test_unported_configs_raise_not_implemented(arch, monkeypatch):
+    """Every architecture of the reference is ported (qwen2-72b, the last,
+    with the device mesh); an entry of ``_NOT_PORTED`` still raises, naming
+    its ROADMAP item."""
+    assert [a for a in jconfigs.ARCH_IDS if a != ARCH and a not in OTHER_ARCHS] == []
+    assert tconfigs.get_config(arch).name == arch and not tconfigs._NOT_PORTED
+    monkeypatch.setitem(tconfigs._NOT_PORTED, arch, "item 19b")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 19"):
         tconfigs.get_config(arch)
 
@@ -122,9 +127,9 @@ def test_full_param_tree_matches_reference_shapes_unallocated():
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_dense_full_param_tree_matches_reference_shapes_unallocated(arch):
     """The full configuration's tree on the meta device (nothing allocated)
-    against ``jax.eval_shape``'s: 33342991360 and 14659507200 parameters
-    (66.7 GB and 29.3 GB in bf16; the analytic count leaves out the final
-    norm's scale)."""
+    against ``jax.eval_shape``'s: 33342991360, 14659507200 and 72706203648
+    parameters (66.7 GB, 29.3 GB and 145.4 GB in bf16; the analytic count
+    leaves out the final norm's scale and qwen2's q/k/v biases)."""
     jcfg = jconfigs.get_config(arch)
     want = jax.eval_shape(lambda k: JM.init_params(jcfg, k), jax.random.PRNGKey(0))
     got = TM.init_params(tconfigs.get_config(arch), None, "meta")
@@ -138,8 +143,10 @@ def test_dense_full_param_tree_matches_reference_shapes_unallocated(arch):
         assert tuple(g.shape) == tuple(w.shape), jax.tree_util.keystr(path)
         assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
     n = sum(int(np.prod(w.shape)) for _, w in want_leaves)
-    assert n == {"deepseek-coder-33b": 33342991360, "phi3-medium-14b": 14659507200}[arch]
-    assert n == JM.count_params_analytic(jcfg) + jcfg.d_model
+    assert n == {"deepseek-coder-33b": 33342991360, "phi3-medium-14b": 14659507200,
+                 "qwen2-72b": 72706203648}[arch]
+    bias = jcfg.n_layers * (jcfg.n_heads + 2 * jcfg.n_kv_heads) * jcfg.d_head
+    assert n == JM.count_params_analytic(jcfg) + jcfg.d_model + bias * jcfg.qkv_bias
 
 
 def _bits_equal(got, want, path: str = "") -> None:

@@ -297,6 +297,46 @@ def test_mix_sparse_tree_matches_reference(dtype):
         _close(t, a, dtype)
 
 
+@pytest.mark.parametrize("schedule", ["dense", "neighbor"])
+def test_mix_trees_split_a_wide_fp32_leaf_into_slabs(schedule, monkeypatch):
+    """An fp32 leaf wider than ``FP32_SLAB`` columns (cut to 7 here) is
+    mixed a slab at a time, into a new tree or in place: the reference's
+    values, and the whole leaf's (its bits for the gather-mix, whose sums
+    are a column's own; the CPU's dense plain version is a BLAS product,
+    whose bits hang on the width)."""
+    jw, tw = _tree_pair("float32", 4)
+    adj, p = _ring_p()
+    p = np.array(p)
+    slots = tsteps.neighbor_slots(jconsensus.edge_coloring(adj), M_REPL)
+    rows = np.arange(M_REPL)[:, None]
+    p_off = torch.as_tensor(np.where(slots != rows, p[rows, slots], 0.0).astype(np.float32))
+    p_diag = torch.as_tensor(np.diagonal(p).astype(np.float32))
+
+    def mix(tree, out=None):
+        if schedule == "dense":
+            return tmix.mix_tree(torch.as_tensor(p), tree, out=out)
+        return tmix.mix_sparse_tree(torch.as_tensor(slots), p_diag, p_off, tree, out=out)
+
+    whole = mix(tw)
+    monkeypatch.setattr(tmix, "FP32_SLAB", 7)
+    widths = [t.reshape(M_REPL, -1).shape[1] for t in tree_leaves(tw)]
+    assert any(len(tmix.slabs(t.reshape(M_REPL, -1))) > 1 for t in tree_leaves(tw))
+    assert all(sum(c.stop - c.start for c in tmix.slabs(t.reshape(M_REPL, -1))) == n
+               for t, n in zip(tree_leaves(tw), widths))
+    assert len(tmix.slabs(torch.zeros((M_REPL, 20), dtype=torch.bfloat16))) == 1
+    split = mix(tw)
+    want = jmix.mix_tree(jnp.asarray(p), jw, interpret=True)
+    for a, b, w in zip(tree_leaves(split), tree_leaves(whole), jax.tree.leaves(want)):
+        if schedule == "neighbor":
+            assert torch.equal(a, b)
+        _close(a, b, "float32")
+        _close(a, w, "float32")
+    out = mix(tw, out=tw)
+    assert all(a is b for a, b in zip(tree_leaves(out), tree_leaves(tw)))
+    for a, b in zip(tree_leaves(out), tree_leaves(split)):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
@@ -419,9 +459,12 @@ def test_train_cli_resume_continues_bit_for_bit(tmp_path, capsys):
 
 
 def test_train_entry_point_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # a mesh over several ranks needs them (torchrun); one process refuses
+    for env in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(env, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         ttrain.main(["--arch", ARCH, "--smoke", "--model", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="torchrun"):
         ttrain.main(["--arch", ARCH, "--smoke", "--devices", "8", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):  # the default device is the card
@@ -458,3 +501,30 @@ def test_reference_bf16_checkpoint_restores_and_bytes_match(tmp_path):
     tckpt.save(str(tmp_path / "port"), 3, port)
     assert ((tmp_path / "port" / "step_3.msgpack").read_bytes()
             == (tmp_path / "ref" / "step_3.msgpack").read_bytes())
+
+
+def test_checkpoint_splits_an_array_past_one_bin(tmp_path, monkeypatch):
+    """An array of more bytes than a msgpack bin holds is written as a list
+    of bins and restores bit for bit; one that fits stays a single bin (the
+    reference's encoding).  The bin's size is cut to a few bytes here."""
+    monkeypatch.setattr(tckpt, "BIN_MAX", 40)
+    monkeypatch.setattr(tckpt, "BIN_CHUNK", 16)
+    rng = np.random.default_rng(12)
+    tree = {"big16": torch.from_numpy(rng.normal(size=(3, 7)).astype(np.float32))
+            .to(torch.bfloat16),
+            "big32": torch.from_numpy(rng.normal(size=(5, 3)).astype(np.float32)),
+            "np": rng.normal(size=(11,)),
+            "small": torch.from_numpy(rng.normal(size=(10,)).astype(np.float32))}
+    tckpt.save(str(tmp_path), 1, tree)
+    raw = tckpt.unpackb((tmp_path / "step_1.msgpack").read_bytes())
+    for name in ("big16", "big32", "np"):
+        chunks = raw[name]["data"]
+        assert isinstance(chunks, list) and len(chunks) > 1, name
+        assert all(0 < len(c) <= 16 for c in chunks), name
+    assert isinstance(raw["small"]["data"], bytes) and len(raw["small"]["data"]) == 40
+    back = tckpt.restore(str(tmp_path), 1)
+    assert back["big16"].dtype == torch.bfloat16
+    assert torch.equal(back["big16"].view(torch.int16), tree["big16"].view(torch.int16))
+    assert np.array_equal(back["big32"], tree["big32"].numpy())
+    assert np.array_equal(back["np"], tree["np"])
+    assert np.array_equal(back["small"], tree["small"].numpy())
